@@ -1,0 +1,311 @@
+// Paged decode attention (full mode) for Hopper, sm_90a.
+//
+// Replaces the TPU Pallas body `paged_kernel` in
+// src/repro/kernels/paged_attention/kernel.py:52 (reached through
+// `paged_attention_pallas`). It computes the same function: one query token
+// per sequence attends, GQA-grouped, over the KV that the sequence's block
+// table scatters through the pool; online softmax in f32; keys at or past
+// seq_len are never read; the output is acc / max(l, 1e-30), so an inactive
+// slot (seq_len == 0) writes zeros.
+//
+// Layouts (all contiguous): q (B, H, hd); k_pool / v_pool (N, bs, Hkv, hd);
+// tables (B, P) int32; lens (B,) int32; out (B, H, hd) in the pool's type.
+// Query head h = kvh * groups + g, as the reference's reshape (Hkv, groups).
+//
+// Bound. Decoding reads every live key and value once and does 4·H·hd
+// flops per key, far below the card's flop/byte ratio, so the floor is the
+// bytes of K/V actually read: sum_b len_b · Hkv · hd · 2 · itemsize over
+// 3.35 TB/s.
+//
+// Design for that bound (simple: no wgmma, TMA or cp.async pipeline yet):
+//   * split-K: block (b, kvh, split) covers keys [split·S, split·S + S) of
+//     one sequence and kv head (S = split_tokens, 256 on the main path), so
+//     a batch of 8 still puts B·Hkv·splits blocks on the 132 SMs. Blocks
+//     whose range starts at or past seq_len exit at once; only pages
+//     p < ceil(len / bs) are ever read. A second small kernel merges the
+//     splits' (m, l, acc) in f32.
+//   * each K/V row is loaded from device memory once, by one block, in
+//     16-byte vectors, into a 32-key shared-memory tile that all `groups`
+//     query rows of the kv head share; keys >= len in the last tile are
+//     zero-filled and masked, never read;
+//   * warp w owns query row g0 + w: lane j scores key j of the tile (a
+//     full hd-long dot product from shared memory, rows padded so the 32
+//     lanes hit 32 banks), the tile's max and sum are two warp reductions,
+//     and p·V runs with lanes owning head dims.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarps = 8;           // query rows per pass, one per warp
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 32;           // keys per shared-memory tile, one per lane
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Row padding in elements: makes the row stride an odd number of 4-byte
+// words, so lane j reading row j spreads over all 32 banks.
+template <typename T>
+__host__ __device__ constexpr int row_pad() { return sizeof(T) == 2 ? 2 : 1; }
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+// Dot product of an f32 row (shared memory, broadcast) with a row of T.
+__device__ __forceinline__ float dot_row(const float* q, const float* k,
+                                         int hd) {
+  float s = 0.f;
+  for (int d = 0; d < hd; ++d) s += q[d] * k[d];
+  return s;
+}
+__device__ __forceinline__ float dot_row(const float* q,
+                                         const __nv_bfloat16* k, int hd) {
+  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(k);
+  const float2* q2 = reinterpret_cast<const float2*>(q);
+  float s = 0.f;
+  for (int d = 0; d < hd / 2; ++d) {
+    const float2 kf = __bfloat1622float2(k2[d]);
+    const float2 qf = q2[d];
+    s += qf.x * kf.x + qf.y * kf.y;
+  }
+  return s;
+}
+
+// DPL: head dims per lane in p·V, ceil(hd / 32) rounded up to 1, 2, 4 or 8.
+template <typename T, int DPL>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k_pool,
+                          const T* __restrict__ v_pool,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ lens,
+                          float* __restrict__ part_m,
+                          float* __restrict__ part_l,
+                          float* __restrict__ part_acc, int H, int Hkv, int hd,
+                          int bs, int P, int split_tokens, int n_splits,
+                          float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = hd + row_pad<T>();
+  T* k_s = reinterpret_cast<T*>(smem_raw);            // [kTile][ld]
+  T* v_s = k_s + kTile * ld;                          // [kTile][ld]
+  float* q_s = reinterpret_cast<float*>(v_s + kTile * ld);  // [kWarps][hd]
+
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int len = lens[b];
+  const int t_begin = split * split_tokens;
+  if (t_begin >= len) return;                 // the merge skips this split
+  const int t_end = min(len, t_begin + split_tokens);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int groups = H / Hkv;
+  const int* table = tables + static_cast<int64_t>(b) * P;
+  const int64_t token_stride = static_cast<int64_t>(Hkv) * hd;
+  constexpr int kVec = 16 / sizeof(T);        // elements per 16-byte load
+  const int vec_per_row = hd / kVec;          // hd % 8 == 0: exact
+
+  for (int g0 = 0; g0 < groups; g0 += kWarps) {
+    const int ng = min(kWarps, groups - g0);
+    const int64_t q_row0 = static_cast<int64_t>(b) * H + kvh * groups + g0;
+    for (int i = threadIdx.x; i < ng * hd; i += kThreads)
+      q_s[i] = to_f32(q[q_row0 * hd + i]);
+    const bool active = warp < ng;            // warp-uniform
+
+    float m = kNegInf;
+    float l = 0.f;
+    float acc[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+
+    for (int t0 = t_begin; t0 < t_end; t0 += kTile) {
+      // cooperative tile load: rows t0 .. t0 + 31, zeros past t_end
+      for (int i = threadIdx.x; i < kTile * vec_per_row; i += kThreads) {
+        const int r = i / vec_per_row;
+        const int c = (i % vec_per_row) * kVec;
+        const int t = t0 + r;
+        uint4 kx = make_uint4(0u, 0u, 0u, 0u);
+        uint4 vx = make_uint4(0u, 0u, 0u, 0u);
+        if (t < t_end) {
+          const int64_t blk = table[t / bs];
+          const int64_t off = (blk * bs + t % bs) * token_stride +
+                              static_cast<int64_t>(kvh) * hd + c;
+          kx = *reinterpret_cast<const uint4*>(k_pool + off);
+          vx = *reinterpret_cast<const uint4*>(v_pool + off);
+        }
+        uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + r * ld + c);
+        uint32_t* vd = reinterpret_cast<uint32_t*>(v_s + r * ld + c);
+        kd[0] = kx.x; kd[1] = kx.y; kd[2] = kx.z; kd[3] = kx.w;
+        vd[0] = vx.x; vd[1] = vx.y; vd[2] = vx.z; vd[3] = vx.w;
+      }
+      __syncthreads();
+
+      if (active) {
+        const bool valid = t0 + lane < t_end;
+        const float s = valid
+            ? dot_row(q_s + warp * hd, k_s + lane * ld, hd) * scale
+            : kNegInf;
+        const float m_new = fmaxf(m, warp_max(s));
+        const float corr = expf(m - m_new);
+        const float p = valid ? expf(s - m_new) : 0.f;
+        l = l * corr + warp_sum(p);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[i] *= corr;
+        const int nt = min(kTile, t_end - t0);
+        for (int j = 0; j < nt; ++j) {
+          const float pj = __shfl_sync(kFull, p, j);
+          const T* vr = v_s + j * ld;
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int d = lane + 32 * i;
+            if (d < hd) acc[i] += pj * to_f32(vr[d]);
+          }
+        }
+        m = m_new;
+      }
+      __syncthreads();                        // the tile is reloaded next
+    }
+
+    if (active) {
+      const int64_t row = (q_row0 + warp) * n_splits + split;
+      if (lane == 0) {
+        part_m[row] = m;
+        part_l[row] = l;
+      }
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < hd) part_acc[row * hd + d] = acc[i];
+      }
+    }
+  }
+}
+
+// One block per (b, h): merge the live splits' partial softmax states.
+template <typename T>
+__global__ void paged_decode_merge_kernel(const float* __restrict__ part_m,
+                                          const float* __restrict__ part_l,
+                                          const float* __restrict__ part_acc,
+                                          const int* __restrict__ lens,
+                                          T* __restrict__ out, int H, int hd,
+                                          int split_tokens, int n_splits) {
+  const int64_t bh = blockIdx.x;
+  const int len = lens[bh / H];
+  const int used = (len + split_tokens - 1) / split_tokens;
+  const int64_t row0 = bh * n_splits;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float m_all = kNegInf;
+    for (int s = 0; s < used; ++s) m_all = fmaxf(m_all, part_m[row0 + s]);
+    float l_all = 0.f;
+    float a_all = 0.f;
+    for (int s = 0; s < used; ++s) {
+      const float c = expf(part_m[row0 + s] - m_all);
+      l_all += part_l[row0 + s] * c;
+      a_all += part_acc[(row0 + s) * hd + d] * c;
+    }
+    out[bh * hd + d] = from_f32<T>(a_all / fmaxf(l_all, 1e-30f));
+  }
+}
+
+template <typename T, int DPL>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const int* tables, const int* lens, void* out,
+                   float* workspace, int B, int H, int Hkv, int hd, int bs,
+                   int P, int split_tokens, float scale, cudaStream_t stream) {
+  const int n_splits = (P * bs + split_tokens - 1) / split_tokens;
+  const int64_t rows = static_cast<int64_t>(B) * H * n_splits;
+  float* part_m = workspace;
+  float* part_l = part_m + rows;
+  float* part_acc = part_l + rows;
+  const size_t smem = 2 * sizeof(T) * kTile * (hd + row_pad<T>()) +
+                      sizeof(float) * kWarps * hd;
+  auto split_kernel = paged_decode_split_kernel<T, DPL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  split_kernel<<<dim3(B, Hkv, n_splits), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), tables, lens, part_m, part_l, part_acc,
+      H, Hkv, hd, bs, P, split_tokens, n_splits, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int merge_threads = ((hd + 31) / 32) * 32;
+  paged_decode_merge_kernel<T><<<B * H, merge_threads, 0, stream>>>(
+      part_m, part_l, part_acc, lens, static_cast<T*>(out), H, hd,
+      split_tokens, n_splits);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_hd(const void* q, const void* k_pool, const void* v_pool,
+                        const int* tables, const int* lens, void* out,
+                        float* workspace, int B, int H, int Hkv, int hd,
+                        int bs, int P, int split_tokens, float scale,
+                        cudaStream_t stream) {
+  if (hd <= 32)
+    return launch<T, 1>(q, k_pool, v_pool, tables, lens, out, workspace, B, H,
+                        Hkv, hd, bs, P, split_tokens, scale, stream);
+  if (hd <= 64)
+    return launch<T, 2>(q, k_pool, v_pool, tables, lens, out, workspace, B, H,
+                        Hkv, hd, bs, P, split_tokens, scale, stream);
+  if (hd <= 128)
+    return launch<T, 4>(q, k_pool, v_pool, tables, lens, out, workspace, B, H,
+                        Hkv, hd, bs, P, split_tokens, scale, stream);
+  return launch<T, 8>(q, k_pool, v_pool, tables, lens, out, workspace, B, H,
+                      Hkv, hd, bs, P, split_tokens, scale, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked shapes,
+// types, contiguity, 16-byte alignment, 8 <= hd <= 256 with hd % 8 == 0 and
+// split_tokens % 32 == 0, and allocated `workspace`: B · H · n_splits ·
+// (hd + 2) floats, n_splits = ceil(P · bs / split_tokens). Returns the
+// launches' cudaError_t (0 on success).
+extern "C" int paged_attention_decode(const void* q, const void* k_pool,
+                                      const void* v_pool, const void* tables,
+                                      const void* lens, void* out,
+                                      void* workspace, int B, int H, int Hkv,
+                                      int hd, int bs, int P, int split_tokens,
+                                      float scale, int dtype, void* stream) {
+  if (B == 0) return 0;
+  const int* tbl = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lens);
+  float* ws = static_cast<float*>(workspace);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_hd<float>(q, k_pool, v_pool, tbl, ln, out, ws, B, H, Hkv,
+                              hd, bs, P, split_tokens, scale, s);
+  if (dtype == 1)
+    return dispatch_hd<__nv_bfloat16>(q, k_pool, v_pool, tbl, ln, out, ws, B,
+                                      H, Hkv, hd, bs, P, split_tokens, scale,
+                                      s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,183 @@
+"""Per-layer-kind sequence-state providers (full-attention subset).
+
+Mirrors ``repro.models.state_providers``: one provider per layer *state
+kind*, which builds the layer's device state and tells the host scheduler
+what a sequence costs in blocks. This slice of the port serves the ``full``
+kind (paged KV, prefix caching); the ring, rwkv and mamba kinds raise
+``NotImplementedError`` until their slice lands.
+
+Dropped writes. The reference scatters inactive or padding rows to block id
+N with ``mode="drop"``; PyTorch has no drop mode, and index N would raise
+(CPU) or device-assert (CUDA). So every pool holds one extra *scratch block*
+at index N that ``BlockPool`` never hands out: dropped rows are routed there
+with ``torch.where`` — no host sync, no read-modify-write of live blocks.
+Nothing ever reads the scratch block; compare pools with the reference's on
+``[:N]``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+# ------------------------------------------------------------- KV allocation
+def alloc_kv_pool(lead_shape, hkv: int, hd: int, dtype, device):
+    """THE allocator for K/V storage: {"k", "v"} of lead + (hkv, hd) in
+    `dtype`, zero-filled (tests/test_torch_port_rules.py fences raw KV
+    dicts elsewhere)."""
+    shape = tuple(lead_shape) + (hkv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ----------------------------------------------------------- layer kind lists
+def superblock_layout(cfg: ModelConfig):
+    """Returns (n_superblocks, layers_per_superblock)."""
+    if cfg.family == "hybrid":
+        per = cfg.hybrid_ssm_per_attn + 1
+        return cfg.num_layers // per, per
+    if cfg.attention_type == "local_global":
+        per = cfg.local_global_ratio + 1
+        return cfg.num_layers // per, per
+    return cfg.num_layers, 1
+
+
+def layer_kinds(cfg: ModelConfig):
+    """Static list of layer kinds within one superblock."""
+    if cfg.family == "hybrid":
+        return ["mamba"] * cfg.hybrid_ssm_per_attn + ["shared_attn"]
+    if cfg.attention_type == "local_global":
+        return ["local"] * cfg.local_global_ratio + ["global"]
+    if cfg.family == "ssm":
+        return ["rwkv"]
+    if cfg.num_experts:
+        return ["moe_attn"]
+    return ["attn"]
+
+
+def state_kind(layer_kind: str, cfg: ModelConfig) -> str:
+    """Map a layer kind to its sequence-state kind."""
+    if layer_kind in ("global", "shared_attn"):
+        return "full"
+    if layer_kind == "local":
+        return "ring"
+    if layer_kind in ("attn", "moe_attn"):
+        return "ring" if cfg.attention_type == "sliding" else "full"
+    if layer_kind == "rwkv":
+        return "rwkv"
+    if layer_kind == "mamba":
+        return "mamba"
+    raise ValueError(f"unknown layer kind {layer_kind!r}")
+
+
+def state_kinds(cfg: ModelConfig):
+    """Per-layer state kinds within one superblock (static)."""
+    return [state_kind(k, cfg) for k in layer_kinds(cfg)]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ------------------------------------------------------------------ providers
+@dataclass(frozen=True)
+class _PagedPoolProvider:
+    """Shared machinery of the block-pooled KV providers: pool tensor
+    layout (plus the scratch block), per-slot KV bytes, and the block-axis
+    defrag gather."""
+    cfg: ModelConfig
+    num_blocks: int
+    block_size: int
+    max_blocks_per_seq: Optional[int] = None
+
+    def init_layer_state(self, n_sb: int, device):
+        """(n_sb, num_blocks + 1, bs, Hkv, hd) pools, one per superblock;
+        block num_blocks is the scratch block that absorbs dropped
+        writes."""
+        hkv, hd = self.cfg.num_kv_heads, self.cfg.resolved_head_dim
+        return alloc_kv_pool((n_sb, self.num_blocks + 1, self.block_size),
+                             hkv, hd, L.dtype_of(self.cfg), device)
+
+    def _bytes_per_token(self) -> int:
+        """KV bytes one stored token costs in this pool (both K and V)."""
+        hkv, hd = self.cfg.num_kv_heads, self.cfg.resolved_head_dim
+        return 2 * hkv * hd * L.dtype_of(self.cfg).itemsize
+
+    def state_bytes_per_slot(self, total_tokens: int) -> int:
+        return (self.blocks_needed(total_tokens) * self.block_size
+                * self._bytes_per_token())
+
+    def defrag_remap(self, state, perm):
+        """state leaves: (n_sb, N + 1, bs, Hkv, hd); perm (N,): new[i] =
+        old[perm[i]]. The gather reads into a new tensor before the copy
+        back, so no block is overwritten before it is read."""
+        for a in state.values():
+            a[:, :self.num_blocks] = a[:, perm]
+        return state
+
+
+@dataclass(frozen=True)
+class PagedKVProvider(_PagedPoolProvider):
+    """Full-attention paged KV: O(S) blocks per sequence, prefix caching."""
+
+    kind = "full"
+    supports_prefix_caching = True
+
+    def blocks_needed(self, total_tokens: int) -> int:
+        return _ceil_div(total_tokens, self.block_size)
+
+    def max_tokens(self) -> Optional[int]:
+        """Context bound imposed by the block-table width (None = unbounded)."""
+        if self.max_blocks_per_seq is None:
+            return None
+        return self.max_blocks_per_seq * self.block_size
+
+
+_LATER = {"ring": "ring-paged sliding-window KV (ROADMAP A8)",
+          "rwkv": "recurrent rwkv6 slabs (ROADMAP A9)",
+          "mamba": "recurrent mamba2 slabs (ROADMAP A9)"}
+
+
+# ----------------------------------------------------------------- assembly
+def provider_for(skind: str, cfg: ModelConfig, *, num_blocks: int,
+                 block_size: int, max_blocks_per_seq: Optional[int] = None):
+    if skind == "full":
+        return PagedKVProvider(cfg, num_blocks, block_size, max_blocks_per_seq)
+    if skind in _LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: state kind {skind!r} — {_LATER[skind]} — comes in a "
+            f"later slice of the port")
+    raise ValueError(f"unknown state kind {skind!r}")
+
+
+def providers_for(cfg: ModelConfig, *, num_blocks: int, block_size: int,
+                  max_blocks_per_seq: Optional[int] = None):
+    """One provider per layer of a superblock, aligned with layer_kinds(cfg).
+    Layers of the same kind share a (frozen, equal) provider instance."""
+    cache = {}
+    out = []
+    for sk in state_kinds(cfg):
+        if sk not in cache:
+            cache[sk] = provider_for(sk, cfg, num_blocks=num_blocks,
+                                     block_size=block_size,
+                                     max_blocks_per_seq=max_blocks_per_seq)
+        out.append(cache[sk])
+    return out
+
+
+def seq_blocks_needed(providers, total_tokens: int) -> int:
+    """Blocks to reserve for one sequence of `total_tokens`: the max over
+    kinds (the block table is shared across layers)."""
+    return max((p.blocks_needed(total_tokens) for p in providers), default=0)
+
+
+def state_memory_per_slot(cfg: ModelConfig, providers, total_tokens: int) -> int:
+    """Whole-model sequence-state bytes for one busy slot at `total_tokens`
+    context (all superblocks)."""
+    n_sb, _ = superblock_layout(cfg)
+    return n_sb * sum(p.state_bytes_per_slot(total_tokens) for p in providers)

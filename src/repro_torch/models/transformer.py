@@ -1,0 +1,205 @@
+"""Decoder assembled from a ModelConfig: parameters and the paged entry
+points the serving engine drives (counterpart of ``repro.models.transformer``).
+
+Parameters are a plain dict with the reference's layout: per-layer weights
+are stacked on a leading superblock axis (n_sb, ...), so the JAX
+``init_params`` pytree converts leaf for leaf (``repro_torch.convert``) and
+``pool[sb]`` / ``weight[sb]`` are contiguous views. The reference's
+``lax.scan`` over superblocks is a Python loop here.
+
+Entry points:
+  init_params(cfg, seed=..., device=...)
+  init_paged_state(cfg, num_blocks, block_size, device=...)
+  paged_decode_step(cfg, params, pool, inputs, block_tables, positions, attn_lens)
+  paged_prefill_packed(cfg, params, pool, tokens, tables, starts, valids, slots)
+  paged_prefill_step(cfg, params, pool, tokens, table_row, start, valid_len, slot)
+
+This slice serves dense full-attention decoders (layer kind ``attn``);
+other families raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import state_providers as SP
+
+superblock_layout = SP.superblock_layout
+_layer_kinds = SP.layer_kinds
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a config outside this slice of the port."""
+    kinds = _layer_kinds(cfg)
+    SP.providers_for(cfg, num_blocks=1, block_size=1)   # raises on non-full
+    if kinds != ["attn"]:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {kinds} come in a later slice of the "
+            f"port (this slice serves dense full-attention decoders)")
+    if cfg.rope_mode not in ("standard", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: rope_mode {cfg.rope_mode!r} comes in a later slice")
+
+
+# ------------------------------------------------------------------ param init
+def param_specs(cfg: ModelConfig) -> dict:
+    """Nested dict of (shape, dtype, init) leaves, in the reference's
+    layout; init is "dense", "embed" or "ones"."""
+    check_supported(cfg)
+    n_sb, _ = superblock_layout(cfg)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt, f32 = L.dtype_of(cfg), torch.float32
+    layer = {
+        "ln1": {"scale": ((n_sb, d), f32, "ones")},
+        "attn": {"wq": ((n_sb, d, h * hd), dt, "dense"),
+                 "wk": ((n_sb, d, hkv * hd), dt, "dense"),
+                 "wv": ((n_sb, d, hkv * hd), dt, "dense"),
+                 "wo": ((n_sb, h * hd, d), dt, "dense")},
+        "ln2": {"scale": ((n_sb, d), f32, "ones")},
+        "mlp": {"w_gate": ((n_sb, d, f), dt, "dense"),
+                "w_in": ((n_sb, d, f), dt, "dense"),
+                "w_out": ((n_sb, f, d), dt, "dense")},
+    }
+    specs = {"embed": {"table": ((v, d), dt, "embed")},
+             "blocks": {"l0": layer},
+             "final_norm": {"scale": ((d,), f32, "ones")}}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = {"w": ((d, v), dt, "dense")}
+    return specs
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """Random weights made on `device` from a seeded ``torch.Generator``:
+    normal · 1/√fan_in for projections, normal · 0.02 for the embedding,
+    ones for norm scales (the reference's initialisers; the two frameworks'
+    generators give different numbers, so parity tests convert the JAX
+    weights instead). Stacked leaves are filled one superblock at a time to
+    bound the float32 temporaries."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def make(spec):
+        shape, dtype, init = spec
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=device)
+        if init == "embed":
+            return L.embed_init(shape, dtype, gen, device)
+        if len(shape) == 2:
+            return L.dense_init(shape, dtype, gen, device)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = L.dense_init(shape[1:], dtype, gen, device)
+        return out
+
+    return _map_specs(make, param_specs(cfg))
+
+
+def _at(tree, i):
+    """Superblock i of a stacked (n_sb, ...) dict tree, as views."""
+    return {k: _at(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def logits(cfg: ModelConfig, params, hidden):
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], hidden)
+    return hidden @ params["lm_head"]["w"]
+
+
+def _embed_tokens(cfg, params, tokens):
+    x = L.embed(params["embed"], tokens)
+    if cfg.family != "ssm":
+        x = x * float(np.sqrt(cfg.d_model))
+    return x
+
+
+# -------------------------------------------------------------- paged decode
+def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                     device="cuda"):
+    """Per-superblock, per-layer paged KV pools (n_sb, num_blocks + 1, bs,
+    Hkv, hd) — all layers share one block table per sequence, each layer
+    owns its pool storage, and block num_blocks is the scratch block."""
+    check_supported(cfg)
+    n_sb, _ = superblock_layout(cfg)
+    providers = SP.providers_for(cfg, num_blocks=num_blocks,
+                                 block_size=block_size)
+    return {f"l{i}": p.init_layer_state(n_sb, device)
+            for i, p in enumerate(providers)}
+
+
+def _attn_block(p, h_in, attn_out, cfg):
+    """Residual + MLP tail shared by every attention-layer dispatch."""
+    x = h_in + attn_out
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.swiglu(p["mlp"], h)
+
+
+def paged_decode_step(cfg: ModelConfig, params, pool, inputs, block_tables,
+                      positions, attn_lens):
+    """One-token decode for a continuous batch of slots. inputs: {"token":
+    (B,)}; block_tables: (B, P) int32; positions: (B,) absolute position of
+    each incoming token; attn_lens: (B,) int32 tokens to attend over
+    including the new one (0 = inactive slot). Returns (logits (B,V),
+    pool updated in place)."""
+    x = _embed_tokens(cfg, params, inputs["token"][:, None])
+    n_sb, _ = superblock_layout(cfg)
+    for sb in range(n_sb):
+        lp = _at(params["blocks"]["l0"], sb)
+        st = _at(pool["l0"], sb)
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, _ = A.attention_decode_paged(lp["attn"], h, st, block_tables,
+                                        positions, attn_lens, cfg)
+        x = _attn_block(lp, x, y, cfg)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits(cfg, params, x)[:, 0], pool
+
+
+def paged_prefill_packed(cfg: ModelConfig, params, pool, tokens, tables,
+                         starts, valids, slots):
+    """Segment-masked packed prefill: one prompt chunk per segment, all
+    segments in ONE call. tokens: (G, C) int32 — segment g's chunk starts
+    at absolute position `starts[g]` with the first `valids[g]` tokens real;
+    tables: (S, P) block-table rows indexed by `slots`. `slots[g] >= S`
+    marks an all-padding segment (valids[g] == 0): its table gather clamps
+    and its writes go to the scratch block. Returns (logits (G, V) of each
+    segment's last valid token, pool updated in place)."""
+    x = _embed_tokens(cfg, params, tokens)
+    rows = tables[torch.clamp(slots, max=tables.shape[0] - 1).long()]
+    n_sb, _ = superblock_layout(cfg)
+    for sb in range(n_sb):
+        lp = _at(params["blocks"]["l0"], sb)
+        st = _at(pool["l0"], sb)
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, _ = A.attention_prefill_paged(lp["attn"], h, st, rows, starts,
+                                         valids, cfg)
+        x = _attn_block(lp, x, y, cfg)
+    idx = torch.clamp(valids - 1, min=0).long()                   # (G,)
+    last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    last = L.rmsnorm(params["final_norm"], last, cfg.norm_eps)    # (G, 1, D)
+    return logits(cfg, params, last)[:, 0], pool
+
+
+def paged_prefill_step(cfg: ModelConfig, params, pool, tokens, table_row,
+                       start, valid_len, slot):
+    """Chunked prefill of ONE sequence (a G=1 packed call). tokens: (1, C)
+    chunk starting at absolute position `start`, first `valid_len` real;
+    `table_row` (P,). Returns (logits (1,V) of the chunk's last valid
+    token, pool)."""
+    dev = tokens.device
+
+    def one(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    return paged_prefill_packed(cfg, params, pool, tokens, table_row[None],
+                                one(start), one(valid_len), one(slot))

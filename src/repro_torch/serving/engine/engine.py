@@ -1,0 +1,517 @@
+"""Continuous-batching serving engine (port of ``repro.serving.engine.engine``).
+
+Wires the host-side scheduler + block-pool bookkeeping to three device step
+functions over the paged KV pools:
+
+  * ``prefill_fn`` — up to ``prefills_per_step`` prompt chunks of DIFFERENT
+    requests packed into one segment-masked call
+    (``transformer.paged_prefill_packed``), padded to a declared
+    (chunk-length x num-segments) bucket.
+  * ``decode_fn`` — one token for EVERY decoding slot at once
+    (``transformer.paged_decode_step``, whose attention is the hand-written
+    paged-decode kernel on CUDA); requests join and leave the batch between
+    steps, the shapes stay fixed at max_slots.
+  * ``copy_block_fn`` — the copy-on-write block duplication of prefix
+    caching.
+
+All per-slot batch state (next token, sequence lengths, active mask, block
+tables) lives on the device and greedy sampling happens on the device, so a
+steady-state decode step reads nothing back: the host queues step after
+step ahead of the card. Host<->device traffic happens at request lifecycle
+events (admit / prefill chunk / finish) and for stop_token scanning;
+generated tokens are recorded as (step vector, index) refs and materialized
+once at drain. Host-to-device copies are issued non-blocking.
+
+Unlike the reference, which donates and returns new pools, the step
+functions update the KV pools IN PLACE; the small per-slot vectors are
+replaced out of place, because recorded token refs may still point at an
+earlier step's vector.
+
+Prefix caching (``EngineConfig.prefix_caching``, on by default) aliases a
+new request's longest cached block-aligned prompt prefix read-only into its
+table, and prefills only the uncached tail. Telemetry
+(``EngineConfig.telemetry``, on by default) traces every request's
+lifecycle and keeps every counter in one registry (``serving.telemetry``).
+
+Not in this slice of the port: temperature sampling, oversubscription,
+speculative decoding, int8 KV, and the ring / recurrent / MoE families.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import state_providers as SP
+from repro_torch.models import transformer as T
+from repro_torch.serving import telemetry as TM
+from repro_torch.serving.engine.paged_cache import BlockPool
+from repro_torch.serving.engine.scheduler import (DECODING, FINISHED, Request,
+                                                  Scheduler,
+                                                  chunk_buckets_for,
+                                                  segment_buckets_for)
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    block_size: int = 16
+    num_blocks: int = 128
+    max_blocks_per_seq: int = 16        # block-table width P
+    max_slots: int = 8                  # max concurrent sequences
+    prefill_chunk: int = 32             # prompt tokens per prefill call
+    prefills_per_step: int = 1          # chunks interleaved per engine step
+    prefix_caching: bool = True         # alias cached prompt-prefix blocks
+    telemetry: bool = True              # lifecycle tracing + metrics registry
+    step_timing: bool = False           # synchronize per device call to time steps
+    prefill_buckets: tuple = ()         # chunk-length buckets; () = one
+                                        #   bucket of prefill_chunk tokens
+    packed_prefill: bool = True         # pack chunks into one prefill call
+
+    def __post_init__(self):
+        object.__setattr__(self, "prefill_buckets",
+                           tuple(self.prefill_buckets))
+
+
+def _step_fns(cfg):
+    """The device step functions (counterparts of the reference's jitted
+    decode_fn / prefill_fn / copy_block_fn). None of them reads a value
+    back to the host."""
+
+    def decode_fn(params, pool, tokens, tables, seq_lens, active):
+        positions = torch.where(active, seq_lens, 0)
+        attn_lens = torch.where(active, seq_lens + 1, 0)
+        logits, pool = T.paged_decode_step(
+            cfg, params, pool, {"token": tokens}, tables, positions,
+            attn_lens)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        return greedy, logits, seq_lens + active.to(torch.int32), pool
+
+    def prefill_fn(params, pool, tokens, tables, starts, valids, slots):
+        # packed: tokens (G, C) — one bucket-padded chunk per segment;
+        # starts/valids/slots (G,). Padded segments carry valid == 0 and
+        # slot == max_slots (sentinel), so their writes go to the scratch
+        # block.
+        logits, pool = T.paged_prefill_packed(
+            cfg, params, pool, tokens, tables, starts, valids, slots)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        return greedy, logits, pool
+
+    def copy_block_fn(pool, src, dst):
+        # copy-on-write: duplicate one KV block (all layers) so a request
+        # whose prompt is fully cached can re-run its last token privately
+        for st in pool.values():
+            for a in st.values():
+                a[:, dst] = a[:, src]
+        return pool
+
+    return decode_fn, prefill_fn, copy_block_fn
+
+
+def _set(vec, i, value):
+    """Out-of-place ``vec[i] = value``: the old vector may still be
+    referenced by recorded (step vector, index) token refs."""
+    out = vec.clone()
+    out[i] = value
+    return out
+
+
+class Engine:
+    def __init__(self, cfg, params, engine_cfg: EngineConfig = None, *,
+                 device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Engine runs on cuda by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain versions")
+        leaf = params["embed"]["table"]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params live on {leaf.device}, engine device "
+                             f"is {self.device}")
+        self.cfg = cfg
+        self.ecfg = engine_cfg or EngineConfig()
+        self.params = params
+        e = self.ecfg
+
+        self.providers = SP.providers_for(
+            cfg, num_blocks=e.num_blocks, block_size=e.block_size,
+            max_blocks_per_seq=e.max_blocks_per_seq)
+        self.prefix_caching = (e.prefix_caching and all(
+            p.supports_prefix_caching for p in self.providers))
+
+        self.telemetry = TM.Telemetry(enabled=e.telemetry,
+                                      step_timing=e.step_timing)
+        reg = self.telemetry.registry
+        self._m_decode_steps = reg.counter(
+            "engine_decode_steps_total", "batched decode steps dispatched")
+        self._m_prefill_chunks = reg.counter(
+            "engine_prefill_chunks_total", "prompt prefill chunks dispatched")
+        self._m_emitted = reg.counter(
+            "engine_tokens_emitted_total", "tokens emitted across requests")
+        self._m_occupancy = reg.counter(
+            "engine_occupancy_sum",
+            "sum over decode steps of decode_batch/max_slots")
+        self._m_prefix_hits = reg.counter(
+            "engine_prefix_hit_tokens_total",
+            "prompt tokens served from the prefix cache")
+        self._m_cow = reg.counter(
+            "engine_cow_copies_total", "copy-on-write block duplications")
+        self._m_defrags = reg.counter(
+            "engine_defrags_total", "pool defragmentation passes")
+        self._m_step_syncs = reg.counter(
+            "engine_step_vector_syncs_total",
+            "step vectors materialized on host for stop_token scanning")
+        self._g_waiting = reg.gauge(
+            "engine_waiting_requests", "requests queued awaiting admission")
+        self._g_running = reg.gauge(
+            "engine_running_requests", "requests prefilling or decoding")
+        self._g_free_blocks = reg.gauge(
+            "pool_free_blocks", "allocatable blocks (incl. cached-free)")
+        self._h_queue_wait = reg.histogram(
+            "engine_request_queue_wait_seconds", "arrive -> admit wait")
+        self._h_ttft = reg.histogram(
+            "engine_request_ttft_seconds", "arrive -> first token")
+        self._h_e2e = reg.histogram(
+            "engine_request_e2e_seconds", "arrive -> finish")
+
+        self.pool_state = T.init_paged_state(cfg, e.num_blocks, e.block_size,
+                                             device=self.device)
+        on_evict = ((lambda b: self.telemetry.record(None, "evict", block=b))
+                    if self.telemetry.enabled else None)
+        self.block_pool = BlockPool(e.num_blocks, e.block_size,
+                                    registry=reg, on_evict=on_evict)
+        self.chunk_buckets = chunk_buckets_for(e.prefill_chunk,
+                                               e.prefill_buckets)
+        self.segment_buckets = segment_buckets_for(e.prefills_per_step,
+                                                   e.packed_prefill)
+        self.prefill_grid = [(c, g) for c in self.chunk_buckets
+                             for g in self.segment_buckets]
+        self._m_bucket = {
+            (c, g): reg.counter(
+                f"engine_prefill_bucket_c{c}g{g}_dispatch_total",
+                f"prefill dispatches at chunk bucket {c} x {g} segments")
+            for c, g in self.prefill_grid}
+        self.scheduler = Scheduler(
+            self.block_pool, max_slots=e.max_slots,
+            max_blocks_per_seq=e.max_blocks_per_seq,
+            prefill_chunk=e.prefill_chunk,
+            prefills_per_step=e.prefills_per_step,
+            prefix_caching=self.prefix_caching,
+            block_cost=self.blocks_needed,
+            chunk_buckets=self.chunk_buckets,
+            segment_buckets=self.segment_buckets,
+            packed_prefill=e.packed_prefill)
+
+        # device-resident slot state (touched from the host only at request
+        # lifecycle events; the decode loop never reads it back)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self.tables = torch.zeros((e.max_slots, e.max_blocks_per_seq), **i32)
+        self.seq_lens = torch.zeros((e.max_slots,), **i32)
+        self.active = torch.zeros((e.max_slots,), dtype=torch.bool,
+                                  device=self.device)
+        self.next_tok = torch.zeros((e.max_slots,), **i32)
+
+        self._next_rid = 0
+        self.requests: dict = {}        # rid -> Request (all ever submitted)
+
+        self._decode, self._prefill, self._copy_block = _step_fns(cfg)
+        if self.telemetry.enabled:
+            wrap = self.telemetry.recompiles.wrap
+            self._decode = wrap("decode", self._decode)
+            self._prefill = wrap("prefill", self._prefill)
+            self._copy_block = wrap("copy_block", self._copy_block)
+        self._step_device_s = 0.0
+        self._warmup_prefill()
+
+    def _to_device(self, a: np.ndarray):
+        # non-blocking: CUDA stages a pageable source before returning, so
+        # the host queues the copy without waiting for the card
+        return torch.from_numpy(a).to(self.device, non_blocking=True)
+
+    def _warmup_prefill(self) -> None:
+        """Drive every declared (chunk x segments) prefill bucket through the
+        prefill fn once at construction (the reference compiles them here;
+        on the card this brings up the libraries' handles and workspaces
+        before serving). All-padding arguments (valids == 0, slot ==
+        max_slots sentinel) send every write to the scratch block, so the
+        pools' blocks [0, num_blocks) are untouched."""
+        e = self.ecfg
+        i32 = dict(dtype=torch.int32, device=self.device)
+        for c, g in self.prefill_grid:
+            self._device_call(
+                "engine/warmup_prefill", self._prefill,
+                self.params, self.pool_state, torch.zeros((g, c), **i32),
+                self.tables, torch.zeros((g,), **i32),
+                torch.zeros((g,), **i32), torch.full((g,), e.max_slots, **i32))
+
+    @property
+    def stats(self) -> dict:
+        """Snapshot of the registry-backed engine counters (read-only view;
+        the full metric set lives in ``self.telemetry.registry``)."""
+        return {"decode_steps": self._m_decode_steps.value,
+                "prefill_chunks": self._m_prefill_chunks.value,
+                "emitted": self._m_emitted.value,
+                "occupancy_sum": self._m_occupancy.value,
+                "prefix_hit_tokens": self._m_prefix_hits.value,
+                "cow_copies": self._m_cow.value}
+
+    def bucket_dispatches(self) -> dict:
+        """Serving-time prefill dispatch counts per declared (chunk_len,
+        num_segments) bucket (warmup calls are not counted)."""
+        return {k: int(m.value) for k, m in self._m_bucket.items()}
+
+    # ----------------------------------------------------------------- API
+    def blocks_needed(self, total_tokens: int) -> int:
+        """Blocks one sequence of `total_tokens` reserves: the max over the
+        per-kind provider costs (the block table is shared across layers)."""
+        return SP.seq_blocks_needed(self.providers, total_tokens)
+
+    def add_request(self, prompt, max_new: int, *, temperature: float = 0.0,
+                    stop_token: Optional[int] = None) -> int:
+        """Queue a greedy request; returns its id. `prompt`: 1-D int tokens.
+
+        Validates up front that prompt + generation budget fits both the
+        per-sequence block table and the whole pool, so infeasible requests
+        fail here with the offending numbers."""
+        if temperature > 0.0:
+            raise NotImplementedError(
+                "temperature sampling comes in a later slice of the port; "
+                "this engine serves greedy requests")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.shape[0] < 1:
+            raise ValueError("prompt must contain at least one token")
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        e = self.ecfg
+        total = prompt.shape[0] + max_new
+        need = self.blocks_needed(total)
+        if need > e.max_blocks_per_seq:
+            raise ValueError(
+                f"request infeasible: prompt_len {prompt.shape[0]} + max_new "
+                f"{max_new} = {total} tokens needs {need} blocks > "
+                f"max_blocks_per_seq {e.max_blocks_per_seq} "
+                f"(= {e.max_blocks_per_seq * e.block_size} tokens at "
+                f"block_size {e.block_size})")
+        if need > e.num_blocks:
+            raise ValueError(
+                f"request infeasible: prompt_len {prompt.shape[0]} + max_new "
+                f"{max_new} = {total} tokens needs {need} blocks > pool "
+                f"budget num_blocks {e.num_blocks}")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid=rid, prompt=prompt, max_new=max_new,
+                      stop_token=stop_token)
+        self.requests[rid] = req
+        self.scheduler.submit(req)
+        self.telemetry.record(rid, "arrive", prompt_len=int(prompt.shape[0]),
+                              max_new=int(max_new))
+        return rid
+
+    def _device_call(self, span: str, fn, *args):
+        """Dispatch one step function under a labeled profiler span. In the
+        timing path (`step_timing`) only, synchronize so the measured
+        interval is device completion rather than the enqueue, and add it
+        to the current step's device time."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return fn(*args)
+        with tel.span(span):
+            if not tel.step_timing:
+                return fn(*args)
+            t0 = tel.clock()
+            out = fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._step_device_s += tel.clock() - t0
+            return out
+
+    def step(self) -> list:
+        """One engine iteration: admit -> prefill chunk(s) -> batched decode.
+        Returns the rids that emitted a token this step (token values are
+        materialized lazily — read them via `drain()` / `output()`)."""
+        e = self.ecfg
+        tel = self.telemetry
+        emitted = []
+        self._step_device_s = 0.0
+        t_step = tel.clock() if tel.step_timing else 0.0
+        n_prefills = 0
+        sync_memo = {}                  # one host transfer per step vector
+
+        for req in self.scheduler.admit():
+            row = self.block_pool.table(req.rid)
+            padded = np.zeros((e.max_blocks_per_seq,), np.int32)
+            padded[:len(row)] = row
+            self.tables[req.slot] = self._to_device(padded)
+            self._m_prefix_hits.inc(req.prefilled)
+            if tel.enabled:
+                t_admit = tel.record(req.rid, "admit", slot=req.slot)
+                t_arrive = tel.tracer.first(req.rid, "arrive")
+                if t_arrive is not None:
+                    self._h_queue_wait.observe(t_admit - t_arrive)
+                if req.prefilled:
+                    tel.record(req.rid, "prefix_hit", tokens=req.prefilled,
+                               blocks=req.shared_blocks
+                               + (1 if req.cow_src is not None else 0))
+            self.seq_lens = _set(self.seq_lens, req.slot, req.prefilled)
+            if req.cow_src is not None:
+                # whole prefill cached: copy the last matched block into the
+                # private block at its table position, then re-prefill only
+                # the final token there (yields the first-token logits)
+                dst = row[req.prefill_len // e.block_size - 1]
+                self.pool_state = self._device_call(
+                    "engine/copy_block", self._copy_block,
+                    self.pool_state, int(req.cow_src), int(dst))
+                self._m_cow.inc()
+
+        for batch in self.scheduler.next_prefills():
+            # one segment-masked device call per batch: segment j carries
+            # request j's chunk, padded to the (C, G) bucket; missing
+            # segments get valid=0 and the out-of-range slot sentinel
+            C, G = batch.chunk_len, batch.num_segments
+            tokens = np.zeros((G, C), np.int32)
+            starts = np.zeros((G,), np.int32)
+            valids = np.zeros((G,), np.int32)
+            slots = np.full((G,), e.max_slots, np.int32)
+            for j, (req, start, valid) in enumerate(batch.segments):
+                tokens[j, :valid] = req.prefill_src[start:start + valid]
+                starts[j], valids[j], slots[j] = start, valid, req.slot
+            greedy, logits, self.pool_state = self._device_call(
+                "engine/prefill", self._prefill,
+                self.params, self.pool_state, self._to_device(tokens),
+                self.tables, self._to_device(starts), self._to_device(valids),
+                self._to_device(slots))
+            self._m_bucket[(C, G)].inc()
+            for j, (req, start, valid) in enumerate(batch.segments):
+                req.prefilled += valid
+                self.scheduler.register_prefilled(req)
+                self.seq_lens = _set(self.seq_lens, req.slot, req.prefilled)
+                self._m_prefill_chunks.inc()
+                n_prefills += 1
+                tel.record(req.rid, "prefill_chunk", start=start, tokens=valid)
+                if req.prefilled == req.prefill_len:
+                    # prefill complete: segment j's logits yield the
+                    # request's first token
+                    self._record_token(req, greedy, j, sync_memo)
+                    emitted.append(req.rid)
+                    if tel.enabled:
+                        t_first = tel.record(req.rid, "first_token")
+                        t_arrive = tel.tracer.first(req.rid, "arrive")
+                        if t_arrive is not None:
+                            self._h_ttft.observe(t_first - t_arrive)
+                    req.state = DECODING
+                    self.active = _set(self.active, req.slot, True)
+                    if req.done:
+                        self._finish(req)
+
+        batch = self.scheduler.decode_batch()
+        if batch:
+            greedy, logits, self.seq_lens, self.pool_state = self._device_call(
+                "engine/decode", self._decode,
+                self.params, self.pool_state, self.next_tok, self.tables,
+                self.seq_lens, self.active)
+            self.next_tok = greedy
+            self._m_decode_steps.inc()
+            self._m_occupancy.inc(len(batch) / e.max_slots)
+            for req in batch:
+                self._record_token(req, greedy, req.slot, sync_memo)
+                emitted.append(req.rid)
+                tel.record(req.rid, "decode_token")
+                if req.done:
+                    self._finish(req)
+
+        self._m_emitted.inc(len(emitted))
+        if tel.enabled:
+            self._g_waiting.set(len(self.scheduler.waiting))
+            self._g_running.set(len(self.scheduler.running))
+            self._g_free_blocks.set(self.block_pool.num_free)
+            if tel.step_timing:
+                total = tel.clock() - t_step
+                tel.record_step(
+                    host_s=total - self._step_device_s,
+                    device_s=self._step_device_s, prefills=n_prefills,
+                    decode_batch=len(batch), emitted=len(emitted))
+        return emitted
+
+    def drain(self, max_steps: int = 100_000) -> dict:
+        """Run steps until every queued request finished; returns
+        {rid: np.ndarray of generated tokens} for ALL finished requests."""
+        steps = 0
+        while self.scheduler.has_work:
+            if steps >= max_steps:      # permit exactly max_steps steps
+                raise RuntimeError("drain did not converge")
+            self.step()
+            steps += 1
+        memo = {}                       # one transfer per unique step vector
+        return {rid: self._materialize(r, memo)
+                for rid, r in self.requests.items() if r.state == FINISHED}
+
+    def output(self, rid) -> np.ndarray:
+        """Materialize a request's generated tokens (waits for the device)."""
+        return self._materialize(self.requests[rid], {})
+
+    def _materialize(self, req: Request, memo: dict) -> np.ndarray:
+        out = []
+        for t in req.out_tokens:
+            if isinstance(t, tuple):                # (step vector, index)
+                vec, i = t
+                host = memo.get(id(vec))
+                if host is None:
+                    host = memo[id(vec)] = vec.cpu().numpy()
+                out.append(int(host[i]))
+            else:
+                out.append(int(t))
+        return np.asarray(out, np.int32)
+
+    def defragment(self) -> np.ndarray:
+        """Compact used KV blocks to the front of the pool and rewrite every
+        live block table (host bookkeeping + one device gather per pool).
+        Shared (prefix-cached) blocks move once and every owner's table
+        follows; cached-free blocks keep their content. Returns the applied
+        permutation `src` (``new_pool[i] = old_pool[src[i]]``)."""
+        src = self.block_pool.defragment()
+        self._m_defrags.inc()
+        self.telemetry.record(None, "defrag",
+                              moved=int(np.sum(src != np.arange(len(src)))))
+        perm = torch.from_numpy(src.astype(np.int64)).to(self.device)
+        self.pool_state = {
+            f"l{i}": p.defrag_remap(self.pool_state[f"l{i}"], perm)
+            for i, p in enumerate(self.providers)}
+        tables = np.zeros(tuple(self.tables.shape), np.int32)
+        for req in self.scheduler.running.values():
+            row = self.block_pool.table(req.rid)
+            tables[req.slot, :len(row)] = row
+        self.tables = self._to_device(tables)
+        return src
+
+    # ------------------------------------------------------------- internal
+    def _record_token(self, req: Request, greedy_vec, greedy_idx,
+                      sync_memo: dict):
+        """Record the request's next token. Greedy requests store a
+        (step-vector, index) ref — no host sync; stop_token requests pay a
+        host round-trip, at most ONE transfer per step vector (`sync_memo`,
+        one dict per engine step)."""
+        if req.stop_token is not None:
+            host = sync_memo.get(id(greedy_vec))
+            if host is None:
+                host = sync_memo[id(greedy_vec)] = greedy_vec.cpu().numpy()
+                self._m_step_syncs.inc()
+            req.out_tokens.append(int(host[greedy_idx]))
+        else:
+            req.out_tokens.append((greedy_vec, greedy_idx))
+        if req.state != DECODING:
+            # token came from prefill logits: seed the device next-token
+            # vector for the upcoming decode step
+            self.next_tok = _set(self.next_tok, req.slot,
+                                 greedy_vec[greedy_idx])
+
+    def _finish(self, req: Request) -> None:
+        self.active = _set(self.active, req.slot, False)
+        self.scheduler.finish(req)
+        tel = self.telemetry
+        if tel.enabled:
+            t_fin = tel.record(req.rid, "finish",
+                               generated=len(req.out_tokens))
+            t_arrive = tel.tracer.first(req.rid, "arrive")
+            if t_arrive is not None:
+                self._h_e2e.observe(t_fin - t_arrive)
