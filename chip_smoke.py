@@ -7,18 +7,29 @@ NVIDIA GPU. Run from the repository root:
 Phases, in order; any failure exits non-zero before the final ok line:
 
   1. device — require CUDA; print the card's name and power limit.
-  2. build  — compile every kernel of the main path with nvcc into build/.
+  2. build  — compile the paged-attention source (every kernel of the main
+     paths) with nvcc into build/.
   3. kernel — every kernel against its plain PyTorch version on the card
-     (f32 atol 2e-5, bf16 atol 2e-2), over the reference's test sweep and
-     the yi-9b decode shape; time kernel, plain version and one library
-     call, beside the byte / operation bound.
-  4. parity — a tiny f32 model served on cuda and on cpu from the same
-     weights (staggered requests, a mid-flight defragment, a prefix-cache
-     copy-on-write replay): greedy tokens must be equal.
-  5. main path — yi-9b at full width (48 layers, bf16, seeded random
-     weights) through the port's Engine: mixed requests plus two ~1000-token
-     prompts; every request finishes, no NaN logits, no leaked blocks, and
-     the paged-attention kernel ran once per layer per decode step.
+     (f32 atol 2e-5, bf16 atol 2e-2): B1 over the reference's test sweep
+     and the yi-9b decode shape; B2 (ring decode), B4 (verify) and B5 (ring
+     verify) over head layouts incl. gemma3's and yi-9b's, k = 2, 4, 8,
+     ring positions before, at and far past the first wrap, an inactive
+     slot and poisoned dead/stale keys; each kernel timed beside its plain
+     version, one library call and its byte / operation bound (B1 at the
+     yi-9b decode shape, B2/B4/B5 at gemma3-12b's).
+  4. parity — tiny f32 models served on cuda and on cpu from the same
+     weights: a full-attention one (staggered requests, a mid-flight
+     defragment, a prefix-cache copy-on-write replay), reduced gemma3 and a
+     dense sliding config, each also with SpecConfig(k=4) on cuda: greedy
+     tokens must be equal.
+  5. main paths — yi-9b at full width (48 layers, bf16, seeded random
+     weights) through the port's Engine: mixed requests plus two
+     ~1000-token prompts; then gemma3-12b at full width (48 layers: 40
+     ring-KV local, 8 global) served without speculation, with the n-gram
+     drafter and with a replay drafter (k=4), plus two prompts that wrap
+     the ring. Every request finishes, logits stay finite, no block leaks,
+     and each kernel ran once per layer of its kind per decode or verify
+     step.
 
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -197,6 +208,253 @@ def kernel_phase(card):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+# ---------------------------------------- phase 3b: ring and verify kernels
+MULTI_KERNELS = {
+    # launch-count key: (name in the kernels line, TPU body it replaces)
+    "paged_ring": ("paged_ring",
+                   "src/repro/kernels/paged_attention/kernel.py:238"),
+    "paged_verify": ("paged_verify",
+                     "src/repro/kernels/paged_attention/kernel.py:101"),
+    "paged_ring_verify": ("paged_ring_verify",
+                          "src/repro/kernels/paged_attention/kernel.py:167"),
+}
+
+
+def _ring_pages(window, bs, draft=0):
+    return -(-(window + draft) // bs) + 1
+
+
+def _multi_inputs(gen, B, n_q, H, Hkv, hd, N, bs, P, dtype, lens, ring):
+    """One case of a ring / verify kernel: (args, kwargs) for the wrapper.
+    `ring` = (window, R) or None; decode (n_q == 0) takes q (B, H, hd).
+    Ring decode's positions are lens - 1 (0 for an inactive slot, as the
+    engine passes); ring verify's are lens - 1 (-1 when inactive)."""
+    import torch
+    dev = "cuda"
+    shape = (B, H, hd) if n_q == 0 else (B, n_q, H, hd)
+    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    kp = torch.randn((N, bs, Hkv, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((N, bs, Hkv, hd), generator=gen, device=dev).to(dtype)
+    tables = torch.randperm(N, generator=gen, device=dev)[:B * P]
+    tables = tables.reshape(B, P).to(torch.int32).contiguous()
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = {}
+    if ring is not None:
+        window, R = ring
+        pos = lens_t - 1
+        if n_q == 0:
+            pos = torch.clamp(pos, min=0)
+        kw = dict(window=window, positions=pos.contiguous(), ring_pages=R)
+    return (q, kp, vp, tables, lens_t), kw
+
+
+def _referenced(tables, lens, kw, n_q, bs, P):
+    """(block, offset) pairs some query row may attend: everything else in
+    the pool is dead or stale and may be poisoned."""
+    out = set()
+    tables = tables.tolist()
+    for b, n in enumerate(lens):
+        if n <= 0:
+            continue
+        if not kw:
+            for t in range(n):
+                out.add((tables[b][t // bs], t % bs))
+            continue
+        R, window = kw["ring_pages"], kw["window"]
+        pos = int(kw["positions"][b])
+        lo = pos - max(n_q - 1, 0) - window
+        for t in range(R * bs):
+            q_cur = pos // bs
+            page = q_cur - ((q_cur % R - t // bs) % R)
+            kpos = page * bs + t % bs
+            if page >= 0 and lo < kpos <= pos:
+                out.add((tables[b][t // bs], t % bs))
+    return out
+
+
+def multi_kernel_phase(card):
+    """B2 (ring decode), B4 (verify) and B5 (ring verify) against their
+    plain versions, then each timed at gemma3-12b's decode shape."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_ref, paged_attention_verify,
+        paged_attention_verify_ref)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    worst = {key: 0.0 for key in MULTI_KERNELS}
+
+    def run(key, n_q, args, kw):
+        if key == "paged_ring":
+            return (paged_attention(*args, **kw),
+                    paged_attention_ref(*args, **kw))
+        return (paged_attention_verify(*args, **kw),
+                paged_attention_verify_ref(*args, **kw))
+
+    def compare(key, n_q, args, kw, label):
+        out, ref = run(key, n_q, args, kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        dt = args[0].dtype
+        check(math.isfinite(err) and err <= tol[dt],
+              f"{key} {label} {dt}: max_abs_err {err} > {tol[dt]}")
+        if dt == torch.bfloat16:
+            worst[key] = max(worst[key], err)
+        return out, err
+
+    # sweep: head layouts incl. gemma3's (16, 8, 256) and yi-9b's (32, 4,
+    # 128); k in {2, 4, 8}; ring positions before, at and far past the
+    # first wrap; an inactive slot; then the dead/stale pages poisoned
+    bs, window = 4, 10
+    n_cases = 0
+    for H, Hkv, hd in [(4, 2, 64), (8, 1, 32), (8, 2, 16), (16, 8, 256),
+                       (32, 4, 128)]:
+        for dt in (torch.float32, torch.bfloat16):
+            for key, n_q in ([("paged_ring", 0)]
+                             + [(m, k) for m in ("paged_verify",
+                                                 "paged_ring_verify")
+                                for k in (2, 4, 8)]):
+                ring_mode = key != "paged_verify"
+                if ring_mode:
+                    R = _ring_pages(window, bs, max(n_q - 1, 0))
+                    P = R + 2
+                    wrap = R * bs
+                    lens = [max(n_q, 1), window, wrap, wrap + 1,
+                            5 * wrap + 3, 0]
+                    ring = (window, R)
+                else:
+                    P, ring = 12, None
+                    lens = [n_q, n_q + 3, 13 + n_q, 0, 16, 29 + n_q]
+                B = len(lens)
+                args, kw = _multi_inputs(gen, B, n_q, H, Hkv, hd, B * P + 3,
+                                         bs, P, dt, lens, ring)
+                label = f"H{H} Hkv{Hkv} hd{hd} k{n_q}"
+                out, _ = compare(key, n_q, args, kw, label)
+                check(bool((out[lens.index(0)] == 0).all()),
+                      f"{key} {label}: inactive slot row is not zeros")
+                q, kp, vp, tables, lens_t = args
+                keep = _referenced(tables, lens, kw, n_q, bs, P)
+                poison = torch.ones(kp.shape[:2], dtype=torch.bool)
+                for blk, off in keep:
+                    poison[blk, off] = False
+                poison = poison.to("cuda")
+                kp2 = torch.where(poison[..., None, None], 1e4, kp).to(dt)
+                vp2 = torch.where(poison[..., None, None], 1e4, vp).to(dt)
+                out2 = run(key, n_q, (q, kp2, vp2, tables, lens_t), kw)[0]
+                check(torch.equal(out, out2),
+                      f"{key} {label} {dt}: poisoned dead/stale keys leaked")
+                n_cases += 1
+    print(f"kernel B2/B4/B5: {n_cases} cases (5 head layouts x f32/bf16 x "
+          f"ring decode + verify/ring verify at k=2,4,8; ring wraps, an "
+          f"inactive slot, poisoned dead and stale keys) within f32 2e-5 / "
+          f"bf16 2e-2; worst bf16 err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # gemma3-12b decode shape: B=8, 16 heads over 8 kv heads, hd 256, block
+    # 16, 128-page tables, lengths spread over 4..2048, bf16, k=4
+    B, H, Hkv, hd, bs, P, W, K = 8, 16, 8, 256, 16, 128, 1024, 4
+    lens = [int(x) for x in np.linspace(K, bs * P, B)]
+    rows = []
+    for key, n_q in (("paged_ring", 0), ("paged_verify", K),
+                     ("paged_ring_verify", K)):
+        ring = None
+        if key != "paged_verify":
+            ring = (W, _ring_pages(W, bs, max(n_q - 1, 0)))
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            args, kw = _multi_inputs(gen, B, n_q, H, Hkv, hd, B * P + 1, bs,
+                                     P, dt, lens, ring)
+            _, errs[dt] = compare(key, n_q, args, kw, "gemma3 shape")
+        rows.append(_time_multi(card, key, n_q, args, kw, errs, W))
+    return rows
+
+
+def _time_multi(card, key, n_q, args, kw, errs, window):
+    """Kernel, plain version and SDPA on pre-gathered K/V at one shape;
+    byte and operation bounds from these inputs' live keys."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_ref, paged_attention_verify,
+        paged_attention_verify_ref)
+    from repro_torch.kernels.paged_attention.ref import ring_key_positions
+    q, kp, vp, tables, lens_t = args
+    B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    _, bs, Hkv, _ = kp.shape
+    K = max(n_q, 1)
+    if key == "paged_ring":
+        def kern():
+            return paged_attention(*args, **kw)
+
+        def plain():
+            return paged_attention_ref(*args, **kw)
+    else:
+        def kern():
+            return paged_attention_verify(*args, **kw)
+
+        def plain():
+            return paged_attention_verify_ref(*args, **kw)
+    # key positions and per-row masks, as SDPA's boolean mask
+    lens64 = lens_t.long()
+    if kw:
+        R = kw["ring_pages"]
+        pos = kw["positions"].long()
+        kpos = ring_key_positions(kw["positions"], R, bs)          # (B, R*bs)
+        qpos = pos[:, None] - (K - 1) + torch.arange(K, device="cuda")
+        mask = ((kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[..., None])
+                & (kpos[:, None, :] > qpos[..., None] - window))
+        gather = tables[:, :R].long()
+    else:
+        T = tables.shape[1] * bs
+        kpos = torch.arange(T, device="cuda")[None].expand(B, T)
+        qpos = lens64[:, None] - K + torch.arange(K, device="cuda")
+        mask = kpos[:, None, :] <= qpos[..., None]
+        gather = tables.long()
+    n_keys = int(mask.any(dim=1).sum())              # keys some row attends
+    pairs = int(mask.sum())                          # (row, key) pairs
+    item = q.element_size()
+    pages = int(mask.any(dim=1).reshape(B, -1, bs).any(-1).sum())
+    nbytes = (n_keys * Hkv * hd * 2 * item          # K and V read once
+              + 2 * q.numel() * item                 # q in, out
+              + pages * 4 + B * 4 * (2 if kw else 1))
+    flops = 4 * pairs * H * hd                       # q·k and p·v per head
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+
+    Tk = gather.shape[1] * bs
+    kc = kp[gather].reshape(B, Tk, Hkv, hd).transpose(1, 2).contiguous()
+    vc = vp[gather].reshape(B, Tk, Hkv, hd).transpose(1, 2).contiguous()
+    qh = (q[:, :, None, :] if n_q == 0 else q.transpose(1, 2)).contiguous()
+    smask = mask[:, None]                            # (B, 1, K, Tk)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kc, vc, attn_mask=smask,
+                                              enable_gqa=True)
+    lib = library()
+    lib = lib[:, :, 0] if n_q == 0 else lib.transpose(1, 2)
+    lib_err = (lib.float() - plain().float()).abs().max().item()
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain)
+    library_ms = time_ms(library)
+    name, replaces = MULTI_KERNELS[key]
+    print(f"{name} @ gemma3-12b decode shape (bf16, B={B}, k={K}, "
+          f"{n_keys} live keys): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library SDPA on pre-gathered K/V {library_ms:.4f} ms (err vs "
+          f"plain {lib_err:.2e}), bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes} B, {flops} flop); max_abs_err f32 "
+          f"{errs[torch.float32]:.3e} bf16 {errs[torch.bfloat16]:.3e} "
+          f"| {card}")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                      "paged_attention.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": errs[torch.bfloat16], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 # ----------------------------------------------------------- phase 4: parity
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
@@ -254,6 +512,79 @@ def parity_phase(card):
     print(f"parity: {len(prompts)} staggered requests + defragment + a "
           f"copy-on-write replay pair, cuda tokens == cpu tokens (tf32 off) "
           f"| {card}")
+
+
+def _serve(eng, prompts, news, stagger=True):
+    rids = []
+    for p, m in zip(prompts, news):
+        rids.append(eng.add_request(p, m))
+        if stagger:
+            eng.step()
+    got = eng.drain()
+    return [got[r].tolist() for r in rids]
+
+
+def ring_spec_parity_phase(card):
+    """Reduced gemma3 (1 local + 1 global layer, window 32) and a dense
+    sliding config (window 8, so 16-token prefill chunks lap its 12-slot
+    ring), f32: cuda tokens == cpu tokens, and the cuda engine with
+    SpecConfig(k=4) == without; each kernel ran once per layer of its kind
+    per decode or verify step."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import ModelConfig, get_config, reduced
+    from repro_torch.models import state_providers as SP
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig, SpecConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gemma = dataclasses.replace(reduced(get_config("gemma3-12b")),
+                                dtype="float32")
+    sliding = ModelConfig(name="sliding-t", family="dense", num_layers=2,
+                          d_model=64, num_heads=4, num_kv_heads=2,
+                          head_dim=16, d_ff=128, vocab_size=50,
+                          attention_type="sliding", window_size=8,
+                          dtype="float32")
+    rng = np.random.default_rng(7)
+    for cfg, lens, news, ek in (
+            (gemma, (5, 40, 70, 12, 33), (10, 30, 8, 20, 12),
+             dict(block_size=4, num_blocks=128, max_blocks_per_seq=24,
+                  max_slots=3, prefill_chunk=16)),
+            (sliding, (3, 26, 9, 17, 30), (6, 12, 20, 5, 9),
+             dict(block_size=4, num_blocks=64, max_blocks_per_seq=10,
+                  max_slots=3, prefill_chunk=16))):
+        params = T.init_params(cfg, seed=0, device="cpu")
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in lens]
+        kinds = SP.state_kinds(cfg)
+        n_sb, _ = SP.superblock_layout(cfg)
+        n_full, n_ring = (n_sb * kinds.count(k) for k in ("full", "ring"))
+        outs = {}
+        for dev, spec in (("cpu", None), ("cuda", None), ("cuda", 4)):
+            eng = Engine(cfg, _tree_to(params, dev), EngineConfig(
+                **ek, spec=SpecConfig(k=spec) if spec else None), device=dev)
+            kernels.reset_launch_counts()
+            outs[dev, spec] = _serve(eng, prompts, news)
+            n = kernels.launch_counts
+            steps = eng.stats["decode_steps"] if dev == "cuda" else 0
+            want = ({"paged_attention": n_full * steps,
+                     "paged_ring": n_ring * steps}
+                    if spec is None else
+                    {"paged_verify": n_full * steps,
+                     "paged_ring_verify": n_ring * steps})
+            got = {k: n[k] for k in want}
+            check(got == want and sum(n.values()) == sum(want.values()),
+                  f"{cfg.name} {dev} spec={spec}: launches {dict(n)} != "
+                  f"{want}")
+        check(outs["cuda", None] == outs["cpu", None],
+              f"{cfg.name}: cuda tokens {outs['cuda', None]} != cpu tokens "
+              f"{outs['cpu', None]}")
+        check(outs["cuda", 4] == outs["cuda", None],
+              f"{cfg.name}: spec tokens {outs['cuda', 4]} != plain "
+              f"{outs['cuda', None]}")
+        print(f"parity {cfg.name}: {len(lens)} staggered requests, cuda "
+              f"tokens == cpu tokens, cuda spec k=4 tokens == cuda plain "
+              f"(tf32 off) | {card}")
 
 
 # -------------------------------------------------------- phase 5: main path
@@ -335,6 +666,8 @@ def main_path_phase(card, kernel_row):
           f"device {np.median(dev) * 1e3:.2f} ms (median of {len(host)}); "
           f"peak memory {peak:.2f} GiB; B1 launches {launches} = {steps} x "
           f"{cfg.num_layers} | {card}")
+    check(sum(kernels.launch_counts.values()) == launches,
+          f"yi-9b launched other kernels: {kernels.launch_counts}")
     kernel_row["launches"] = launches
 
     # the same requests with the host running ahead of the card (no
@@ -352,6 +685,194 @@ def main_path_phase(card, kernel_row):
     print(f"main: host-ahead run (no per-call synchronize) {generated} tokens "
           f"in {wall_fast:.3f} s = {generated / wall_fast:.2f} tok/s | {card}")
     where_time_goes(card, fast, prompts[:8], news[:8])
+
+
+def _release_card():
+    """Free the device memory of engines no longer referenced: an Engine
+    sits in a reference cycle (its block pool's eviction hook points back
+    at it), so its pools and weights wait for the cyclic collector."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gemma3_main_phase(card, rows):
+    """gemma3-12b at full depth and width (48 layers: 8 superblocks of 5
+    ring-KV local layers and 1 paged global layer; bf16, seeded random
+    weights) through the port's Engine, served three times: without
+    speculation, with SpecConfig(k=4) and the n-gram drafter, and with a
+    ReplayDrafter that remembers the first run's outputs. Traffic: the
+    mixed requests plus prompts of 1500 and 2000 tokens, which wrap the
+    1040-slot ring during prefill and decode past the wrap."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import state_providers as SP
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import (Engine, EngineConfig,
+                                            ReplayDrafter, SpecConfig)
+    from repro_torch.serving.workloads import mixed_workload
+    _release_card()
+    cfg = get_config("gemma3-12b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"gemma3: weights ({cfg.param_count() / 1e9:.2f} B params, "
+          f"{cfg.num_layers} layers, bf16) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kinds = SP.state_kinds(cfg)
+    n_sb, _ = SP.superblock_layout(cfg)
+    n_full, n_ring = n_sb * kinds.count("full"), n_sb * kinds.count("ring")
+    prompts, news = mixed_workload(n=8, seed=0, vocab=cfg.vocab_size)
+    rng = np.random.default_rng(2)
+    for n in (1500, 2000):
+        prompts.append(rng.integers(0, cfg.vocab_size, size=n)
+                       .astype(np.int32))
+        news.append(32)
+    base = dict(block_size=16, num_blocks=1024, max_blocks_per_seq=128,
+                max_slots=8, prefill_chunk=256)
+    replay = ReplayDrafter()
+    outs = {}
+    counts = {}
+    for label, spec in (("plain", None), ("ngram", SpecConfig(k=4)),
+                        ("replay", SpecConfig(k=4, drafter=replay))):
+        eng = Engine(cfg, params, EngineConfig(**base, spec=spec,
+                                               step_timing=True))
+        bad = []
+
+        def watch(fn, logits_at):
+            def wrapped(*a):
+                out = fn(*a)
+                bad.append(~torch.isfinite(out[logits_at]).all())
+                return out
+            return wrapped
+        eng._decode = watch(eng._decode, 1)
+        eng._prefill = watch(eng._prefill, 1)
+        if eng._verify is not None:
+            eng._verify = watch(eng._verify, 2)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, m) for p, m in zip(prompts, news)]
+        got = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = dict(kernels.launch_counts)
+        check(all(r in got and len(got[r]) == m for r, m in zip(rids, news)),
+              f"gemma3 {label}: not every request finished with its max_new "
+              f"tokens")
+        check(not bool(torch.stack(bad).any()), f"gemma3 {label}: "
+              f"non-finite logits")
+        check(eng.block_pool.num_free == base["num_blocks"],
+              f"gemma3 {label}: blocks leaked")
+        check(all(0 <= t < cfg.vocab_size for r in rids for t in got[r]),
+              f"gemma3 {label}: token out of vocab range")
+        steps = eng.stats["decode_steps"]
+        want = ({"paged_attention": n_full * steps,
+                 "paged_ring": n_ring * steps,
+                 "paged_verify": 0, "paged_ring_verify": 0}
+                if spec is None else
+                {"paged_attention": 0, "paged_ring": 0,
+                 "paged_verify": n_full * steps,
+                 "paged_ring_verify": n_ring * steps})
+        check(n == want, f"gemma3 {label}: launches {n} != {want}")
+        counts[label] = n
+        outs[label] = [got[r].tolist() for r in rids]
+        if label == "plain":
+            for r, p in zip(rids, prompts):
+                replay.remember(r, np.concatenate([p, got[r]]))
+            # what the n-gram drafter will see: streams that repeat one
+            # token are drafted right by its repeat-the-last-token fallback
+            flat = sum(len(set(got[r].tolist())) == 1 for r in rids)
+            echo = sum(bool((got[r] == p[-1]).all())
+                       for r, p in zip(rids, prompts))
+            print(f"gemma3 plain: {flat}/{len(rids)} requests emit a single "
+                  f"repeated token, {echo} of them their prompt's last token")
+
+        generated = sum(len(got[r]) for r in rids)
+        tls = [eng.telemetry.request_timeline(r) for r in rids]
+        ttft = [tl["ttft"] for tl in tls]
+        tpot = [(tl["finish"] - tl["first_token"]) / (len(got[r]) - 1)
+                for r, tl in zip(rids, tls) if len(got[r]) > 1]
+        host = [s["host_s"] for s in eng.telemetry.steps]
+        dev = [s["device_s"] for s in eng.telemetry.steps]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        reg = eng.telemetry.registry
+        accept = ""
+        if spec is not None:
+            drafted = reg.get("engine_draft_tokens_total").value
+            accepted = reg.get("engine_accepted_tokens_total").value
+            accept = (f"; acceptance {accepted}/{drafted} = "
+                      f"{accepted / max(drafted, 1):.4f}")
+        print(f"gemma3 {label}: {len(rids)} requests, {generated} tokens in "
+              f"{wall:.3f} s = {generated / wall:.2f} tok/s (each device call "
+              f"synchronized); decode steps {steps}, prefill chunks "
+              f"{eng.stats['prefill_chunks']}{accept} | {card}")
+        print(f"gemma3 {label}: TTFT p50 {np.percentile(ttft, 50) * 1e3:.2f} "
+              f"ms p99 {np.percentile(ttft, 99) * 1e3:.2f} ms; TPOT p50 "
+              f"{np.percentile(tpot, 50) * 1e3:.2f} ms p99 "
+              f"{np.percentile(tpot, 99) * 1e3:.2f} ms; per step host "
+              f"{np.median(host) * 1e3:.2f} ms / device "
+              f"{np.median(dev) * 1e3:.2f} ms (median of {len(host)}); peak "
+              f"memory {peak:.2f} GiB | {card}")
+        print(f"gemma3 {label}: launches {n} = {n_full} full + {n_ring} ring "
+              f"layers x {steps} steps")
+        del eng
+        _release_card()
+
+    for label in ("ngram", "replay"):
+        same, first = 0, []
+        for a, b in zip(outs["plain"], outs[label]):
+            diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            same += not diff
+            first.append(diff[0] if diff else None)
+        print(f"gemma3 {label} vs plain: {same}/{len(first)} requests match "
+              f"end to end; first divergent position per request {first} "
+              f"(reported, not gated: bf16 K-row verify and one-row decode "
+              f"round differently)")
+    by_name = {r["name"]: r for r in rows}
+    by_name["paged_ring"]["launches"] = counts["plain"]["paged_ring"]
+    by_name["paged_verify"]["launches"] = counts["ngram"]["paged_verify"]
+    by_name["paged_ring_verify"]["launches"] = (
+        counts["ngram"]["paged_ring_verify"])
+
+    # host-ahead plain run (no per-call synchronize), then the profile
+    fast = Engine(cfg, params, EngineConfig(**base))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, m in zip(prompts, news):
+        fast.add_request(p, m)
+    fast.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    generated = sum(news)
+    print(f"gemma3 plain host-ahead run (no per-call synchronize): "
+          f"{generated} tokens in {wall:.3f} s = {generated / wall:.2f} "
+          f"tok/s | {card}")
+    where_time_goes(card, fast, prompts[:8], news[:8])
+
+
+DEVICE_KINDS = ("B1 paged_attention (full decode)", "B2/B5 ring split",
+                "B4 verify split", "B2/B4/B5 merge", "matmul (cuBLAS)",
+                "other kernels and copies")
+
+
+def _device_kind(key: str) -> str:
+    """Kind of a device kernel by its (demangled or mangled) name; the ring
+    instantiations carry the template flag `true` (mangled `Lb1E`)."""
+    name = key.lower()
+    if "paged_decode" in name:
+        return DEVICE_KINDS[0]
+    if "paged_multi_split" in name:
+        return DEVICE_KINDS[1 if ("true>" in name or "lb1e" in name) else 2]
+    if "paged_multi_merge" in name:
+        return DEVICE_KINDS[3]
+    if any(p in name for p in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
+        return DEVICE_KINDS[4]
+    return DEVICE_KINDS[5]
 
 
 def where_time_goes(card, eng, prompts, news, warm=3, window=8):
@@ -387,16 +908,10 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8):
     if busy_ms == 0:
         print(f"profile: no device time recorded — not measured | {card}")
         return
-    kinds = {"paged_attention kernel (B1)": ("paged_decode",),
-             "matmul (cuBLAS)": ("gemm", "nvjet", "cutlass", "xmma", "sm90"),
-             }
-    by_kind = dict.fromkeys(list(kinds) + ["other kernels and copies"], 0.0)
+    by_kind = dict.fromkeys(DEVICE_KINDS, 0.0)
     for e in kern:
-        name = e.key.lower()
-        kind = next((k for k, pats in kinds.items()
-                     if any(p in name for p in pats)),
-                    "other kernels and copies")
-        by_kind[kind] += device_us(e) / 1e3
+        by_kind[_device_kind(e.key)] += device_us(e) / 1e3
+    by_kind = {k: v for k, v in by_kind.items() if v}
     launches = sum(e.count for e in kern)
     parts = "; ".join(f"{k} {v:.2f} ms ({v / busy_ms:.1%})"
                       for k, v in by_kind.items())
@@ -408,6 +923,28 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8):
     top = sorted(kern, key=device_us, reverse=True)[:6]
     print("profile: top kernels: " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3:.2f} ms x{e.count}" for e in top))
+
+
+def build_phase():
+    """nvcc the paged-attention source (every kernel of the main path) into
+    build/; the compiler's per-kernel report goes to build/ptxas-report.txt
+    and one summary line (kernels, most registers, spills) is printed."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention.kernel import SOURCE
+    t0 = time.perf_counter()
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        lib = build.build(SOURCE, extra_flags=("-Xptxas", "-v"), echo=True)
+    text = report.getvalue()
+    (build.BUILD_DIR / "ptxas-report.txt").write_text(text)
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s; "
+          f"{len(regs)} kernels, most registers {max(regs, default=0)}, "
+          f"spill stores {sum(spills)} B (report: build/ptxas-report.txt)")
 
 
 def main() -> int:
@@ -427,22 +964,19 @@ def main() -> int:
         print(f"device: {name} x{torch.cuda.device_count()} | {card} | torch "
               f"{torch.__version__} cuda {torch.version.cuda}")
 
-        from repro_torch.kernels import build
-        from repro_torch.kernels.paged_attention.kernel import SOURCE
-        t0 = time.perf_counter()
-        lib = build.build(SOURCE, extra_flags=("-Xptxas", "-v"), echo=True)
-        print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-
-        row = kernel_phase(card)
+        build_phase()
+        rows = [kernel_phase(card)] + multi_kernel_phase(card)
         parity_phase(card)
-        main_path_phase(card, row)
+        ring_spec_parity_phase(card)
+        main_path_phase(card, rows[0])
+        gemma3_main_phase(card, rows)
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
     print(f"total: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

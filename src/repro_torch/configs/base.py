@@ -74,7 +74,7 @@ class ModelConfig:
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
-ARCH_MODULES = ["yi_9b"]
+ARCH_MODULES = ["gemma3_12b", "yi_9b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -282,6 +282,323 @@ cudaError_t dispatch_hd(const void* q, const void* k_pool, const void* v_pool,
                       Hkv, hd, bs, P, split_tokens, scale, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Ring decode (B2), verify (B4) and ring verify (B5).
+//
+// Replace the TPU Pallas bodies `paged_ring_kernel` (kernel.py:238),
+// `paged_verify_kernel` (:101) and `paged_ring_verify_kernel` (:167). One
+// template covers the three: RING selects the ring layout at compile time,
+// and n_q (1 for decode, K for verify) sets the query rows per kv head,
+// rows = n_q · groups, row = j · groups + g as in the Pallas bodies.
+//
+//   * query row j sits at qpos_j = newest - (n_q - 1) + j, where newest is
+//     positions[b] in ring mode and lens[b] - 1 in full mode; a key at
+//     absolute position kpos counts for row j iff kpos <= qpos_j and, in
+//     ring mode, kpos > qpos_j - window;
+//   * full mode splits the absolute tokens [0, lens[b]); ring mode splits
+//     the ring's R · bs slots, and slot t holds absolute position
+//     page · bs + t % bs with page = q_cur - ((q_cur % R - t / bs) mod R),
+//     q_cur = newest / bs (floor division and a non-negative mod: C++ `%`
+//     truncates toward zero). A slot is read only if its key lies in the
+//     union of the rows' windows, (newest - (n_q-1) - window, newest] with
+//     page >= 0; never-written pages and stale previous-lap offsets are
+//     zero-filled in the tile, never read;
+//   * each 32-key K/V tile is loaded from device memory once per block and
+//     serves all `rows` query rows (reading K/V once for K drafts is the
+//     point of verify); warp w takes rows w, w + 8, ...; each row's online
+//     softmax state (m, l, acc) lives in shared memory so any row count
+//     fits one pass over the keys;
+//   * a key masked for a row gets p = 0 explicitly, so a row with no key in
+//     a split keeps m = -1e30, l = 0, acc = 0, and the merge weighs that
+//     partial exp(-1e30 - m_all) = 0. Every block writes its partial (an
+//     empty split writes that neutral one), and the merge reads all splits.
+//
+// Bound: as B1, the bytes of the live keys' K and V; verify adds K query
+// rows per key read, so its flop count grows K-fold and its bytes do not.
+
+constexpr int kDeadKey = -2147483647 - 1;
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
+}
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  const int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// Shared memory of the multi-row kernel, in bytes (the host checks it).
+template <typename T>
+__host__ __device__ constexpr size_t multi_smem_bytes(int hd, int rows) {
+  return 2 * sizeof(T) * kTile * (hd + row_pad<T>()) +
+         sizeof(float) * (2 * static_cast<size_t>(rows) * hd + 2 * rows) +
+         sizeof(int) * kTile;
+}
+
+template <typename T, int DPL, bool RING>
+__global__ void __launch_bounds__(kThreads)
+paged_multi_split_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k_pool,
+                         const T* __restrict__ v_pool,
+                         const int* __restrict__ tables,
+                         const int* __restrict__ lens,
+                         const int* __restrict__ positions,
+                         float* __restrict__ part_m,
+                         float* __restrict__ part_l,
+                         float* __restrict__ part_acc, int n_q, int H,
+                         int Hkv, int hd, int bs, int P, int R, int window,
+                         int split_tokens, int n_splits, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = hd + row_pad<T>();
+  const int groups = H / Hkv;
+  const int rows = n_q * groups;
+  T* k_s = reinterpret_cast<T*>(smem_raw);                   // [kTile][ld]
+  T* v_s = k_s + kTile * ld;                                 // [kTile][ld]
+  float* q_s = reinterpret_cast<float*>(v_s + kTile * ld);   // [rows][hd]
+  float* acc_s = q_s + rows * hd;                            // [rows][hd]
+  float* m_s = acc_s + rows * hd;                            // [rows]
+  float* l_s = m_s + rows;                                   // [rows]
+  int* kpos_s = reinterpret_cast<int*>(l_s + rows);          // [kTile]
+
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int len = lens[b];
+  const int newest = RING ? positions[b] : len - 1;
+  const int oldest = newest - (n_q - 1);
+  const int t_begin = split * split_tokens;
+  const int t_stop = min(RING ? R * bs : len, t_begin + split_tokens);
+
+  const int64_t q_b = static_cast<int64_t>(b) * n_q * H;
+  for (int i = threadIdx.x; i < rows * hd; i += kThreads) {
+    const int row = i / hd;
+    const int head = kvh * groups + row % groups;
+    q_s[i] = to_f32(q[(q_b + static_cast<int64_t>(row / groups) * H + head) *
+                          hd + i % hd]);
+    acc_s[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < rows; i += kThreads) {
+    m_s[i] = kNegInf;
+    l_s[i] = 0.f;
+  }
+  __syncthreads();
+
+  if (len > 0 && t_begin < t_stop) {               // block-uniform
+    const int q_cur = RING ? floor_div(newest, bs) : 0;
+    const int r_cur = RING ? floor_mod(q_cur, R) : 0;
+    const int* table = tables + static_cast<int64_t>(b) * P;
+    const int64_t token_stride = static_cast<int64_t>(Hkv) * hd;
+    constexpr int kVec = 16 / sizeof(T);
+    const int vec_per_row = hd / kVec;
+
+    for (int t0 = t_begin; t0 < t_stop; t0 += kTile) {
+      // cooperative tile load; keys outside every row's range stay zero
+      int live = 0;
+      for (int i = threadIdx.x; i < kTile * vec_per_row; i += kThreads) {
+        const int r = i / vec_per_row;
+        const int c = (i % vec_per_row) * kVec;
+        const int t = t0 + r;
+        int kpos = kDeadKey;
+        int64_t blk = 0;
+        if (t < t_stop) {
+          if (RING) {
+            const int slot = t / bs;
+            const int page = q_cur - floor_mod(r_cur - slot, R);
+            const int kp = page * bs + t % bs;
+            if (page >= 0 && kp <= newest && kp > oldest - window) {
+              kpos = kp;
+              blk = table[slot];
+            }
+          } else {
+            kpos = t;
+            blk = table[t / bs];
+          }
+        }
+        uint4 kx = make_uint4(0u, 0u, 0u, 0u);
+        uint4 vx = make_uint4(0u, 0u, 0u, 0u);
+        if (kpos != kDeadKey) {
+          const int64_t off = (blk * bs + t % bs) * token_stride +
+                              static_cast<int64_t>(kvh) * hd + c;
+          kx = *reinterpret_cast<const uint4*>(k_pool + off);
+          vx = *reinterpret_cast<const uint4*>(v_pool + off);
+          live = 1;
+        }
+        uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + r * ld + c);
+        uint32_t* vd = reinterpret_cast<uint32_t*>(v_s + r * ld + c);
+        kd[0] = kx.x; kd[1] = kx.y; kd[2] = kx.z; kd[3] = kx.w;
+        vd[0] = vx.x; vd[1] = vx.y; vd[2] = vx.z; vd[3] = vx.w;
+        if (c == 0) kpos_s[r] = kpos;
+      }
+      if (!__syncthreads_or(live)) continue;      // no live key in the tile
+
+      const int kp = kpos_s[lane];
+      for (int row = warp; row < rows; row += kWarps) {
+        const int qpos = oldest + row / groups;
+        const bool valid = kp != kDeadKey && kp <= qpos &&
+                           (!RING || kp > qpos - window);
+        if (!__any_sync(kFull, valid)) continue;  // state stays as it is
+        const float s = valid
+            ? dot_row(q_s + row * hd, k_s + lane * ld, hd) * scale
+            : kNegInf;
+        const float m_old = m_s[row];
+        const float l_old = l_s[row];
+        const float m_new = fmaxf(m_old, warp_max(s));
+        const float corr = expf(m_old - m_new);
+        const float p = valid ? expf(s - m_new) : 0.f;
+        const float l_new = l_old * corr + warp_sum(p);
+        float* arow = acc_s + row * hd;
+        float acc[DPL];
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int d = lane + 32 * i;
+          acc[i] = d < hd ? arow[d] * corr : 0.f;
+        }
+        for (int j = 0; j < kTile; ++j) {
+          const float pj = __shfl_sync(kFull, p, j);
+          if (pj == 0.f) continue;                // warp-uniform
+          const T* vr = v_s + j * ld;
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int d = lane + 32 * i;
+            if (d < hd) acc[i] += pj * to_f32(vr[d]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int d = lane + 32 * i;
+          if (d < hd) arow[d] = acc[i];
+        }
+        __syncwarp();
+        if (lane == 0) {
+          m_s[row] = m_new;
+          l_s[row] = l_new;
+        }
+      }
+      __syncthreads();                            // the tile is reloaded next
+    }
+  }
+  __syncthreads();
+
+  const int64_t row0 = (static_cast<int64_t>(b) * Hkv + kvh) * rows;
+  for (int i = threadIdx.x; i < rows * hd; i += kThreads)
+    part_acc[((row0 + i / hd) * n_splits + split) * hd + i % hd] = acc_s[i];
+  for (int i = threadIdx.x; i < rows; i += kThreads) {
+    part_m[(row0 + i) * n_splits + split] = m_s[i];
+    part_l[(row0 + i) * n_splits + split] = l_s[i];
+  }
+}
+
+// One block per (b, kv head, row): merge all splits' partial softmax states
+// and write query j, head kvh · groups + g of out (B, n_q, H, hd).
+template <typename T>
+__global__ void paged_multi_merge_kernel(const float* __restrict__ part_m,
+                                         const float* __restrict__ part_l,
+                                         const float* __restrict__ part_acc,
+                                         T* __restrict__ out, int n_q, int H,
+                                         int Hkv, int hd, int n_splits) {
+  const int groups = H / Hkv;
+  const int rows = n_q * groups;
+  const int64_t prow = blockIdx.x;               // (b · Hkv + kvh) · rows + row
+  const int row = static_cast<int>(prow % rows);
+  const int64_t bk = prow / rows;
+  const int kvh = static_cast<int>(bk % Hkv);
+  const int64_t b = bk / Hkv;
+  const int64_t orow = (b * n_q + row / groups) * H + kvh * groups +
+                       row % groups;
+  const int64_t r0 = prow * n_splits;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float m_all = kNegInf;
+    for (int s = 0; s < n_splits; ++s) m_all = fmaxf(m_all, part_m[r0 + s]);
+    float l_all = 0.f;
+    float a_all = 0.f;
+    for (int s = 0; s < n_splits; ++s) {
+      const float c = expf(part_m[r0 + s] - m_all);
+      l_all += part_l[r0 + s] * c;
+      a_all += part_acc[(r0 + s) * hd + d] * c;
+    }
+    out[orow * hd + d] = from_f32<T>(a_all / fmaxf(l_all, 1e-30f));
+  }
+}
+
+template <typename T, int DPL, bool RING>
+cudaError_t launch_multi(const void* q, const void* k_pool, const void* v_pool,
+                         const int* tables, const int* lens,
+                         const int* positions, void* out, float* workspace,
+                         int B, int n_q, int H, int Hkv, int hd, int bs, int P,
+                         int R, int window, int split_tokens, float scale,
+                         cudaStream_t stream) {
+  const int span = (RING ? R : P) * bs;
+  const int n_splits = (span + split_tokens - 1) / split_tokens;
+  const int rows = n_q * (H / Hkv);
+  const int64_t parts = static_cast<int64_t>(B) * Hkv * rows * n_splits;
+  float* part_m = workspace;
+  float* part_l = part_m + parts;
+  float* part_acc = part_l + parts;
+  const size_t smem = multi_smem_bytes<T>(hd, rows);
+  auto split_kernel = paged_multi_split_kernel<T, DPL, RING>;
+  cudaError_t err = cudaFuncSetAttribute(
+      split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  split_kernel<<<dim3(B, Hkv, n_splits), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), tables, lens, positions, part_m, part_l,
+      part_acc, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, n_splits,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int merge_threads = ((hd + 31) / 32) * 32;
+  paged_multi_merge_kernel<T>
+      <<<static_cast<unsigned>(B * Hkv * rows), merge_threads, 0, stream>>>(
+          part_m, part_l, part_acc, static_cast<T*>(out), n_q, H, Hkv, hd,
+          n_splits);
+  return cudaGetLastError();
+}
+
+template <typename T, bool RING>
+cudaError_t dispatch_multi_hd(const void* q, const void* k_pool,
+                              const void* v_pool, const int* tables,
+                              const int* lens, const int* positions, void* out,
+                              float* ws, int B, int n_q, int H, int Hkv,
+                              int hd, int bs, int P, int R, int window,
+                              int split_tokens, float scale,
+                              cudaStream_t s) {
+  if (hd <= 32)
+    return launch_multi<T, 1, RING>(q, k_pool, v_pool, tables, lens,
+                                    positions, out, ws, B, n_q, H, Hkv, hd,
+                                    bs, P, R, window, split_tokens, scale, s);
+  if (hd <= 64)
+    return launch_multi<T, 2, RING>(q, k_pool, v_pool, tables, lens,
+                                    positions, out, ws, B, n_q, H, Hkv, hd,
+                                    bs, P, R, window, split_tokens, scale, s);
+  if (hd <= 128)
+    return launch_multi<T, 4, RING>(q, k_pool, v_pool, tables, lens,
+                                    positions, out, ws, B, n_q, H, Hkv, hd,
+                                    bs, P, R, window, split_tokens, scale, s);
+  return launch_multi<T, 8, RING>(q, k_pool, v_pool, tables, lens, positions,
+                                  out, ws, B, n_q, H, Hkv, hd, bs, P, R,
+                                  window, split_tokens, scale, s);
+}
+
+template <typename T>
+cudaError_t dispatch_multi(const void* q, const void* k_pool,
+                           const void* v_pool, const int* tables,
+                           const int* lens, const int* positions, void* out,
+                           float* ws, int B, int n_q, int H, int Hkv, int hd,
+                           int bs, int P, int R, int window, int split_tokens,
+                           float scale, cudaStream_t s) {
+  if (R > 0)
+    return dispatch_multi_hd<T, true>(q, k_pool, v_pool, tables, lens,
+                                      positions, out, ws, B, n_q, H, Hkv, hd,
+                                      bs, P, R, window, split_tokens, scale,
+                                      s);
+  return dispatch_multi_hd<T, false>(q, k_pool, v_pool, tables, lens,
+                                     positions, out, ws, B, n_q, H, Hkv, hd,
+                                     bs, P, R, window, split_tokens, scale, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked shapes,
@@ -307,5 +624,40 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pool,
     return dispatch_hd<__nv_bfloat16>(q, k_pool, v_pool, tbl, ln, out, ws, B,
                                       H, Hkv, hd, bs, P, split_tokens, scale,
                                       s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Ring decode (B2: ring_pages > 0, n_q == 1), verify (B4: ring_pages == 0)
+// and ring verify (B5: ring_pages > 0, n_q > 1). q and out are (B, n_q, H,
+// hd); `positions` (B,) int32 is read in ring mode only (the newest query's
+// absolute position; the caller passes any int32 buffer in full mode).
+// dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked shapes,
+// types, contiguity, alignment, ring_pages <= P, the shared-memory size and
+// allocated `workspace`: B · n_q · H · n_splits · (hd + 2) floats,
+// n_splits = ceil((ring_pages or P) · bs / split_tokens). Returns the
+// launches' cudaError_t (0 on success).
+extern "C" int paged_attention_multi(const void* q, const void* k_pool,
+                                     const void* v_pool, const void* tables,
+                                     const void* lens, const void* positions,
+                                     void* out, void* workspace, int B,
+                                     int n_q, int H, int Hkv, int hd, int bs,
+                                     int P, int ring_pages, int window,
+                                     int split_tokens, float scale, int dtype,
+                                     void* stream) {
+  if (B == 0) return 0;
+  const int* tbl = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lens);
+  const int* pos = static_cast<const int*>(positions);
+  float* ws = static_cast<float*>(workspace);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_multi<float>(q, k_pool, v_pool, tbl, ln, pos, out, ws, B,
+                                 n_q, H, Hkv, hd, bs, P, ring_pages, window,
+                                 split_tokens, scale, s);
+  if (dtype == 1)
+    return dispatch_multi<__nv_bfloat16>(q, k_pool, v_pool, tbl, ln, pos, out,
+                                         ws, B, n_q, H, Hkv, hd, bs, P,
+                                         ring_pages, window, split_tokens,
+                                         scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,24 +1,33 @@
-"""Paged decode attention, dispatched by device.
+"""Paged attention — one-query decode and K-query verify, each in full and
+ring mode — dispatched by device.
 
-A CPU tensor takes the plain version (``ref.paged_attention_ref``); a CUDA
-tensor launches the hand-written kernel or raises — there is no fallback.
+A CPU tensor takes the plain version (``ref``); a CUDA tensor launches the
+hand-written kernel or raises — there is no fallback. Each mode counts its
+launches under its own key of ``repro_torch.kernels.launch_counts``:
+``paged_attention`` (full decode), ``paged_ring`` (ring decode),
+``paged_verify`` and ``paged_ring_verify``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.kernel import (
+    MAX_SMEM_BYTES, multi_smem_bytes, paged_attention_cuda,
+    paged_attention_multi_cuda)
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_attention_verify_ref)
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(q, k_pool, v_pool, block_tables, seq_lens):
-    if q.dim() != 3 or k_pool.dim() != 4:
-        raise ValueError(f"want q (B, H, hd) and pools (N, bs, Hkv, hd), got "
-                         f"{tuple(q.shape)} and {tuple(k_pool.shape)}")
-    B, H, hd = q.shape
+    """q (B, H, hd) for decode or (B, K, H, hd) for verify."""
+    if q.dim() not in (3, 4) or k_pool.dim() != 4:
+        raise ValueError(f"want q (B, H, hd) or (B, K, H, hd) and pools "
+                         f"(N, bs, Hkv, hd), got {tuple(q.shape)} and "
+                         f"{tuple(k_pool.shape)}")
+    B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
     N, bs, Hkv, hd_k = k_pool.shape
     if tuple(v_pool.shape) != tuple(k_pool.shape) or hd_k != hd:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
@@ -48,20 +57,102 @@ def _check(q, k_pool, v_pool, block_tables, seq_lens):
                          "loads K/V rows in 16-byte vectors)")
 
 
-def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *, scale=None):
+def _check_multi(q, k_pool, block_tables, window, positions, ring_pages):
+    """Ring arguments and the ring/verify kernel's shared-memory need."""
+    B, n_q, H, hd = q.shape
+    if ring_pages is not None:
+        if not 1 <= ring_pages <= block_tables.shape[1]:
+            raise ValueError(f"ring_pages {ring_pages} outside [1, table "
+                             f"width {block_tables.shape[1]}]")
+        if window < 1:
+            raise ValueError(f"window {window} must be positive")
+        if (tuple(positions.shape) != (B,) or positions.dtype != torch.int32
+                or positions.device != q.device
+                or not positions.is_contiguous()):
+            raise ValueError(f"positions must be contiguous int32 ({B},) on "
+                             f"{q.device}")
+    rows = n_q * (H // k_pool.shape[2])
+    smem = multi_smem_bytes(q.dtype, hd, rows)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{n_q} queries x {H // k_pool.shape[2]} heads per kv head at "
+            f"head_dim {hd} ({q.dtype}) need {smem} B of shared memory per "
+            f"block, over the {MAX_SMEM_BYTES} B a Hopper block may use")
+
+
+def _ring_mode(window, positions, ring_pages):
+    ring = window is not None or positions is not None or ring_pages is not None
+    if ring and (window is None or positions is None or ring_pages is None):
+        raise ValueError("ring mode needs window, positions AND ring_pages")
+    return ring
+
+
+def _launch_multi(q, k_pool, v_pool, block_tables, seq_lens, scale, window,
+                  positions, ring_pages, key):
+    """q (B, n_q, H, hd) on CUDA: validate, launch, count under `key`."""
+    _check(q, k_pool, v_pool, block_tables, seq_lens)
+    _check_multi(q, k_pool, block_tables, window, positions, ring_pages)
+    out = torch.empty_like(q)
+    paged_attention_multi_cuda(
+        q, k_pool, v_pool, block_tables, seq_lens,
+        seq_lens if positions is None else positions, out, scale,
+        window or 0, ring_pages or 0)
+    kernels.launch_counts[key] += 1
+    return out
+
+
+def _device_of(q, name):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    return q.device.type
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *, scale=None,
+                    window=None, positions=None, ring_pages=None):
     """q: (B, H, hd); k_pool/v_pool: (N, block_size, Hkv, hd); block_tables:
     (B, P) int32; seq_lens: (B,) int32 — valid tokens per sequence including
     the current one (0 marks an inactive slot, whose row is zeros).
-    Returns (B, H, hd) in q's dtype."""
+    window/positions/ring_pages (all three) select ring mode: attend
+    (positions - window, positions] through a ring of `ring_pages` blocks;
+    positions (B,) int32. Returns (B, H, hd) in q's dtype."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    ring = _ring_mode(window, positions, ring_pages)
+    if _device_of(q, "paged_attention") == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens,
-                                   scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cpu or cuda, not "
-                         f"{q.device}")
+                                   scale=scale, window=window,
+                                   positions=positions, ring_pages=ring_pages)
+    if ring:
+        if q.dim() != 3:
+            raise ValueError(f"want q (B, H, hd), got {tuple(q.shape)}")
+        return _launch_multi(q[:, None], k_pool, v_pool, block_tables,
+                             seq_lens, scale, window, positions, ring_pages,
+                             "paged_ring")[:, 0]
     _check(q, k_pool, v_pool, block_tables, seq_lens)
+    if q.dim() != 3:
+        raise ValueError(f"want q (B, H, hd), got {tuple(q.shape)}")
     out = torch.empty_like(q)
     paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, out, scale)
     kernels.launch_counts["paged_attention"] += 1
     return out
+
+
+def paged_attention_verify(q, k_pool, v_pool, block_tables, seq_lens, *,
+                           scale=None, window=None, positions=None,
+                           ring_pages=None):
+    """Multi-query verify for speculative decoding. q: (B, K, H, hd) — K
+    draft queries per sequence, all K/V already written. ``seq_lens``
+    counts tokens INCLUDING the K drafts; query j attends causally up to
+    position ``seq_lens - K + j`` (0 marks an inactive slot). Ring mode:
+    ``positions = seq_lens - 1`` and the ring sized with ``draft = K - 1``
+    slack. Returns (B, K, H, hd) in q's dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    ring = _ring_mode(window, positions, ring_pages)
+    if _device_of(q, "paged_attention_verify") == "cpu":
+        return paged_attention_verify_ref(
+            q, k_pool, v_pool, block_tables, seq_lens, scale=scale,
+            window=window, positions=positions, ring_pages=ring_pages)
+    if q.dim() != 4:
+        raise ValueError(f"want q (B, K, H, hd), got {tuple(q.shape)}")
+    return _launch_multi(q, k_pool, v_pool, block_tables, seq_lens, scale,
+                         window, positions, ring_pages,
+                         "paged_ring_verify" if ring else "paged_verify")

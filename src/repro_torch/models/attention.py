@@ -1,18 +1,21 @@
-"""GQA attention against the paged KV pool: decode and packed prefill.
+"""GQA attention against the paged KV pool: decode, packed prefill and
+speculative verify, in full and ring (sliding-window) layouts.
 
-Counterpart of the paged verbs in ``repro.models.attention`` (full mode).
-The reference returns new pools; here the pools are updated IN PLACE (the
-returned dict is the one passed in), which saves a pool copy per layer.
-Rows the reference drops with ``mode="drop"`` go to the pool's scratch
-block at index N (see ``state_providers``).
+Counterpart of the paged verbs in ``repro.models.attention``. The reference
+returns new pools; here the pools are updated IN PLACE (the returned dict is
+the one passed in), which saves a pool copy per layer. Rows the reference
+drops with ``mode="drop"`` go to the pool's scratch block at index N (see
+``state_providers``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.paged_attention.ref import NEG_INF
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_verify)
+from repro_torch.kernels.paged_attention.ref import (NEG_INF,
+                                                     ring_key_positions)
 from repro_torch.models import layers as L
 
 
@@ -44,40 +47,96 @@ def _scratch_block(kv) -> int:
     return kv["k"].shape[0] - 1
 
 
-def paged_write(kv, k_new, v_new, block_tables, positions, active):
+def _block_ids(kv, block_tables, positions, valid, ring_pages):
+    """Pool block of each position (B, K) through its table row; pages are
+    taken modulo the ring in ring mode and clamped to the table (only rows
+    that `valid` drops can index past it); dropped rows get the scratch
+    block."""
+    bs = kv["k"].shape[1]
+    pages = positions // bs
+    if ring_pages is not None:
+        pages = pages % ring_pages
+    pages = torch.clamp(pages, 0, block_tables.shape[1] - 1).long()
+    bids = torch.gather(block_tables, 1, pages)
+    return torch.where(valid, bids, _scratch_block(kv)).long()
+
+
+def paged_write(kv, k_new, v_new, block_tables, positions, active, *,
+                ring_pages=None):
     """Scatter one token's K/V per sequence into the block pool, in place.
 
     kv: {"k","v"}: (N + 1, bs, Hkv, hd), block N the scratch block;
     k_new/v_new: (B, Hkv, hd); block_tables: (B, P); positions: (B,)
     absolute token position; active: (B,) bool — inactive rows land in the
-    scratch block."""
-    bs = kv["k"].shape[1]
-    P = block_tables.shape[1]
-    pages = torch.clamp(positions // bs, max=P - 1).long()
-    bids = torch.gather(block_tables, 1, pages[:, None])[:, 0]
-    bids = torch.where(active, bids, _scratch_block(kv)).long()
-    offs = (positions % bs).long()
+    scratch block. ring_pages: sliding-window layers write page
+    (pos // bs) % ring_pages."""
+    return paged_write_multi(kv, k_new[:, None], v_new[:, None],
+                             block_tables, positions[:, None],
+                             active[:, None], ring_pages=ring_pages)
+
+
+def attention_decode_paged(params, x, kv, block_tables, positions, attn_lens,
+                           cfg, *, window=None, ring_pages=None):
+    """One-token decode against a paged KV pool. x: (B,1,D); kv k/v pools
+    (N + 1, bs, Hkv, hd); block_tables (B, P); positions (B,) absolute
+    position of the incoming token; attn_lens (B,) tokens to attend over
+    INCLUDING the new one (0 marks an inactive slot — its write goes to the
+    scratch block and its output is garbage the engine ignores).
+    window/ring_pages switch sliding-window layers to the ring layout (write
+    modulo the ring, attend the last `window` positions). Returns (out
+    (B,1,D), kv updated in place)."""
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(params, x, positions[:, None], cfg)
+    paged_write(kv, k_new[:, 0], v_new[:, 0], block_tables, positions,
+                attn_lens > 0, ring_pages=ring_pages)
+    ring = {} if window is None else dict(window=window, positions=positions,
+                                         ring_pages=ring_pages)
+    out = paged_attention(q[:, 0].contiguous(), kv["k"], kv["v"],
+                          block_tables, attn_lens, **ring)
+    out = out.reshape(B, 1, h * hd)
+    return out @ params["wo"], kv
+
+
+def paged_write_multi(kv, k_new, v_new, block_tables, positions, valid, *,
+                      ring_pages=None):
+    """Scatter K draft tokens' K/V per sequence into the block pool, in
+    place. k_new/v_new: (B, K, Hkv, hd); positions: (B, K) absolute token
+    positions; valid: (B, K) bool — invalid (rejected-horizon or inactive)
+    writes go to the scratch block, so pool contents stay canonical.
+    ring_pages: sliding-window layers write page (pos // bs) % ring_pages."""
+    bids = _block_ids(kv, block_tables, positions, valid, ring_pages)
+    offs = (positions % kv["k"].shape[1]).long()
     kv["k"][bids, offs] = k_new
     kv["v"][bids, offs] = v_new
     return kv
 
 
-def attention_decode_paged(params, x, kv, block_tables, positions, attn_lens,
-                           cfg):
-    """One-token decode against a paged KV pool. x: (B,1,D); kv k/v pools
-    (N + 1, bs, Hkv, hd); block_tables (B, P); positions (B,) absolute
-    position of the incoming token; attn_lens (B,) tokens to attend over
-    INCLUDING the new one (0 marks an inactive slot — its write goes to the
-    scratch block and its output is garbage the engine ignores). Returns
-    (out (B,1,D), kv updated in place)."""
+def attention_verify_paged(params, x, kv, block_tables, base, qlims, cfg, *,
+                           window=None, ring_pages=None):
+    """Multi-query speculative verify against a paged KV pool. x: (B,K,D) —
+    K draft tokens per sequence, draft j at absolute position base[b] + j.
+    qlims (B,): number of draft positions whose K/V may be written this step
+    (0 marks an inactive slot); queries at or past qlims produce garbage the
+    engine discards, and their writes go to the scratch block so
+    rejected-horizon KV never lands in the pool. window/ring_pages switch
+    sliding-window layers to the ring layout — the ring must be sized with
+    `draft = K - 1` slack (see state_providers.ring_pages). Returns (out
+    (B,K,D), kv updated in place)."""
     h, hd = cfg.num_heads, cfg.resolved_head_dim
-    B = x.shape[0]
-    q, k_new, v_new = _project_qkv(params, x, positions[:, None], cfg)
-    paged_write(kv, k_new[:, 0], v_new[:, 0], block_tables, positions,
-                attn_lens > 0)
-    out = paged_attention(q[:, 0].contiguous(), kv["k"], kv["v"],
-                          block_tables, attn_lens)
-    out = out.reshape(B, 1, h * hd)
+    B, K = x.shape[0], x.shape[1]
+    ar = torch.arange(K, device=x.device, dtype=base.dtype)
+    positions = base[:, None] + ar[None, :]                       # (B, K)
+    q, k_new, v_new = _project_qkv(params, x, positions, cfg)
+    write = ar[None, :] < qlims[:, None]                          # (B, K)
+    paged_write_multi(kv, k_new, v_new, block_tables, positions, write,
+                      ring_pages=ring_pages)
+    attn_lens = torch.where(qlims > 0, base + K, 0).to(torch.int32)
+    ring = {} if window is None else dict(
+        window=window, positions=attn_lens - 1, ring_pages=ring_pages)
+    out = paged_attention_verify(q.contiguous(), kv["k"], kv["v"],
+                                 block_tables, attn_lens, **ring)
+    out = out.reshape(B, K, h * hd)
     return out @ params["wo"], kv
 
 
@@ -99,9 +158,7 @@ def attention_prefill_paged(params, x, kv, table_rows, starts, valids, cfg):
     P = table_rows.shape[1]
     valid = ar[None, :] < valids[:, None]                         # (G, C)
     # padding positions may index past the table; only masked rows do
-    pages = torch.clamp(pos // bs, max=P - 1).long()
-    bids = torch.where(valid, torch.gather(table_rows, 1, pages),
-                       _scratch_block(kv)).long()
+    bids = _block_ids(kv, table_rows, pos, valid, None)
     offs = (pos % bs).long()
     kv["k"][bids, offs] = k
     kv["v"][bids, offs] = v
@@ -113,6 +170,70 @@ def attention_prefill_paged(params, x, kv, table_rows, starts, valids, cfg):
     s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
     kpos = torch.arange(P * bs, device=x.device)
     mask = kpos[None, None, :] <= pos[:, :, None]                 # (G, C, P*bs)
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(G, C, h * hd)
+    return out @ params["wo"], kv
+
+
+def attention_prefill_ring(params, x, kv, table_rows, starts, valids, cfg,
+                           *, window, ring_pages):
+    """Segment-masked packed prefill against a RING-paged pool. x: (G,C,D) —
+    one chunk per segment starting at `starts[g]`, first `valids[g]` tokens
+    real. Each segment owns only `ring_pages` blocks; its position p lives
+    at `table_rows[g, (p // bs) % ring_pages]`, offset `p % bs`.
+
+    The pre-chunk ring content is gathered BEFORE the chunk's writes: on
+    wraparound the chunk overwrites pages that early queries still need.
+    The gather (advanced indexing) copies, so the in-place scatter below
+    cannot reach it. Each query t attends the union of {its segment's
+    pre-chunk ring keys} and {its segment's chunk}, masked to its window
+    (t - window, t]. Returns (out (G,C,D), kv updated in place)."""
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    G, C = x.shape[0], x.shape[1]
+    ar = torch.arange(C, device=x.device, dtype=starts.dtype)
+    pos = starts[:, None] + ar[None, :]                           # (G, C)
+    q, k, v = _project_qkv(params, x, pos, cfg)
+
+    bs = kv["k"].shape[1]
+    R = ring_pages
+
+    # 1) each segment's ring as of starts - 1, copied before the writes
+    ring_rows = table_rows[:, :R].long()                          # (G, R)
+    old_k = kv["k"][ring_rows].reshape(G, R * bs, hkv, hd)
+    old_v = kv["v"][ring_rows].reshape(G, R * bs, hkv, hd)
+    old_pos = ring_key_positions(starts - 1, R, bs)               # (G, R*bs)
+    # entries the pre-chunk ring never held: pages < 0 entirely, and the
+    # current page's offsets past (start-1) % bs (previous-lap leftovers,
+    # reconstructed as > start-1)
+    old_ok = (old_pos >= 0) & (old_pos <= (starts - 1)[:, None])
+
+    # 2) write the chunk's K/V at their ring slots. Padding rows go to the
+    # scratch block, and so does any position lapped by a LATER valid
+    # position of this same chunk (C can exceed the ring capacity R*bs):
+    # an index_put with repeated indices leaves the winner undefined, so
+    # only each (slot, offset)'s newest lap may write. Skipped positions
+    # are more than R*bs > window older than the chunk's last token —
+    # nothing downstream can attend them.
+    last_valid = (starts + valids - 1)[:, None]                   # (G, 1)
+    write = (ar[None, :] < valids[:, None]) & (pos > last_valid - R * bs)
+    bids = _block_ids(kv, table_rows, pos, write, R)
+    offs = (pos % bs).long()
+    kv["k"][bids, offs] = k
+    kv["v"][bids, offs] = v
+
+    # 3) attend: keys = each segment's pre-chunk ring and its own chunk
+    n_rep = h // hkv
+    kk = _repeat_kv(torch.cat([old_k, k], dim=1), n_rep)
+    vv = _repeat_kv(torch.cat([old_v, v], dim=1), n_rep)
+    kpos = torch.cat([old_pos, pos.long()], dim=1)                # (G, R*bs+C)
+    kok = torch.cat([old_ok, torch.ones((G, C), dtype=torch.bool,
+                                        device=x.device)], dim=1)
+    scale = 1.0 / np.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
+    qp = pos.long()[:, :, None]
+    mask = (kok[:, None, :] & (kpos[:, None, :] <= qp)
+            & (kpos[:, None, :] > qp - window))                   # (G, C, K)
     s = torch.where(mask[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(G, C, h * hd)

@@ -1,10 +1,11 @@
-"""Per-layer-kind sequence-state providers (full-attention subset).
+"""Per-layer-kind sequence-state providers (the paged-KV subset).
 
 Mirrors ``repro.models.state_providers``: one provider per layer *state
 kind*, which builds the layer's device state and tells the host scheduler
-what a sequence costs in blocks. This slice of the port serves the ``full``
-kind (paged KV, prefix caching); the ring, rwkv and mamba kinds raise
-``NotImplementedError`` until their slice lands.
+what a sequence costs in blocks. The port serves the ``full`` kind (paged
+KV, prefix caching) and the ``ring`` kind (sliding-window KV in a fixed
+ring of blocks per sequence); the recurrent rwkv and mamba kinds raise
+``NotImplementedError`` until their slice lands (ROADMAP A9).
 
 Dropped writes. The reference scatters inactive or padding rows to block id
 N with ``mode="drop"``; PyTorch has no drop mode, and index N would raise
@@ -80,6 +81,18 @@ def state_kinds(cfg: ModelConfig):
     return [state_kind(k, cfg) for k in layer_kinds(cfg)]
 
 
+def ring_pages(window: int, block_size: int, draft: int = 0) -> int:
+    """Ring length in pages: ceil(window/bs) intact pages always cover the
+    last `window` positions, +1 for the page currently being overwritten.
+
+    ``draft`` adds speculative-decoding slack: a verify step holds K = draft
+    + 1 in-flight positions, and the OLDEST draft query still needs its full
+    window `(qpos - window, qpos]` resident while the ring has already
+    advanced to the newest draft — so the intact span must cover
+    window + draft positions back from the newest write."""
+    return -(-(window + draft) // block_size) + 1
+
+
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -138,16 +151,49 @@ class PagedKVProvider(_PagedPoolProvider):
         return self.max_blocks_per_seq * self.block_size
 
 
-_LATER = {"ring": "ring-paged sliding-window KV (ROADMAP A8)",
-          "rwkv": "recurrent rwkv6 slabs (ROADMAP A9)",
+@dataclass(frozen=True)
+class RingKVProvider(_PagedPoolProvider):
+    """Sliding-window paged KV: a fixed ring of ceil(window/bs)+1 blocks per
+    sequence (more with speculative slack); token at position p lives in
+    table[(p // bs) % ring] at offset p % bs, so long generations stop
+    consuming new blocks."""
+    window: int = 0
+    draft: int = 0   # speculative slack: K-1 extra in-flight positions
+
+    kind = "ring"
+    supports_prefix_caching = False  # ring content depends on wrap position
+
+    @property
+    def ring_pages(self) -> int:
+        return ring_pages(self.window, self.block_size, draft=self.draft)
+
+    def blocks_needed(self, total_tokens: int) -> int:
+        return min(_ceil_div(total_tokens, self.block_size), self.ring_pages)
+
+    def max_tokens(self) -> Optional[int]:
+        return None  # the ring wraps: any length fits in ring_pages blocks
+
+    def write_cursor(self, seq_len: int) -> dict:
+        """Where token `seq_len` will be written: a pure function of the
+        token count, so re-prefilling the same tokens reproduces the ring
+        wrap for wrap."""
+        return {"page": (seq_len // self.block_size) % self.ring_pages,
+                "offset": seq_len % self.block_size}
+
+
+_LATER = {"rwkv": "recurrent rwkv6 slabs (ROADMAP A9)",
           "mamba": "recurrent mamba2 slabs (ROADMAP A9)"}
 
 
 # ----------------------------------------------------------------- assembly
 def provider_for(skind: str, cfg: ModelConfig, *, num_blocks: int,
-                 block_size: int, max_blocks_per_seq: Optional[int] = None):
+                 block_size: int, max_blocks_per_seq: Optional[int] = None,
+                 draft: int = 0):
     if skind == "full":
         return PagedKVProvider(cfg, num_blocks, block_size, max_blocks_per_seq)
+    if skind == "ring":
+        return RingKVProvider(cfg, num_blocks, block_size, max_blocks_per_seq,
+                              window=cfg.window_size, draft=draft)
     if skind in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: state kind {skind!r} — {_LATER[skind]} — comes in a "
@@ -156,16 +202,18 @@ def provider_for(skind: str, cfg: ModelConfig, *, num_blocks: int,
 
 
 def providers_for(cfg: ModelConfig, *, num_blocks: int, block_size: int,
-                  max_blocks_per_seq: Optional[int] = None):
+                  max_blocks_per_seq: Optional[int] = None, draft: int = 0):
     """One provider per layer of a superblock, aligned with layer_kinds(cfg).
-    Layers of the same kind share a (frozen, equal) provider instance."""
+    Layers of the same kind share a (frozen, equal) provider instance.
+    ``draft`` = K - 1 when speculative decoding is on (ring slack)."""
     cache = {}
     out = []
     for sk in state_kinds(cfg):
         if sk not in cache:
             cache[sk] = provider_for(sk, cfg, num_blocks=num_blocks,
                                      block_size=block_size,
-                                     max_blocks_per_seq=max_blocks_per_seq)
+                                     max_blocks_per_seq=max_blocks_per_seq,
+                                     draft=draft)
         out.append(cache[sk])
     return out
 

@@ -11,11 +11,15 @@ Entry points:
   init_params(cfg, seed=..., device=...)
   init_paged_state(cfg, num_blocks, block_size, device=...)
   paged_decode_step(cfg, params, pool, inputs, block_tables, positions, attn_lens)
+  paged_verify_step(cfg, params, pool, tokens, block_tables, base, qlims)
   paged_prefill_packed(cfg, params, pool, tokens, tables, starts, valids, slots)
   paged_prefill_step(cfg, params, pool, tokens, table_row, start, valid_len, slot)
 
-This slice serves dense full-attention decoders (layer kind ``attn``);
-other families raise ``NotImplementedError``.
+The port serves the attention-only dense families: full attention (layer
+kind ``attn``), sliding window (``attn`` with ring KV) and local-global
+(gemma3: ``local`` ring layers and ``global`` full layers in one
+superblock). Each layer dispatches on its state kind. MoE, recurrent and
+hybrid families raise ``NotImplementedError`` (ROADMAP A9, A13).
 """
 from __future__ import annotations
 
@@ -31,14 +35,18 @@ superblock_layout = SP.superblock_layout
 _layer_kinds = SP.layer_kinds
 
 
+_ATTN_KINDS = ("attn", "local", "global")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config outside this slice of the port."""
+    """Raise for a config outside the port's slices so far."""
     kinds = _layer_kinds(cfg)
-    SP.providers_for(cfg, num_blocks=1, block_size=1)   # raises on non-full
-    if kinds != ["attn"]:
+    SP.providers_for(cfg, num_blocks=1, block_size=1)   # raises on recurrent
+    if any(k not in _ATTN_KINDS for k in kinds):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {kinds} come in a later slice of the "
-            f"port (this slice serves dense full-attention decoders)")
+            f"port (it serves dense full, sliding and local-global "
+            f"attention decoders)")
     if cfg.rope_mode not in ("standard", "none"):
         raise NotImplementedError(
             f"{cfg.name}: rope_mode {cfg.rope_mode!r} comes in a later slice")
@@ -65,7 +73,8 @@ def param_specs(cfg: ModelConfig) -> dict:
                 "w_out": ((n_sb, f, d), dt, "dense")},
     }
     specs = {"embed": {"table": ((v, d), dt, "embed")},
-             "blocks": {"l0": layer},
+             "blocks": {f"l{i}": layer
+                        for i in range(len(_layer_kinds(cfg)))},
              "final_norm": {"scale": ((d,), f32, "ones")}}
     if not cfg.tie_embeddings:
         specs["lm_head"] = {"w": ((d, v), dt, "dense")}
@@ -129,7 +138,8 @@ def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int, *,
                      device="cuda"):
     """Per-superblock, per-layer paged KV pools (n_sb, num_blocks + 1, bs,
     Hkv, hd) — all layers share one block table per sequence, each layer
-    owns its pool storage, and block num_blocks is the scratch block."""
+    owns its pool storage (ring layers use the table's first ring_pages
+    entries modulo the ring), and block num_blocks is the scratch block."""
     check_supported(cfg)
     n_sb, _ = superblock_layout(cfg)
     providers = SP.providers_for(cfg, num_blocks=num_blocks,
@@ -145,44 +155,86 @@ def _attn_block(p, h_in, attn_out, cfg):
     return x + L.swiglu(p["mlp"], h)
 
 
+def _layers(cfg, params, pool, draft):
+    """Every layer in order: (layer params, layer pool, window, ring_pages)
+    as views of superblock sb; window and ring_pages are None for full
+    layers. ``draft`` sets the ring slack (ring_pages(window, bs, draft)).
+    The params and pools were made for a supported config (param_specs and
+    init_paged_state check it)."""
+    n_sb, _ = superblock_layout(cfg)
+    skinds = SP.state_kinds(cfg)
+    for sb in range(n_sb):
+        for i, skind in enumerate(skinds):
+            st = _at(pool[f"l{i}"], sb)
+            window = rp = None
+            if skind == "ring":
+                window = cfg.window_size
+                rp = SP.ring_pages(window, st["k"].shape[1], draft=draft)
+            yield _at(params["blocks"][f"l{i}"], sb), st, window, rp
+
+
 def paged_decode_step(cfg: ModelConfig, params, pool, inputs, block_tables,
-                      positions, attn_lens):
+                      positions, attn_lens, *, draft=0):
     """One-token decode for a continuous batch of slots. inputs: {"token":
     (B,)}; block_tables: (B, P) int32; positions: (B,) absolute position of
     each incoming token; attn_lens: (B,) int32 tokens to attend over
-    including the new one (0 = inactive slot). Returns (logits (B,V),
-    pool updated in place)."""
+    including the new one (0 = inactive slot). ``draft`` must match the
+    engine's speculative K-1 (0 when speculation is off) so ring layers use
+    the same ring as the verify step. Returns (logits (B,V), pool updated
+    in place)."""
     x = _embed_tokens(cfg, params, inputs["token"][:, None])
-    n_sb, _ = superblock_layout(cfg)
-    for sb in range(n_sb):
-        lp = _at(params["blocks"]["l0"], sb)
-        st = _at(pool["l0"], sb)
+    for lp, st, window, rp in _layers(cfg, params, pool, draft):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         y, _ = A.attention_decode_paged(lp["attn"], h, st, block_tables,
-                                        positions, attn_lens, cfg)
+                                        positions, attn_lens, cfg,
+                                        window=window, ring_pages=rp)
         x = _attn_block(lp, x, y, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits(cfg, params, x)[:, 0], pool
 
 
+def paged_verify_step(cfg: ModelConfig, params, pool, tokens, block_tables,
+                      base, qlims):
+    """Multi-query speculative verify for a continuous batch of slots.
+    tokens: (B, K) — K draft tokens per slot, draft j at absolute position
+    `base[b] + j`; qlims: (B,) number of draft positions that may commit
+    K/V this step (0 = inactive slot). Each layer writes the first qlims[b]
+    drafts' K/V (write-then-attend) and attends causally among the draft
+    positions; ring layers use the ring with K-1 slack. Returns (logits
+    (B, K, V), pool updated in place)."""
+    x = _embed_tokens(cfg, params, tokens)                        # (B, K, D)
+    for lp, st, window, rp in _layers(cfg, params, pool,
+                                      tokens.shape[1] - 1):
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, _ = A.attention_verify_paged(lp["attn"], h, st, block_tables,
+                                        base, qlims, cfg, window=window,
+                                        ring_pages=rp)
+        x = _attn_block(lp, x, y, cfg)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits(cfg, params, x), pool
+
+
 def paged_prefill_packed(cfg: ModelConfig, params, pool, tokens, tables,
-                         starts, valids, slots):
+                         starts, valids, slots, *, draft=0):
     """Segment-masked packed prefill: one prompt chunk per segment, all
     segments in ONE call. tokens: (G, C) int32 — segment g's chunk starts
     at absolute position `starts[g]` with the first `valids[g]` tokens real;
     tables: (S, P) block-table rows indexed by `slots`. `slots[g] >= S`
     marks an all-padding segment (valids[g] == 0): its table gather clamps
-    and its writes go to the scratch block. Returns (logits (G, V) of each
-    segment's last valid token, pool updated in place)."""
+    and its writes go to the scratch block. ``draft`` as in
+    :func:`paged_decode_step`. Returns (logits (G, V) of each segment's
+    last valid token, pool updated in place)."""
     x = _embed_tokens(cfg, params, tokens)
     rows = tables[torch.clamp(slots, max=tables.shape[0] - 1).long()]
-    n_sb, _ = superblock_layout(cfg)
-    for sb in range(n_sb):
-        lp = _at(params["blocks"]["l0"], sb)
-        st = _at(pool["l0"], sb)
+    for lp, st, window, rp in _layers(cfg, params, pool, draft):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        y, _ = A.attention_prefill_paged(lp["attn"], h, st, rows, starts,
-                                         valids, cfg)
+        if window is None:
+            y, _ = A.attention_prefill_paged(lp["attn"], h, st, rows, starts,
+                                             valids, cfg)
+        else:
+            y, _ = A.attention_prefill_ring(lp["attn"], h, st, rows, starts,
+                                            valids, cfg, window=window,
+                                            ring_pages=rp)
         x = _attn_block(lp, x, y, cfg)
     idx = torch.clamp(valids - 1, min=0).long()                   # (G,)
     last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
@@ -191,7 +243,7 @@ def paged_prefill_packed(cfg: ModelConfig, params, pool, tokens, tables,
 
 
 def paged_prefill_step(cfg: ModelConfig, params, pool, tokens, table_row,
-                       start, valid_len, slot):
+                       start, valid_len, slot, *, draft=0):
     """Chunked prefill of ONE sequence (a G=1 packed call). tokens: (1, C)
     chunk starting at absolute position `start`, first `valid_len` real;
     `table_row` (P,). Returns (logits (1,V) of the chunk's last valid
@@ -202,4 +254,5 @@ def paged_prefill_step(cfg: ModelConfig, params, pool, tokens, table_row,
         return torch.tensor([v], dtype=torch.int32, device=dev)
 
     return paged_prefill_packed(cfg, params, pool, tokens, table_row[None],
-                                one(start), one(valid_len), one(slot))
+                                one(start), one(valid_len), one(slot),
+                                draft=draft)

@@ -2,9 +2,12 @@ from repro_torch.serving.engine.engine import Engine, EngineConfig
 from repro_torch.serving.engine.paged_cache import (BlockPool, BlockPoolError,
                                                     prefix_hashes)
 from repro_torch.serving.engine.scheduler import Request, Scheduler
+from repro_torch.serving.engine.spec import (Drafter, NgramDrafter,
+                                             ReplayDrafter, SpecConfig)
 from repro_torch.serving.telemetry import (MetricsRegistry, RecompileTracker,
                                            RequestTracer, Telemetry)
 
 __all__ = ["Engine", "EngineConfig", "BlockPool", "BlockPoolError",
            "Request", "Scheduler", "prefix_hashes", "MetricsRegistry",
-           "RecompileTracker", "RequestTracer", "Telemetry"]
+           "RecompileTracker", "RequestTracer", "Telemetry", "Drafter",
+           "NgramDrafter", "ReplayDrafter", "SpecConfig"]

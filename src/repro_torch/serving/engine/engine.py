@@ -1,6 +1,14 @@
 """Continuous-batching serving engine (port of ``repro.serving.engine.engine``).
 
-Wires the host-side scheduler + block-pool bookkeeping to three device step
+Sequence state is per layer kind (``models.state_providers``): full
+attention pages O(S) KV blocks, and sliding-window layers keep a fixed ring
+of ``ceil(window/block_size)+1`` blocks written modulo the ring, so the
+engine serves full, sliding and local-global (gemma3) decoders through one
+scheduler and one block-table layout. Admission charges the per-kind block
+cost (the max over kinds) and prefix caching stays on exactly for the
+all-full-attention configs, where block aliasing is sound.
+
+Wires the host-side scheduler + block-pool bookkeeping to the device step
 functions over the paged KV pools:
 
   * ``prefill_fn`` — up to ``prefills_per_step`` prompt chunks of DIFFERENT
@@ -8,9 +16,13 @@ functions over the paged KV pools:
     (``transformer.paged_prefill_packed``), padded to a declared
     (chunk-length x num-segments) bucket.
   * ``decode_fn`` — one token for EVERY decoding slot at once
-    (``transformer.paged_decode_step``, whose attention is the hand-written
-    paged-decode kernel on CUDA); requests join and leave the batch between
-    steps, the shapes stay fixed at max_slots.
+    (``transformer.paged_decode_step``, whose attention is a hand-written
+    paged-attention kernel on CUDA: full or ring mode); requests join and
+    leave the batch between steps, the shapes stay fixed at max_slots.
+  * ``verify_fn`` — with ``EngineConfig.spec``, replaces the decode step:
+    k tokens per slot (the pending token plus k-1 drafts) through the
+    multi-query verify kernels, greedy acceptance on the device
+    (``spec.verify_step``), then one host read of (greedy, accepts).
   * ``copy_block_fn`` — the copy-on-write block duplication of prefix
     caching.
 
@@ -33,8 +45,8 @@ table, and prefills only the uncached tail. Telemetry
 (``EngineConfig.telemetry``, on by default) traces every request's
 lifecycle and keeps every counter in one registry (``serving.telemetry``).
 
-Not in this slice of the port: temperature sampling, oversubscription,
-speculative decoding, int8 KV, and the ring / recurrent / MoE families.
+Not ported yet: temperature sampling, oversubscription, int8 KV, the
+draft-model drafter, and the recurrent / hybrid / MoE families.
 """
 from __future__ import annotations
 
@@ -47,7 +59,9 @@ import torch
 from repro_torch.models import state_providers as SP
 from repro_torch.models import transformer as T
 from repro_torch.serving import telemetry as TM
+from repro_torch.serving.engine import spec as SPEC
 from repro_torch.serving.engine.paged_cache import BlockPool
+from repro_torch.serving.engine.spec import SpecConfig
 from repro_torch.serving.engine.scheduler import (DECODING, FINISHED, Request,
                                                   Scheduler,
                                                   chunk_buckets_for,
@@ -68,23 +82,31 @@ class EngineConfig:
     prefill_buckets: tuple = ()         # chunk-length buckets; () = one
                                         #   bucket of prefill_chunk tokens
     packed_prefill: bool = True         # pack chunks into one prefill call
+    spec: Optional[SpecConfig] = None   # speculative decoding (engine.spec):
+                                        #   k-token draft + multi-query verify
+                                        #   replaces the one-token decode step
 
     def __post_init__(self):
         object.__setattr__(self, "prefill_buckets",
                            tuple(self.prefill_buckets))
 
 
-def _step_fns(cfg):
+def _step_fns(cfg, e: EngineConfig):
     """The device step functions (counterparts of the reference's jitted
-    decode_fn / prefill_fn / copy_block_fn). None of them reads a value
-    back to the host."""
+    decode_fn / prefill_fn / verify_fn / copy_block_fn). None of them reads
+    a value back to the host; verify_fn is None without speculation."""
+    # speculative decoding enlarges every ring layer by the draft depth so a
+    # verify step's K in-flight positions never overwrite a key still inside
+    # someone's window — decode, prefill and verify must all index the ring
+    # with the SAME enlarged modulus, hence the shared `draft` here.
+    draft = e.spec.k - 1 if e.spec is not None else 0
 
     def decode_fn(params, pool, tokens, tables, seq_lens, active):
         positions = torch.where(active, seq_lens, 0)
         attn_lens = torch.where(active, seq_lens + 1, 0)
         logits, pool = T.paged_decode_step(
             cfg, params, pool, {"token": tokens}, tables, positions,
-            attn_lens)
+            attn_lens, draft=draft)
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         return greedy, logits, seq_lens + active.to(torch.int32), pool
 
@@ -94,9 +116,18 @@ def _step_fns(cfg):
         # slot == max_slots (sentinel), so their writes go to the scratch
         # block.
         logits, pool = T.paged_prefill_packed(
-            cfg, params, pool, tokens, tables, starts, valids, slots)
+            cfg, params, pool, tokens, tables, starts, valids, slots,
+            draft=draft)
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         return greedy, logits, pool
+
+    verify_fn = None
+    if e.spec is not None:
+        def verify_fn(params, pool, tokens, tables, seq_lens, active, qlims):
+            # one call verifies k tokens per slot and computes the greedy
+            # acceptance run on the device (spec.verify_step)
+            return SPEC.verify_step(cfg, params, pool, tokens, tables,
+                                    seq_lens, active, qlims)
 
     def copy_block_fn(pool, src, dst):
         # copy-on-write: duplicate one KV block (all layers) so a request
@@ -106,7 +137,7 @@ def _step_fns(cfg):
                 a[:, dst] = a[:, src]
         return pool
 
-    return decode_fn, prefill_fn, copy_block_fn
+    return decode_fn, prefill_fn, copy_block_fn, verify_fn
 
 
 def _set(vec, i, value):
@@ -134,9 +165,21 @@ class Engine:
         self.params = params
         e = self.ecfg
 
+        # speculative decoding: the drafter is host-only per-engine state;
+        # the device sees only k (verify tokens width + ring slack)
+        self.drafter = e.spec.build_drafter() if e.spec is not None else None
         self.providers = SP.providers_for(
             cfg, num_blocks=e.num_blocks, block_size=e.block_size,
-            max_blocks_per_seq=e.max_blocks_per_seq)
+            max_blocks_per_seq=e.max_blocks_per_seq,
+            draft=e.spec.k - 1 if e.spec is not None else 0)
+        for p in self.providers:
+            if p.kind == "ring" and p.ring_pages > e.max_blocks_per_seq:
+                raise ValueError(
+                    f"ring needs {p.ring_pages} blocks (window "
+                    f"{p.window} @ block_size {e.block_size}) > "
+                    f"max_blocks_per_seq {e.max_blocks_per_seq}")
+        # block aliasing is only sound when every layer's state is a pure
+        # function of the token prefix — i.e. all-full-attention configs
         self.prefix_caching = (e.prefix_caching and all(
             p.supports_prefix_caching for p in self.providers))
 
@@ -162,6 +205,15 @@ class Engine:
         self._m_step_syncs = reg.counter(
             "engine_step_vector_syncs_total",
             "step vectors materialized on host for stop_token scanning")
+        self._m_verify_steps = reg.counter(
+            "engine_verify_steps_total", "speculative verify steps dispatched")
+        self._m_draft = reg.counter(
+            "engine_draft_tokens_total", "draft tokens proposed for verify")
+        self._m_accepted = reg.counter(
+            "engine_accepted_tokens_total", "draft tokens accepted by verify")
+        self._h_accept = reg.histogram(
+            "engine_spec_acceptance_rate",
+            "per verify step: accepted drafts / proposed drafts")
         self._g_waiting = reg.gauge(
             "engine_waiting_requests", "requests queued awaiting admission")
         self._g_running = reg.gauge(
@@ -215,14 +267,18 @@ class Engine:
         self._next_rid = 0
         self.requests: dict = {}        # rid -> Request (all ever submitted)
 
-        self._decode, self._prefill, self._copy_block = _step_fns(cfg)
+        (self._decode, self._prefill, self._copy_block,
+         self._verify) = _step_fns(cfg, e)
         if self.telemetry.enabled:
             wrap = self.telemetry.recompiles.wrap
             self._decode = wrap("decode", self._decode)
             self._prefill = wrap("prefill", self._prefill)
             self._copy_block = wrap("copy_block", self._copy_block)
+            if self._verify is not None:
+                self._verify = wrap("verify", self._verify)
         self._step_device_s = 0.0
         self._warmup_prefill()
+        self._warmup_verify()
 
     def _to_device(self, a: np.ndarray):
         # non-blocking: CUDA stages a pageable source before returning, so
@@ -244,6 +300,22 @@ class Engine:
                 self.params, self.pool_state, torch.zeros((g, c), **i32),
                 self.tables, torch.zeros((g,), **i32),
                 torch.zeros((g,), **i32), torch.full((g,), e.max_slots, **i32))
+
+    def _warmup_verify(self) -> None:
+        """Drive the verify fn once at construction, as ``_warmup_prefill``
+        does: every slot inactive means qlims == 0, so every write goes to
+        the scratch block and the pools' blocks [0, num_blocks) are
+        untouched."""
+        if self._verify is None:
+            return
+        e = self.ecfg
+        i32 = dict(dtype=torch.int32, device=self.device)
+        z = torch.zeros((e.max_slots,), **i32)
+        self._device_call(
+            "engine/warmup_verify", self._verify, self.params,
+            self.pool_state, torch.zeros((e.max_slots, e.spec.k), **i32),
+            self.tables, z, torch.zeros((e.max_slots,), dtype=torch.bool,
+                                        device=self.device), z)
 
     @property
     def stats(self) -> dict:
@@ -405,7 +477,9 @@ class Engine:
                         self._finish(req)
 
         batch = self.scheduler.decode_batch()
-        if batch:
+        if batch and self._verify is not None:
+            emitted.extend(self._spec_decode(batch, sync_memo))
+        elif batch:
             greedy, logits, self.seq_lens, self.pool_state = self._device_call(
                 "engine/decode", self._decode,
                 self.params, self.pool_state, self.next_tok, self.tables,
@@ -485,6 +559,76 @@ class Engine:
         return src
 
     # ------------------------------------------------------------- internal
+    def _spec_decode(self, batch: list, sync_memo: dict) -> list:
+        """One speculative decode step over the DECODING batch: host
+        drafting, ONE verify call covering k tokens per slot, then a host
+        read of the (greedy, accepts) pair to record each accepted run.
+        Spec mode reads back every step — acceptance decides how many
+        tokens exist, so lazy step-vector refs can't represent the output —
+        which is why verify must emit > 1 token per step on average to win.
+
+        Per slot the verify row is ``[pending, d1 .. d_{k-1}]``: the last
+        emitted (true) token plus the drafter's guesses for the next k-1
+        stream positions. ``qlims`` caps accepted tokens AND KV writes at
+        what the request may still emit. The reference also feeds it to
+        oversubscription's block growth (``_spec_horizon``); this engine
+        reserves each request's whole span at admission, so ``qlims``
+        alone keeps the writes inside the reservation."""
+        e = self.ecfg
+        tel = self.telemetry
+        k = e.spec.k
+        emitted = []
+        tokens = np.zeros((e.max_slots, k), np.int32)
+        qlims = np.zeros((e.max_slots,), np.int32)
+        plans = []
+        for req in batch:
+            # drafting needs the concrete stream: materialize any lazy
+            # step-vector refs (at most this step's prefill-completion token)
+            if any(isinstance(t, tuple) for t in req.out_tokens):
+                req.out_tokens = [int(t) for t in
+                                  self._materialize(req, sync_memo)]
+            q = min(k, req.max_new - len(req.out_tokens))
+            ctx = np.concatenate([req.prompt,
+                                  np.asarray(req.out_tokens, np.int32)])
+            tokens[req.slot, 0] = ctx[-1]
+            if q > 1:
+                tokens[req.slot, 1:] = self.drafter.propose(
+                    req.rid, ctx, k - 1)
+            qlims[req.slot] = q
+            plans.append((req, q))
+        greedy, accepts, _, self.seq_lens, self.pool_state = \
+            self._device_call(
+                "engine/verify", self._verify,
+                self.params, self.pool_state, self._to_device(tokens),
+                self.tables, self.seq_lens, self.active,
+                self._to_device(qlims))
+        g_host = greedy.cpu().numpy()
+        a_host = accepts.cpu().numpy()
+        self._m_step_syncs.inc()
+        self._m_decode_steps.inc()
+        self._m_verify_steps.inc()
+        self._m_occupancy.inc(len(batch) / e.max_slots)
+        for req, q in plans:
+            a = int(a_host[req.slot])
+            toks = [int(t) for t in g_host[req.slot, :a]]
+            if req.stop_token is not None and req.stop_token in toks:
+                # truncate at the stop token; the device advanced past it
+                # but the slot is freed below, so the overrun is unreachable
+                toks = toks[:toks.index(req.stop_token) + 1]
+            req.out_tokens.extend(toks)
+            emitted.append(req.rid)
+            drafted, accepted = max(q - 1, 0), max(a - 1, 0)
+            self._m_draft.inc(drafted)
+            self._m_accepted.inc(accepted)
+            if drafted:
+                self._h_accept.observe(accepted / drafted)
+            tel.record(req.rid, "verify", drafted=drafted, accepted=accepted)
+            tel.record(req.rid, "decode_token", tokens=len(toks))
+            self._m_emitted.inc(len(toks) - 1)    # step() adds 1 per rid
+            if req.done:
+                self._finish(req)
+        return emitted
+
     def _record_token(self, req: Request, greedy_vec, greedy_idx,
                       sync_memo: dict):
         """Record the request's next token. Greedy requests store a
@@ -507,6 +651,8 @@ class Engine:
 
     def _finish(self, req: Request) -> None:
         self.active = _set(self.active, req.slot, False)
+        if self.drafter is not None:
+            self.drafter.forget(req.rid)
         self.scheduler.finish(req)
         tel = self.telemetry
         if tel.enabled:

@@ -247,8 +247,8 @@ def test_init_params_matches_specs_and_seed(model):
 def test_unsupported_families_raise():
     import dataclasses
     base = ModelConfig(**CFG_KW)
-    for kw in (dict(attention_type="sliding"), dict(family="ssm"),
-               dict(num_experts=4, experts_per_token=2),
+    for kw in (dict(family="hybrid", hybrid_ssm_per_attn=1),
+               dict(family="ssm"), dict(num_experts=4, experts_per_token=2),
                dict(rope_mode="mrope")):
         with pytest.raises(NotImplementedError):
             TT.init_paged_state(dataclasses.replace(base, **kw), 4, 4,
