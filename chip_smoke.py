@@ -16,20 +16,28 @@ Phases, in order; any failure exits non-zero before the final ok line:
      ring positions before, at and far past the first wrap, an inactive
      slot and poisoned dead/stale keys; each kernel timed beside its plain
      version, one library call and its byte / operation bound (B1 at the
-     yi-9b decode shape, B2/B4/B5 at gemma3-12b's).
+     yi-9b decode shape, B2/B4/B5 at gemma3-12b's). Then B3, the same four
+     modes on int8 pools with their scales (dequantized in the kernel),
+     over the same sweeps with poisoned dead keys and NaN scales, each
+     timed likewise and beside the bf16 kernel on the same values.
   4. parity — tiny f32 models served on cuda and on cpu from the same
      weights: a full-attention one (staggered requests, a mid-flight
      defragment, a prefix-cache copy-on-write replay), reduced gemma3 and a
      dense sliding config, each also with SpecConfig(k=4) on cuda: greedy
-     tokens must be equal.
+     tokens must be equal. The three again with int8 pools, plain and with
+     speculation, and two of them under OversubConfig() with every request
+     force-preempted once.
   5. main paths — yi-9b at full width (48 layers, bf16, seeded random
      weights) through the port's Engine: mixed requests plus two
-     ~1000-token prompts; then gemma3-12b at full width (48 layers: 40
-     ring-KV local, 8 global) served without speculation, with the n-gram
-     drafter and with a replay drafter (k=4), plus two prompts that wrap
-     the ring. Every request finishes, logits stay finite, no block leaks,
-     and each kernel ran once per layer of its kind per decode or verify
-     step.
+     ~1000-token prompts, with bf16 and with int8 pools, then both pool
+     types at one fixed pool byte budget under oversubscription (the bf16
+     pool must preempt; peak resident sequences of each); then gemma3-12b
+     at full width (48 layers: 40 ring-KV local, 8 global) served without
+     speculation, with the n-gram drafter and with a replay drafter (k=4),
+     plus two prompts that wrap the ring, and with int8 pools without
+     speculation and with the n-gram drafter. Every request finishes,
+     logits stay finite, no block leaks, and each kernel ran once per
+     layer of its kind per decode or verify step.
 
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -369,34 +377,39 @@ def multi_kernel_phase(card):
     return rows
 
 
-def _time_multi(card, key, n_q, args, kw, errs, window):
+def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
     """Kernel, plain version and SDPA on pre-gathered K/V at one shape;
-    byte and operation bounds from these inputs' live keys."""
+    byte and operation bounds from these inputs' live keys. n_q == 0 is a
+    one-query decode (B1 or B2), else a K-query verify. With int8 pools
+    (k_scale / v_scale in `kw`) the bytes count the int8 values plus 4
+    bytes of scale per vector, SDPA takes K/V gathered AND dequantized
+    beforehand, and the bf16 kernel of the same mode is also timed on the
+    pools' dequantized contents (the dequant's cost)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_ref, paged_attention_verify,
         paged_attention_verify_ref)
     from repro_torch.kernels.paged_attention.ref import ring_key_positions
+    from repro_torch.kernels.quantize import dequantize_kv
     q, kp, vp, tables, lens_t = args
     B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
     _, bs, Hkv, _ = kp.shape
     K = max(n_q, 1)
-    if key == "paged_ring":
-        def kern():
-            return paged_attention(*args, **kw)
+    quant = "k_scale" in kw
+    ring = "ring_pages" in kw
+    kern_fn, plain_fn = ((paged_attention, paged_attention_ref) if n_q == 0
+                         else (paged_attention_verify,
+                               paged_attention_verify_ref))
 
-        def plain():
-            return paged_attention_ref(*args, **kw)
-    else:
-        def kern():
-            return paged_attention_verify(*args, **kw)
+    def kern():
+        return kern_fn(*args, **kw)
 
-        def plain():
-            return paged_attention_verify_ref(*args, **kw)
+    def plain():
+        return plain_fn(*args, **kw)
     # key positions and per-row masks, as SDPA's boolean mask
     lens64 = lens_t.long()
-    if kw:
+    if ring:
         R = kw["ring_pages"]
         pos = kw["positions"].long()
         kpos = ring_key_positions(kw["positions"], R, bs)          # (B, R*bs)
@@ -414,9 +427,10 @@ def _time_multi(card, key, n_q, args, kw, errs, window):
     pairs = int(mask.sum())                          # (row, key) pairs
     item = q.element_size()
     pages = int(mask.any(dim=1).reshape(B, -1, bs).any(-1).sum())
-    nbytes = (n_keys * Hkv * hd * 2 * item          # K and V read once
+    vec = hd + 4 if quant else hd * item             # one K or V vector
+    nbytes = (n_keys * Hkv * vec * 2                 # K and V read once
               + 2 * q.numel() * item                 # q in, out
-              + pages * 4 + B * 4 * (2 if kw else 1))
+              + pages * 4 + B * 4 * (2 if ring else 1))
     flops = 4 * pairs * H * hd                       # q·k and p·v per head
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
@@ -424,8 +438,12 @@ def _time_multi(card, key, n_q, args, kw, errs, window):
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
 
     Tk = gather.shape[1] * bs
-    kc = kp[gather].reshape(B, Tk, Hkv, hd).transpose(1, 2).contiguous()
-    vc = vp[gather].reshape(B, Tk, Hkv, hd).transpose(1, 2).contiguous()
+    kg, vg = kp[gather], vp[gather]
+    if quant:
+        kg = dequantize_kv(kg, kw["k_scale"][gather]).to(q.dtype)
+        vg = dequantize_kv(vg, kw["v_scale"][gather]).to(q.dtype)
+    kc = kg.reshape(B, Tk, Hkv, hd).transpose(1, 2).contiguous()
+    vc = vg.reshape(B, Tk, Hkv, hd).transpose(1, 2).contiguous()
     qh = (q[:, :, None, :] if n_q == 0 else q.transpose(1, 2)).contiguous()
     smask = mask[:, None]                            # (B, 1, K, Tk)
 
@@ -438,21 +456,205 @@ def _time_multi(card, key, n_q, args, kw, errs, window):
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
-    name, replaces = MULTI_KERNELS[key]
-    print(f"{name} @ gemma3-12b decode shape (bf16, B={B}, k={K}, "
-          f"{n_keys} live keys): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, library SDPA on pre-gathered K/V {library_ms:.4f} ms (err vs "
-          f"plain {lib_err:.2e}), bound {bound_ms:.4f} ms by {bound_by} "
-          f"({nbytes} B, {flops} flop); max_abs_err f32 "
-          f"{errs[torch.float32]:.3e} bf16 {errs[torch.bfloat16]:.3e} "
-          f"| {card}")
+    extra, row = "", {}
+    if quant:
+        # the bf16 kernel of the same mode on the same (dequantized) values
+        deq = (q, dequantize_kv(kp, kw["k_scale"]).to(q.dtype),
+               dequantize_kv(vp, kw["v_scale"]).to(q.dtype), tables, lens_t)
+        kw16 = {k: v for k, v in kw.items() if not k.endswith("_scale")}
+        bf16_ms = time_ms(lambda: kern_fn(*deq, **kw16))
+        name, replaces = key, INT8_KERNELS[key][1]
+        row = {"bf16_pool_ms": bf16_ms, "variant_of": INT8_KERNELS[key][0]}
+        extra = (f", bf16 kernel on the dequantized pool {bf16_ms:.4f} ms "
+                 f"({ms / bf16_ms:.2f}x)")
+    else:
+        name, replaces = MULTI_KERNELS[key]
+    pools = "int8" if quant else "bf16"
+    print(f"{name} @ {shape} decode shape (bf16 q, {pools} pools, B={B}, "
+          f"k={K}, {n_keys} live keys): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library SDPA on pre-gathered K/V "
+          f"{library_ms:.4f} ms (err vs plain {lib_err:.2e}){extra}, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
+          f"max_abs_err f32 {errs[torch.float32]:.3e} bf16 "
+          f"{errs[torch.bfloat16]:.3e} | {card}")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/"
                       "paged_attention.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[torch.bfloat16], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **row}
+
+
+# ------------------------------------------- phase 3c: int8 pools (B3)
+INT8_KERNELS = {
+    # launch-count key: (TPU body whose quant=True variant it is, the B3
+    # dequant it carries)
+    "paged_attention_int8": (
+        "src/repro/kernels/paged_attention/kernel.py:52",
+        "src/repro/kernels/paged_attention/kernel.py:41"),
+    "paged_ring_int8": ("src/repro/kernels/paged_attention/kernel.py:238",
+                        "src/repro/kernels/paged_attention/kernel.py:41"),
+    "paged_verify_int8": ("src/repro/kernels/paged_attention/kernel.py:101",
+                          "src/repro/kernels/paged_attention/kernel.py:41"),
+    "paged_ring_verify_int8": (
+        "src/repro/kernels/paged_attention/kernel.py:167",
+        "src/repro/kernels/paged_attention/kernel.py:41"),
+}
+
+
+def _quantized(args, kw):
+    """The case with its pools quantized as the engine stores them: int8
+    values and one f32 scale per (slot, kv head) vector."""
+    from repro_torch.kernels.quantize import quantize_kv
+    q, kp, vp, tables, lens_t = args
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    return (q, kq, vq, tables, lens_t), dict(kw, k_scale=ks.contiguous(),
+                                             v_scale=vs.contiguous())
+
+
+def int8_kernel_phase(card):
+    """B3: every paged-attention mode on int8 pools (B1, B2, B4, B5 with the
+    in-kernel dequant) against its plain version with scales over the B1
+    and B2/B4/B5 sweeps, poisoned dead keys (values 127, scales NaN) read
+    nowhere, and ref-with-scales == ref on the dequantized pool bit for
+    bit; then each timed beside the bf16 kernel on the same (dequantized)
+    values: B1 at yi-9b's decode shape, B2/B4/B5 at gemma3-12b's."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_ref, paged_attention_verify,
+        paged_attention_verify_ref)
+    from repro_torch.kernels.quantize import dequantize_kv
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    worst = dict.fromkeys(INT8_KERNELS, 0.0)
+
+    def fns(n_q):
+        return ((paged_attention, paged_attention_ref) if n_q == 0
+                else (paged_attention_verify, paged_attention_verify_ref))
+
+    def compare(key, n_q, args, kw, label):
+        kern, plain = fns(n_q)
+        out, ref = kern(*args, **kw), plain(*args, **kw)
+        q, kq, vq, tables, lens_t = args
+        kw16 = {k: v for k, v in kw.items() if not k.endswith("_scale")}
+        ref_deq = plain(q, dequantize_kv(kq, kw["k_scale"]),
+                        dequantize_kv(vq, kw["v_scale"]), tables, lens_t,
+                        **kw16)
+        torch.cuda.synchronize()
+        check(torch.equal(ref, ref_deq), f"{key} {label}: ref with scales != "
+              f"ref on the dequantized pool")
+        err = (out.float() - ref.float()).abs().max().item()
+        dt = q.dtype
+        check(math.isfinite(err) and err <= tol[dt],
+              f"{key} {label} {dt}: max_abs_err {err} > {tol[dt]}")
+        if dt == torch.bfloat16:
+            worst[key] = max(worst[key], err)
+        return out, err
+
+    def poisoned(key, n_q, args, kw, lens, bs, P, label):
+        """Every (block, offset) no row may attend gets int8 127 and scale
+        NaN: the output must not change by one bit."""
+        q, kq, vq, tables, lens_t = args
+        keep = _referenced(tables, lens,
+                           {k: v for k, v in kw.items()
+                            if not k.endswith("_scale")}, n_q, bs, P)
+        dead = torch.ones(kq.shape[:2], dtype=torch.bool)
+        for blk, off in keep:
+            dead[blk, off] = False
+        dead = dead.to("cuda")
+        kern = fns(n_q)[0]
+        out = kern(*args, **kw)
+        bad = dict(kw, k_scale=torch.where(dead[..., None], float("nan"),
+                                           kw["k_scale"]).contiguous(),
+                   v_scale=torch.where(dead[..., None], float("nan"),
+                                       kw["v_scale"]).contiguous())
+        kq2 = torch.where(dead[..., None, None], 127, kq).to(torch.int8)
+        vq2 = torch.where(dead[..., None, None], 127, vq).to(torch.int8)
+        out2 = kern(q, kq2, vq2, tables, lens_t, **bad)
+        check(torch.equal(out, out2),
+              f"{key} {label}: poisoned dead keys or scales leaked")
+
+    n_cases = 0
+    # B1 + B3: the B1 sweep, an inactive slot, dead pages past seq_len
+    B, N, bs, P = 3, 24, 8, 4
+    for H, Hkv, hd in [(4, 4, 32), (4, 2, 64), (8, 1, 32), (8, 2, 16),
+                       (8, 2, 128), (4, 1, 256), (16, 1, 64)]:
+        for dt in (torch.float32, torch.bfloat16):
+            lens = [1, bs * P, bs + 3]
+            args, kw = _quantized(_paged_case(gen, B, H, Hkv, hd, N, bs, P,
+                                              dt, lens), {})
+            label = f"H{H} Hkv{Hkv} hd{hd}"
+            compare("paged_attention_int8", 0, args, kw, label)
+            poisoned("paged_attention_int8", 0, args, kw, lens, bs, P, label)
+            n_cases += 1
+    args, kw = _quantized(_paged_case(gen, 2, 4, 2, 32, 8, 4, 2,
+                                      torch.float32, [5, 0]), {})
+    out, _ = compare("paged_attention_int8", 0, args, kw, "inactive slot")
+    check(bool((out[1] == 0).all()), "int8 inactive slot row is not zeros")
+    # B2/B4/B5 + B3: the ring / verify sweep
+    bs, window = 4, 10
+    for H, Hkv, hd in [(4, 2, 64), (8, 1, 32), (8, 2, 16), (16, 8, 256),
+                       (32, 4, 128)]:
+        for dt in (torch.float32, torch.bfloat16):
+            for key, n_q in ([("paged_ring_int8", 0)]
+                             + [(m, k) for m in ("paged_verify_int8",
+                                                 "paged_ring_verify_int8")
+                                for k in (2, 4, 8)]):
+                if key != "paged_verify_int8":
+                    R = _ring_pages(window, bs, max(n_q - 1, 0))
+                    P = R + 2
+                    wrap = R * bs
+                    lens = [max(n_q, 1), window, wrap, wrap + 1,
+                            5 * wrap + 3, 0]
+                    ring = (window, R)
+                else:
+                    P, ring = 12, None
+                    lens = [n_q, n_q + 3, 13 + n_q, 0, 16, 29 + n_q]
+                args, kw = _quantized(*_multi_inputs(
+                    gen, len(lens), n_q, H, Hkv, hd, len(lens) * P + 3, bs,
+                    P, dt, lens, ring))
+                label = f"H{H} Hkv{Hkv} hd{hd} k{n_q}"
+                out, _ = compare(key, n_q, args, kw, label)
+                check(bool((out[lens.index(0)] == 0).all()),
+                      f"{key} {label}: inactive slot row is not zeros")
+                poisoned(key, n_q, args, kw, lens, bs, P, label)
+                n_cases += 1
+    print(f"kernel B3 (int8 pools in B1/B2/B4/B5): {n_cases} cases + an "
+          f"inactive slot within f32 2e-5 / bf16 2e-2, ref with scales == "
+          f"ref on the dequantized pool bit for bit, poisoned dead keys and "
+          f"NaN scales read nowhere; worst bf16 err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+
+    rows = []
+    # B1 + B3 at the yi-9b decode shape (as kernel_phase times B1)
+    B, H, Hkv, hd, bs, P = 8, 32, 4, 128, 16, 128
+    lens = [int(x) for x in np.linspace(1, bs * P, B)]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        args, kw = _quantized(_paged_case(gen, B, H, Hkv, hd, B * P + 1, bs,
+                                          P, dt, lens), {})
+        _, errs[dt] = compare("paged_attention_int8", 0, args, kw,
+                              "yi-9b shape")
+    rows.append(_time_multi(card, "paged_attention_int8", 0, args, kw, errs,
+                            None, shape="yi-9b"))
+    # B2/B4/B5 + B3 at the gemma3-12b decode shape (as multi_kernel_phase)
+    B, H, Hkv, hd, bs, P, W, K = 8, 16, 8, 256, 16, 128, 1024, 4
+    lens = [int(x) for x in np.linspace(K, bs * P, B)]
+    for key, n_q in (("paged_ring_int8", 0), ("paged_verify_int8", K),
+                     ("paged_ring_verify_int8", K)):
+        ring = None
+        if key != "paged_verify_int8":
+            ring = (W, _ring_pages(W, bs, max(n_q - 1, 0)))
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            args, kw = _quantized(*_multi_inputs(
+                gen, B, n_q, H, Hkv, hd, B * P + 1, bs, P, dt, lens, ring))
+            _, errs[dt] = compare(key, n_q, args, kw, "gemma3 shape")
+        rows.append(_time_multi(card, key, n_q, args, kw, errs, W))
+    return rows
 
 
 # ----------------------------------------------------------- phase 4: parity
@@ -587,8 +789,124 @@ def ring_spec_parity_phase(card):
               f"(tf32 off) | {card}")
 
 
+def _launch_want(**counts):
+    """Every launch-count key, zero unless given."""
+    from repro_torch import kernels
+    return {k: counts.get(k, 0) for k in kernels.launch_counts}
+
+
+def int8_parity_phase(card):
+    """int8 pools (EngineConfig.kv_quant) on the three parity configs (the
+    full-attention one, reduced gemma3, the dense sliding one), f32: cuda
+    tokens == cpu tokens, plain and with SpecConfig(k=4), and spec == plain;
+    the int8 kernels ran once per layer of their kind per step. Then the
+    full-attention and gemma3 configs under OversubConfig() with every
+    request force-preempted once after its second token (budgets of at
+    least 4 tokens): cuda == cpu == the cuda run without preemption."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import ModelConfig, get_config, reduced
+    from repro_torch.models import state_providers as SP
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import (Engine, EngineConfig,
+                                            KVQuantConfig, OversubConfig,
+                                            SpecConfig)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = dict(family="dense", num_layers=2, d_model=64, num_heads=4,
+                 num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=50,
+                 dtype="float32")
+    full = ModelConfig(name="parity-t", **small)
+    sliding = ModelConfig(name="sliding-t", attention_type="sliding",
+                          window_size=8, **small)
+    gemma = dataclasses.replace(reduced(get_config("gemma3-12b")),
+                                dtype="float32")
+    kvq = KVQuantConfig()
+    rng = np.random.default_rng(11)
+    plain_outs = {}
+    for cfg, lens, news, ek in (
+            (full, MIXED_LENS, MIXED_NEWS,
+             dict(block_size=4, num_blocks=64, max_blocks_per_seq=12,
+                  max_slots=4, prefill_chunk=8)),
+            (gemma, (5, 40, 70, 12, 33), (10, 30, 8, 20, 12),
+             dict(block_size=4, num_blocks=128, max_blocks_per_seq=24,
+                  max_slots=3, prefill_chunk=16)),
+            (sliding, (3, 26, 9, 17, 30), (6, 12, 20, 5, 9),
+             dict(block_size=4, num_blocks=64, max_blocks_per_seq=10,
+                  max_slots=3, prefill_chunk=16))):
+        params = T.init_params(cfg, seed=0, device="cpu")
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in lens]
+        kinds = SP.state_kinds(cfg)
+        n_sb, _ = SP.superblock_layout(cfg)
+        n_full, n_ring = (n_sb * kinds.count(k) for k in ("full", "ring"))
+        outs = {}
+        for dev, spec in (("cpu", None), ("cuda", None), ("cpu", 4),
+                          ("cuda", 4)):
+            eng = Engine(cfg, _tree_to(params, dev), EngineConfig(
+                **ek, kv_quant=kvq,
+                spec=SpecConfig(k=spec) if spec else None), device=dev)
+            kernels.reset_launch_counts()
+            outs[dev, spec] = _serve(eng, prompts, news)
+            steps = eng.stats["decode_steps"] if dev == "cuda" else 0
+            want = (_launch_want(paged_attention_int8=n_full * steps,
+                                 paged_ring_int8=n_ring * steps)
+                    if spec is None else
+                    _launch_want(paged_verify_int8=n_full * steps,
+                                 paged_ring_verify_int8=n_ring * steps))
+            check(kernels.launch_counts == want,
+                  f"int8 {cfg.name} {dev} spec={spec}: launches "
+                  f"{kernels.launch_counts} != {want}")
+        for spec in (None, 4):
+            check(outs["cuda", spec] == outs["cpu", spec],
+                  f"int8 {cfg.name} spec={spec}: cuda tokens "
+                  f"{outs['cuda', spec]} != cpu tokens {outs['cpu', spec]}")
+        check(outs["cuda", 4] == outs["cuda", None],
+              f"int8 {cfg.name}: spec tokens {outs['cuda', 4]} != plain "
+              f"{outs['cuda', None]}")
+        plain_outs[cfg.name] = (cfg, params, prompts, news, ek)
+        print(f"parity int8 {cfg.name}: {len(lens)} staggered requests, cuda "
+              f"tokens == cpu tokens plain and spec k=4, spec == plain "
+              f"(tf32 off) | {card}")
+
+    for name in (full.name, gemma.name):
+        cfg, params, prompts, news, ek = plain_outs[name]
+        news = [max(m, 4) for m in news]
+        outs = {}
+        for dev, forced in (("cpu", True), ("cuda", True), ("cuda", False)):
+            eng = Engine(cfg, _tree_to(params, dev), EngineConfig(
+                **ek, kv_quant=kvq, oversub=OversubConfig()), device=dev)
+            rids = [eng.add_request(p, m) for p, m in zip(prompts, news)]
+            pending = set(rids) if forced else set()
+            while eng.scheduler.has_work:
+                eng.step()
+                for r in sorted(pending):
+                    req = eng.requests[r]
+                    if req.state == "decoding" and len(req.out_tokens) >= 2:
+                        check(eng.preempt_request(r), f"preempt {r} refused")
+                        pending.discard(r)
+            got = eng.drain()
+            check(not pending and eng.stats["resumes"] >= (
+                len(rids) if forced else 0),
+                f"int8 oversub {name} {dev}: not every request was preempted "
+                f"and resumed ({eng.stats})")
+            check(eng.block_pool.num_free == ek["num_blocks"],
+                  f"int8 oversub {name} {dev}: blocks leaked")
+            outs[dev, forced] = [got[r].tolist() for r in rids]
+        check(outs["cuda", True] == outs["cpu", True] == outs["cuda", False],
+              f"int8 oversub {name}: forced-preemption tokens cuda "
+              f"{outs['cuda', True]} / cpu {outs['cpu', True]} != "
+              f"unpreempted {outs['cuda', False]}")
+        print(f"parity int8 + oversub {name}: every request preempted once "
+              f"mid-decode and resumed; cuda tokens == cpu tokens == the run "
+              f"without preemption | {card}")
+
+
 # -------------------------------------------------------- phase 5: main path
 def main_path_phase(card, kernel_row):
+    """yi-9b at full width through the port's Engine (bf16 pools); returns
+    what the int8 and oversubscription runs reuse: (params, engine config,
+    prompts, news, tokens per request)."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs.base import get_config
@@ -685,6 +1003,192 @@ def main_path_phase(card, kernel_row):
     print(f"main: host-ahead run (no per-call synchronize) {generated} tokens "
           f"in {wall_fast:.3f} s = {generated / wall_fast:.2f} tok/s | {card}")
     where_time_goes(card, fast, prompts[:8], news[:8])
+    where_time_goes(card, fast, prompts, news, warm=18,
+                    label="decode with the two long contexts")
+    return params, ecfg, prompts, news, [outs[r].tolist() for r in rids]
+
+
+def _timed_run(card, eng, label, waves):
+    """Serve request waves through `eng` with every device call checked for
+    finite logits: wave 0 is submitted at once, each later wave after one
+    more engine step; then drain. Checks that every request finished with
+    its max_new tokens in the vocabulary and that no block leaked; prints
+    tokens/s, TTFT / TPOT p50 and p99 (step_timing engines), per-step host
+    and device medians, peak resident sequences, preemptions, resumes,
+    block appends, the pools' bytes and peak device memory. `waves`: lists
+    of (prompt, max_new, priority)."""
+    import torch
+    from repro_torch import kernels
+    bad = []
+
+    def watch(fn, logits_at):
+        def wrapped(*a):
+            out = fn(*a)
+            bad.append(~torch.isfinite(out[logits_at]).all())
+            return out
+        return wrapped
+    eng._decode = watch(eng._decode, 1)
+    eng._prefill = watch(eng._prefill, 1)
+    if eng._verify is not None:
+        eng._verify = watch(eng._verify, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    resident = 0
+    rids, news = [], []
+    t0 = time.perf_counter()
+    for i, wave in enumerate(waves):
+        if i:
+            eng.step()
+            resident = max(resident, len(eng.scheduler.running))
+        for p, m, pr in wave:
+            rids.append(eng.add_request(p, m, priority=pr))
+            news.append(m)
+    while eng.scheduler.has_work:
+        eng.step()
+        resident = max(resident, len(eng.scheduler.running))
+    got = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vocab = eng.cfg.vocab_size
+    check(all(r in got and len(got[r]) == m for r, m in zip(rids, news)),
+          f"{label}: not every request finished with its max_new tokens")
+    check(not bool(torch.stack(bad).any()), f"{label}: non-finite logits")
+    check(eng.block_pool.num_free == eng.ecfg.num_blocks,
+          f"{label}: blocks leaked")
+    check(all(0 <= t < vocab for r in rids for t in got[r]),
+          f"{label}: token out of vocab range")
+    st = eng.stats
+    generated = sum(len(got[r]) for r in rids)
+    tls = [eng.telemetry.request_timeline(r) for r in rids]
+    ttft = [tl["ttft"] for tl in tls]
+    tpot = [(tl["finish"] - tl["first_token"]) / (len(got[r]) - 1)
+            for r, tl in zip(rids, tls) if len(got[r]) > 1]
+    host = [x["host_s"] for x in eng.telemetry.steps]
+    dev = [x["device_s"] for x in eng.telemetry.steps]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pool_mib = sum(a.numel() * a.element_size()
+                   for layer in eng.pool_state.values()
+                   for a in layer.values()) / 2**20
+    print(f"{label}: {len(rids)} requests, {generated} tokens in {wall:.3f} s "
+          f"= {generated / wall:.2f} tok/s (each device call synchronized); "
+          f"decode steps {st['decode_steps']}, prefill chunks "
+          f"{st['prefill_chunks']}; peak resident sequences {resident}; "
+          f"preemptions {st['preemptions']}, resumes {st['resumes']}, block "
+          f"appends {st['block_appends']} | {card}")
+    print(f"{label}: TTFT p50 {np.percentile(ttft, 50) * 1e3:.2f} ms p99 "
+          f"{np.percentile(ttft, 99) * 1e3:.2f} ms; TPOT p50 "
+          f"{np.percentile(tpot, 50) * 1e3:.2f} ms p99 "
+          f"{np.percentile(tpot, 99) * 1e3:.2f} ms; per step host "
+          f"{np.median(host) * 1e3:.2f} ms / device "
+          f"{np.median(dev) * 1e3:.2f} ms (median of {len(host)}); pools "
+          f"{eng.ecfg.num_blocks} blocks = {pool_mib:.2f} MiB; peak memory "
+          f"{peak:.2f} GiB | {card}")
+    return {"outs": [got[r].tolist() for r in rids],
+            "launches": dict(kernels.launch_counts),
+            "steps": st["decode_steps"], "resident": resident,
+            "preemptions": st["preemptions"], "tok_s": generated / wall,
+            "step_ms": np.median(dev) * 1e3}
+
+
+def _match_share(label, base, other):
+    """Requests whose tokens equal the bf16-pool run's, reported (int8 is a
+    different result, so this is not gated; the f32 parity phases are)."""
+    same, first = 0, []
+    for a, b in zip(base, other):
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        same += not diff
+        first.append(diff[0] if diff else None)
+    print(f"{label}: {same}/{len(first)} requests match the bf16-pool run end "
+          f"to end; first divergent position per request {first} (reported, "
+          f"not gated)")
+
+
+def yi9b_int8_phase(card, rows, params, ecfg, prompts, news, bf16_outs):
+    """yi-9b at full width with int8 pools (kv_quant) at the main phase's
+    settings and requests; then both pool types at one fixed pool byte
+    budget under OversubConfig(): bf16 with N blocks, int8 with
+    N·(2·hd·2) // (2·(hd + 4)) blocks. Traffic for the budget runs: the 8
+    mixed requests as batch class 1, then after one step the two long
+    prompts as interactive class 0, with 16 slots so the pool binds; the
+    bf16 pool must preempt."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.engine import Engine, KVQuantConfig, OversubConfig
+    _release_card()
+    cfg = get_config("yi-9b")
+    kvq = KVQuantConfig()
+    L = cfg.num_layers
+    eng = Engine(cfg, params, dataclasses.replace(ecfg, kv_quant=kvq))
+    r = _timed_run(card, eng, "yi-9b int8", [[(p, m, 0) for p, m in
+                                              zip(prompts, news)]])
+    want = _launch_want(paged_attention_int8=r["steps"] * L)
+    check(r["launches"] == want,
+          f"yi-9b int8: launches {r['launches']} != {want}")
+    print(f"yi-9b int8: B1 int8 launches {r['steps'] * L} = {r['steps']} x "
+          f"{L} layers")
+    _match_share("yi-9b int8 vs bf16", bf16_outs, r["outs"])
+    by_name = {row["name"]: row for row in rows}
+    by_name["paged_attention_int8"]["launches"] = r["launches"][
+        "paged_attention_int8"]
+    del eng
+    _release_card()
+    # bf16 and int8 pools in turns within this process (bf16, int8, int8,
+    # bf16), synchronized: the pool type's cost on the same requests
+    turns = []
+    for label, q in (("bf16", None), ("int8", kvq), ("int8", kvq),
+                     ("bf16", None)):
+        eng = Engine(cfg, params, dataclasses.replace(ecfg, kv_quant=q))
+        r = _timed_run(card, eng, f"yi-9b turn {len(turns) + 1} {label}",
+                       [[(p, m, 0) for p, m in zip(prompts, news)]])
+        turns.append(f"{label} {r['tok_s']:.2f} tok/s, decode step "
+                     f"{r['step_ms']:.2f} ms")
+        del eng
+        _release_card()
+    print(f"yi-9b pools in turns: " + "; ".join(turns) + f" | {card}")
+    # the same requests host-ahead, then the profile, as for bf16 pools
+    fast = Engine(cfg, params, dataclasses.replace(ecfg, kv_quant=kvq,
+                                                   step_timing=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, m in zip(prompts, news):
+        fast.add_request(p, m)
+    fast.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"yi-9b int8: host-ahead run (no per-call synchronize) {sum(news)} "
+          f"tokens in {wall:.3f} s = {sum(news) / wall:.2f} tok/s | {card}")
+    where_time_goes(card, fast, prompts[:8], news[:8])
+    where_time_goes(card, fast, prompts, news, warm=18,
+                    label="decode with the two long contexts")
+    del fast
+    _release_card()
+
+    hd = cfg.resolved_head_dim
+    n_bf16 = 80
+    n_int8 = n_bf16 * (2 * hd * 2) // (2 * (hd + 4))
+    waves = [[(p, m, 1) for p, m in zip(prompts[:8], news[:8])],
+             [(p, m, 0) for p, m in zip(prompts[8:], news[8:])]]
+    budget = {}
+    for label, n, q in (("bf16", n_bf16, None), ("int8", n_int8, kvq)):
+        eng = Engine(cfg, params, dataclasses.replace(
+            ecfg, num_blocks=n, max_slots=16, kv_quant=q,
+            oversub=OversubConfig()))
+        r = budget[label] = _timed_run(card, eng, f"yi-9b budget {label}",
+                                       waves)
+        key = "paged_attention" if q is None else "paged_attention_int8"
+        want = _launch_want(**{key: r["steps"] * L})
+        check(r["launches"] == want,
+              f"yi-9b budget {label}: launches {r['launches']} != {want}")
+        del eng
+        _release_card()
+    check(budget["bf16"]["preemptions"] > 0,
+          "fixed-budget bf16 run did not preempt")
+    print(f"yi-9b fixed pool budget ({n_bf16} bf16 blocks = {n_int8} int8 "
+          f"blocks): peak resident sequences bf16 "
+          f"{budget['bf16']['resident']}, int8 {budget['int8']['resident']}; "
+          f"preemptions bf16 {budget['bf16']['preemptions']}, int8 "
+          f"{budget['int8']['preemptions']} | {card}")
 
 
 def _release_card():
@@ -702,16 +1206,19 @@ def gemma3_main_phase(card, rows):
     ring-KV local layers and 1 paged global layer; bf16, seeded random
     weights) through the port's Engine, served three times: without
     speculation, with SpecConfig(k=4) and the n-gram drafter, and with a
-    ReplayDrafter that remembers the first run's outputs. Traffic: the
-    mixed requests plus prompts of 1500 and 2000 tokens, which wrap the
-    1040-slot ring during prefill and decode past the wrap."""
+    ReplayDrafter that remembers the first run's outputs; then with int8
+    pools (kv_quant), without speculation (B1 + B2 int8) and with the
+    n-gram drafter (B4 + B5 int8). Traffic: the mixed requests plus prompts
+    of 1500 and 2000 tokens, which wrap the 1040-slot ring during prefill
+    and decode past the wrap."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs.base import get_config
     from repro_torch.models import state_providers as SP
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import (Engine, EngineConfig,
-                                            ReplayDrafter, SpecConfig)
+                                            KVQuantConfig, ReplayDrafter,
+                                            SpecConfig)
     from repro_torch.serving.workloads import mixed_workload
     _release_card()
     cfg = get_config("gemma3-12b")
@@ -771,13 +1278,11 @@ def gemma3_main_phase(card, rows):
         check(all(0 <= t < cfg.vocab_size for r in rids for t in got[r]),
               f"gemma3 {label}: token out of vocab range")
         steps = eng.stats["decode_steps"]
-        want = ({"paged_attention": n_full * steps,
-                 "paged_ring": n_ring * steps,
-                 "paged_verify": 0, "paged_ring_verify": 0}
+        want = (_launch_want(paged_attention=n_full * steps,
+                             paged_ring=n_ring * steps)
                 if spec is None else
-                {"paged_attention": 0, "paged_ring": 0,
-                 "paged_verify": n_full * steps,
-                 "paged_ring_verify": n_ring * steps})
+                _launch_want(paged_verify=n_full * steps,
+                             paged_ring_verify=n_ring * steps))
         check(n == want, f"gemma3 {label}: launches {n} != {want}")
         counts[label] = n
         outs[label] = [got[r].tolist() for r in rids]
@@ -839,6 +1344,37 @@ def gemma3_main_phase(card, rows):
     by_name["paged_ring_verify"]["launches"] = (
         counts["ngram"]["paged_ring_verify"])
 
+    # int8 pools: B1 + B2 int8 without speculation, B4 + B5 int8 with the
+    # n-gram drafter
+    kvq = KVQuantConfig()
+    for label, spec in (("int8", None), ("int8 ngram", SpecConfig(k=4))):
+        eng = Engine(cfg, params, EngineConfig(**base, spec=spec,
+                                               kv_quant=kvq,
+                                               step_timing=True))
+        r = _timed_run(card, eng, f"gemma3 {label}",
+                       [[(p, m, 0) for p, m in zip(prompts, news)]])
+        steps = r["steps"]
+        want = (_launch_want(paged_attention_int8=n_full * steps,
+                             paged_ring_int8=n_ring * steps)
+                if spec is None else
+                _launch_want(paged_verify_int8=n_full * steps,
+                             paged_ring_verify_int8=n_ring * steps))
+        check(r["launches"] == want,
+              f"gemma3 {label}: launches {r['launches']} != {want}")
+        print(f"gemma3 {label}: launches {r['launches']} = {n_full} full + "
+              f"{n_ring} ring layers x {steps} steps")
+        _match_share(f"gemma3 {label} vs bf16 "
+                     f"{'ngram' if spec else 'plain'}",
+                     outs["ngram" if spec else "plain"], r["outs"])
+        counts[label] = r["launches"]
+        del eng
+        _release_card()
+    by_name["paged_ring_int8"]["launches"] = counts["int8"]["paged_ring_int8"]
+    by_name["paged_verify_int8"]["launches"] = (
+        counts["int8 ngram"]["paged_verify_int8"])
+    by_name["paged_ring_verify_int8"]["launches"] = (
+        counts["int8 ngram"]["paged_ring_verify_int8"])
+
     # host-ahead plain run (no per-call synchronize), then the profile
     fast = Engine(cfg, params, EngineConfig(**base))
     torch.cuda.synchronize()
@@ -875,10 +1411,13 @@ def _device_kind(key: str) -> str:
     return DEVICE_KINDS[5]
 
 
-def where_time_goes(card, eng, prompts, news, warm=3, window=8):
-    """Device kernel time by kind over `window` engine steps of the mixed
+def where_time_goes(card, eng, prompts, news, warm=3, window=8,
+                    label="mixed"):
+    """Device kernel time by kind over `window` engine steps of the given
     requests (prefills and decodes as the scheduler interleaves them),
-    from torch.profiler; busy share = kernel time / window wall time."""
+    from torch.profiler, after `warm` steps; busy share = kernel time /
+    window wall time. The next `window` steps run without the profiler,
+    for their wall time per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for p, m in zip(prompts, news):
@@ -893,6 +1432,11 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(window):
+        eng.step()
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3 / window
     eng.drain()
 
     def device_us(e):
@@ -915,14 +1459,25 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8):
     launches = sum(e.count for e in kern)
     parts = "; ".join(f"{k} {v:.2f} ms ({v / busy_ms:.1%})"
                       for k, v in by_kind.items())
-    print(f"profile: {window} engine steps, wall {wall_ms:.2f} ms (profiler "
-          f"on), device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} of "
-          f"wall, idle {1 - busy_ms / wall_ms:.1%}; {launches} device ops = "
-          f"{launches / window:.0f} per step | {card}")
+    print(f"profile ({label}): {window} engine steps after {warm}, wall "
+          f"{wall_ms:.2f} ms (profiler on), device busy {busy_ms:.2f} ms = "
+          f"{busy_ms / wall_ms:.1%} of wall, idle {1 - busy_ms / wall_ms:.1%}; "
+          f"{launches} device ops = {launches / window:.0f} per step; the "
+          f"next {window} steps without the profiler {bare_ms:.2f} ms each "
+          f"| {card}")
     print(f"profile: by kind: {parts}")
     top = sorted(kern, key=device_us, reverse=True)[:6]
     print("profile: top kernels: " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3:.2f} ms x{e.count}" for e in top))
+    # where the host's time goes (self time of host-side ops and CUDA
+    # runtime calls, profiler overhead included)
+    host = [e for e in prof.key_averages()
+            if not str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not e.key.startswith("engine/")]
+    host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
+    print("profile: top host self time: " + "; ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
+        for e in host[:10]))
 
 
 def build_phase():
@@ -965,10 +1520,14 @@ def main() -> int:
               f"{torch.__version__} cuda {torch.version.cuda}")
 
         build_phase()
-        rows = [kernel_phase(card)] + multi_kernel_phase(card)
+        rows = ([kernel_phase(card)] + multi_kernel_phase(card)
+                + int8_kernel_phase(card))
         parity_phase(card)
         ring_spec_parity_phase(card)
-        main_path_phase(card, rows[0])
+        int8_parity_phase(card)
+        yi = main_path_phase(card, rows[0])
+        yi9b_int8_phase(card, rows, *yi)
+        del yi
         gemma3_main_phase(card, rows)
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback

@@ -3,10 +3,14 @@
 ``launch_counts`` holds one plain integer per kernel wrapper; a wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``reset_launch_counts`` zeroes
-them).
+them). Each paged-attention mode counts its int8-pool launches under its
+own ``_int8`` key.
 """
-launch_counts: dict = {"paged_attention": 0, "paged_ring": 0,
-                       "paged_verify": 0, "paged_ring_verify": 0}
+launch_counts: dict = {
+    mode + suffix: 0
+    for mode in ("paged_attention", "paged_ring", "paged_verify",
+                 "paged_ring_verify")
+    for suffix in ("", "_int8")}
 
 
 def reset_launch_counts() -> None:

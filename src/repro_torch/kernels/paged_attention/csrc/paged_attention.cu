@@ -9,8 +9,23 @@
 // slot (seq_len == 0) writes zeros.
 //
 // Layouts (all contiguous): q (B, H, hd); k_pool / v_pool (N, bs, Hkv, hd);
-// tables (B, P) int32; lens (B,) int32; out (B, H, hd) in the pool's type.
+// tables (B, P) int32; lens (B,) int32; out (B, H, hd) in q's type.
 // Query head h = kvh * groups + g, as the reference's reshape (Hkv, groups).
+//
+// int8 pools (B3, every kernel of this file). Replaces the dequant in the
+// TPU helper `_load_kv` (src/repro/kernels/paged_attention/kernel.py:41),
+// which the `quant=True` variants of all four Pallas bodies share. The pool
+// element type KV is a template parameter of its own beside the q/out type
+// T: with KV = int8_t the kernels take two f32 scale pools k_scale /
+// v_scale (N, bs, Hkv), one scale per stored vector, and dequantize each K/V
+// row while it is copied into shared memory, as `x = tile.astype(f32) *
+// scale[..., None]` right after the load. The tile is then f32 (4 bytes an
+// element, the f32 kernels' layout and padding), so everything after the
+// load is the f32-pool code, and the product rounds exactly as the plain
+// version's does. Rows are read in 8-byte vectors (8 values, so hd % 8 ==
+// 0 stays exact). A zero-filled row (a key past t_end, a dead or stale ring
+// slot) reads no scale and stays exactly 0. Bound: the int8 bytes plus 4
+// bytes of scale per vector, about 0.52x of bf16 K/V at hd 128.
 //
 // Bound. Decoding reads every live key and value once and does 4·H·hd
 // flops per key, far below the card's flop/byte ratio, so the floor is the
@@ -64,6 +79,49 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __host__ __device__ constexpr int row_pad() { return sizeof(T) == 2 ? 2 : 1; }
 
+// Copies one vector of a K or V row from the pool into a shared-memory tile
+// row, or zero-fills it. S is the tile's element type: the pool's own for
+// f32 and bf16 pools (16-byte vectors, copied as they are), f32 for int8
+// pools (8-byte vectors, dequantized by the row's scale on the way in).
+template <typename KV>
+struct TileLoad {
+  using S = KV;
+  static constexpr int kVec = 16 / sizeof(KV);   // elements per vector
+  __device__ static void copy(S* dst, const KV* src, float) {
+    const uint4 x = *reinterpret_cast<const uint4*>(src);
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+    d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
+  }
+  __device__ static void zero(S* dst) {
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+    d[0] = 0u; d[1] = 0u; d[2] = 0u; d[3] = 0u;
+  }
+};
+
+template <>
+struct TileLoad<int8_t> {
+  using S = float;
+  static constexpr int kVec = 8;
+  __device__ static void copy(S* dst, const int8_t* src, float scale) {
+    const uint2 x = *reinterpret_cast<const uint2*>(src);
+    const int8_t* v = reinterpret_cast<const int8_t*>(&x);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = static_cast<float>(v[i]) * scale;
+  }
+  __device__ static void zero(S* dst) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = 0.f;
+  }
+};
+
+// The scale of the vector at flat (slot, head) index `i` of an int8 pool;
+// unread (1) for the other pool types, whose scale pointers are null.
+template <typename KV>
+__device__ __forceinline__ float scale_at(const float* scales, int64_t i) {
+  if constexpr (sizeof(KV) == 1) return scales[i];
+  return 1.f;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
@@ -97,11 +155,14 @@ __device__ __forceinline__ float dot_row(const float* q,
 }
 
 // DPL: head dims per lane in p·V, ceil(hd / 32) rounded up to 1, 2, 4 or 8.
-template <typename T, int DPL>
+// KV: the pools' element type (T, or int8_t with scale pools).
+template <typename T, typename KV, int DPL>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split_kernel(const T* __restrict__ q,
-                          const T* __restrict__ k_pool,
-                          const T* __restrict__ v_pool,
+                          const KV* __restrict__ k_pool,
+                          const KV* __restrict__ v_pool,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale,
                           const int* __restrict__ tables,
                           const int* __restrict__ lens,
                           float* __restrict__ part_m,
@@ -109,10 +170,12 @@ paged_decode_split_kernel(const T* __restrict__ q,
                           float* __restrict__ part_acc, int H, int Hkv, int hd,
                           int bs, int P, int split_tokens, int n_splits,
                           float scale) {
+  using Load = TileLoad<KV>;
+  using S = typename Load::S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = hd + row_pad<T>();
-  T* k_s = reinterpret_cast<T*>(smem_raw);            // [kTile][ld]
-  T* v_s = k_s + kTile * ld;                          // [kTile][ld]
+  const int ld = hd + row_pad<S>();
+  S* k_s = reinterpret_cast<S*>(smem_raw);            // [kTile][ld]
+  S* v_s = k_s + kTile * ld;                          // [kTile][ld]
   float* q_s = reinterpret_cast<float*>(v_s + kTile * ld);  // [kWarps][hd]
 
   const int b = blockIdx.x;
@@ -128,8 +191,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
   const int groups = H / Hkv;
   const int* table = tables + static_cast<int64_t>(b) * P;
   const int64_t token_stride = static_cast<int64_t>(Hkv) * hd;
-  constexpr int kVec = 16 / sizeof(T);        // elements per 16-byte load
-  const int vec_per_row = hd / kVec;          // hd % 8 == 0: exact
+  const int vec_per_row = hd / Load::kVec;    // hd % 8 == 0: exact
 
   for (int g0 = 0; g0 < groups; g0 += kWarps) {
     const int ng = min(kWarps, groups - g0);
@@ -148,21 +210,22 @@ paged_decode_split_kernel(const T* __restrict__ q,
       // cooperative tile load: rows t0 .. t0 + 31, zeros past t_end
       for (int i = threadIdx.x; i < kTile * vec_per_row; i += kThreads) {
         const int r = i / vec_per_row;
-        const int c = (i % vec_per_row) * kVec;
+        const int c = (i % vec_per_row) * Load::kVec;
         const int t = t0 + r;
-        uint4 kx = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vx = make_uint4(0u, 0u, 0u, 0u);
+        S* kd = k_s + r * ld + c;
+        S* vd = v_s + r * ld + c;
         if (t < t_end) {
-          const int64_t blk = table[t / bs];
-          const int64_t off = (blk * bs + t % bs) * token_stride +
+          const int64_t slot = static_cast<int64_t>(table[t / bs]) * bs +
+                               t % bs;
+          const int64_t off = slot * token_stride +
                               static_cast<int64_t>(kvh) * hd + c;
-          kx = *reinterpret_cast<const uint4*>(k_pool + off);
-          vx = *reinterpret_cast<const uint4*>(v_pool + off);
+          const int64_t si = slot * Hkv + kvh;
+          Load::copy(kd, k_pool + off, scale_at<KV>(k_scale, si));
+          Load::copy(vd, v_pool + off, scale_at<KV>(v_scale, si));
+        } else {
+          Load::zero(kd);
+          Load::zero(vd);
         }
-        uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + r * ld + c);
-        uint32_t* vd = reinterpret_cast<uint32_t*>(v_s + r * ld + c);
-        kd[0] = kx.x; kd[1] = kx.y; kd[2] = kx.z; kd[3] = kx.w;
-        vd[0] = vx.x; vd[1] = vx.y; vd[2] = vx.z; vd[3] = vx.w;
       }
       __syncthreads();
 
@@ -180,7 +243,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
         const int nt = min(kTile, t_end - t0);
         for (int j = 0; j < nt; ++j) {
           const float pj = __shfl_sync(kFull, p, j);
-          const T* vr = v_s + j * ld;
+          const S* vr = v_s + j * ld;
 #pragma unroll
           for (int i = 0; i < DPL; ++i) {
             const int d = lane + 32 * i;
@@ -233,27 +296,29 @@ __global__ void paged_decode_merge_kernel(const float* __restrict__ part_m,
   }
 }
 
-template <typename T, int DPL>
+template <typename T, typename KV, int DPL>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const float* k_scale, const float* v_scale,
                    const int* tables, const int* lens, void* out,
                    float* workspace, int B, int H, int Hkv, int hd, int bs,
                    int P, int split_tokens, float scale, cudaStream_t stream) {
+  using S = typename TileLoad<KV>::S;
   const int n_splits = (P * bs + split_tokens - 1) / split_tokens;
   const int64_t rows = static_cast<int64_t>(B) * H * n_splits;
   float* part_m = workspace;
   float* part_l = part_m + rows;
   float* part_acc = part_l + rows;
-  const size_t smem = 2 * sizeof(T) * kTile * (hd + row_pad<T>()) +
+  const size_t smem = 2 * sizeof(S) * kTile * (hd + row_pad<S>()) +
                       sizeof(float) * kWarps * hd;
-  auto split_kernel = paged_decode_split_kernel<T, DPL>;
+  auto split_kernel = paged_decode_split_kernel<T, KV, DPL>;
   cudaError_t err = cudaFuncSetAttribute(
       split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   split_kernel<<<dim3(B, Hkv, n_splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, lens, part_m, part_l, part_acc,
-      H, Hkv, hd, bs, P, split_tokens, n_splits, scale);
+      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), k_scale, v_scale, tables, lens, part_m,
+      part_l, part_acc, H, Hkv, hd, bs, P, split_tokens, n_splits, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_threads = ((hd + 31) / 32) * 32;
@@ -263,23 +328,45 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t dispatch_hd(const void* q, const void* k_pool, const void* v_pool,
+                        const float* k_scale, const float* v_scale,
                         const int* tables, const int* lens, void* out,
                         float* workspace, int B, int H, int Hkv, int hd,
                         int bs, int P, int split_tokens, float scale,
                         cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 1>(q, k_pool, v_pool, tables, lens, out, workspace, B, H,
-                        Hkv, hd, bs, P, split_tokens, scale, stream);
+    return launch<T, KV, 1>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
+                            out, workspace, B, H, Hkv, hd, bs, P,
+                            split_tokens, scale, stream);
   if (hd <= 64)
-    return launch<T, 2>(q, k_pool, v_pool, tables, lens, out, workspace, B, H,
-                        Hkv, hd, bs, P, split_tokens, scale, stream);
+    return launch<T, KV, 2>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
+                            out, workspace, B, H, Hkv, hd, bs, P,
+                            split_tokens, scale, stream);
   if (hd <= 128)
-    return launch<T, 4>(q, k_pool, v_pool, tables, lens, out, workspace, B, H,
-                        Hkv, hd, bs, P, split_tokens, scale, stream);
-  return launch<T, 8>(q, k_pool, v_pool, tables, lens, out, workspace, B, H,
-                      Hkv, hd, bs, P, split_tokens, scale, stream);
+    return launch<T, KV, 4>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
+                            out, workspace, B, H, Hkv, hd, bs, P,
+                            split_tokens, scale, stream);
+  return launch<T, KV, 8>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
+                          out, workspace, B, H, Hkv, hd, bs, P, split_tokens,
+                          scale, stream);
+}
+
+// int8 pools when scale pools are given, else pools of T.
+template <typename T>
+cudaError_t dispatch_pool(const void* q, const void* k_pool,
+                          const void* v_pool, const float* k_scale,
+                          const float* v_scale, const int* tables,
+                          const int* lens, void* out, float* workspace, int B,
+                          int H, int Hkv, int hd, int bs, int P,
+                          int split_tokens, float scale, cudaStream_t stream) {
+  if (k_scale != nullptr)
+    return dispatch_hd<T, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                                  lens, out, workspace, B, H, Hkv, hd, bs, P,
+                                  split_tokens, scale, stream);
+  return dispatch_hd<T, T>(q, k_pool, v_pool, nullptr, nullptr, tables, lens,
+                           out, workspace, B, H, Hkv, hd, bs, P, split_tokens,
+                           scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -327,19 +414,22 @@ __device__ __forceinline__ int floor_mod(int a, int b) {
   return r < 0 ? r + b : r;
 }
 
-// Shared memory of the multi-row kernel, in bytes (the host checks it).
-template <typename T>
+// Shared memory of the multi-row kernel, in bytes (the host checks it); S
+// is the tile's element type (f32 for int8 pools).
+template <typename S>
 __host__ __device__ constexpr size_t multi_smem_bytes(int hd, int rows) {
-  return 2 * sizeof(T) * kTile * (hd + row_pad<T>()) +
+  return 2 * sizeof(S) * kTile * (hd + row_pad<S>()) +
          sizeof(float) * (2 * static_cast<size_t>(rows) * hd + 2 * rows) +
          sizeof(int) * kTile;
 }
 
-template <typename T, int DPL, bool RING>
+template <typename T, typename KV, int DPL, bool RING>
 __global__ void __launch_bounds__(kThreads)
 paged_multi_split_kernel(const T* __restrict__ q,
-                         const T* __restrict__ k_pool,
-                         const T* __restrict__ v_pool,
+                         const KV* __restrict__ k_pool,
+                         const KV* __restrict__ v_pool,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
                          const int* __restrict__ tables,
                          const int* __restrict__ lens,
                          const int* __restrict__ positions,
@@ -348,12 +438,14 @@ paged_multi_split_kernel(const T* __restrict__ q,
                          float* __restrict__ part_acc, int n_q, int H,
                          int Hkv, int hd, int bs, int P, int R, int window,
                          int split_tokens, int n_splits, float scale) {
+  using Load = TileLoad<KV>;
+  using S = typename Load::S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = hd + row_pad<T>();
+  const int ld = hd + row_pad<S>();
   const int groups = H / Hkv;
   const int rows = n_q * groups;
-  T* k_s = reinterpret_cast<T*>(smem_raw);                   // [kTile][ld]
-  T* v_s = k_s + kTile * ld;                                 // [kTile][ld]
+  S* k_s = reinterpret_cast<S*>(smem_raw);                   // [kTile][ld]
+  S* v_s = k_s + kTile * ld;                                 // [kTile][ld]
   float* q_s = reinterpret_cast<float*>(v_s + kTile * ld);   // [rows][hd]
   float* acc_s = q_s + rows * hd;                            // [rows][hd]
   float* m_s = acc_s + rows * hd;                            // [rows]
@@ -390,15 +482,14 @@ paged_multi_split_kernel(const T* __restrict__ q,
     const int r_cur = RING ? floor_mod(q_cur, R) : 0;
     const int* table = tables + static_cast<int64_t>(b) * P;
     const int64_t token_stride = static_cast<int64_t>(Hkv) * hd;
-    constexpr int kVec = 16 / sizeof(T);
-    const int vec_per_row = hd / kVec;
+    const int vec_per_row = hd / Load::kVec;
 
     for (int t0 = t_begin; t0 < t_stop; t0 += kTile) {
       // cooperative tile load; keys outside every row's range stay zero
       int live = 0;
       for (int i = threadIdx.x; i < kTile * vec_per_row; i += kThreads) {
         const int r = i / vec_per_row;
-        const int c = (i % vec_per_row) * kVec;
+        const int c = (i % vec_per_row) * Load::kVec;
         const int t = t0 + r;
         int kpos = kDeadKey;
         int64_t blk = 0;
@@ -416,19 +507,20 @@ paged_multi_split_kernel(const T* __restrict__ q,
             blk = table[t / bs];
           }
         }
-        uint4 kx = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vx = make_uint4(0u, 0u, 0u, 0u);
+        S* kd = k_s + r * ld + c;
+        S* vd = v_s + r * ld + c;
         if (kpos != kDeadKey) {
-          const int64_t off = (blk * bs + t % bs) * token_stride +
+          const int64_t slot = blk * bs + t % bs;
+          const int64_t off = slot * token_stride +
                               static_cast<int64_t>(kvh) * hd + c;
-          kx = *reinterpret_cast<const uint4*>(k_pool + off);
-          vx = *reinterpret_cast<const uint4*>(v_pool + off);
+          const int64_t si = slot * Hkv + kvh;
+          Load::copy(kd, k_pool + off, scale_at<KV>(k_scale, si));
+          Load::copy(vd, v_pool + off, scale_at<KV>(v_scale, si));
           live = 1;
+        } else {
+          Load::zero(kd);
+          Load::zero(vd);
         }
-        uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + r * ld + c);
-        uint32_t* vd = reinterpret_cast<uint32_t*>(v_s + r * ld + c);
-        kd[0] = kx.x; kd[1] = kx.y; kd[2] = kx.z; kd[3] = kx.w;
-        vd[0] = vx.x; vd[1] = vx.y; vd[2] = vx.z; vd[3] = vx.w;
         if (c == 0) kpos_s[r] = kpos;
       }
       if (!__syncthreads_or(live)) continue;      // no live key in the tile
@@ -458,7 +550,7 @@ paged_multi_split_kernel(const T* __restrict__ q,
         for (int j = 0; j < kTile; ++j) {
           const float pj = __shfl_sync(kFull, p, j);
           if (pj == 0.f) continue;                // warp-uniform
-          const T* vr = v_s + j * ld;
+          const S* vr = v_s + j * ld;
 #pragma unroll
           for (int i = 0; i < DPL; ++i) {
             const int d = lane + 32 * i;
@@ -522,8 +614,9 @@ __global__ void paged_multi_merge_kernel(const float* __restrict__ part_m,
   }
 }
 
-template <typename T, int DPL, bool RING>
+template <typename T, typename KV, int DPL, bool RING>
 cudaError_t launch_multi(const void* q, const void* k_pool, const void* v_pool,
+                         const float* k_scale, const float* v_scale,
                          const int* tables, const int* lens,
                          const int* positions, void* out, float* workspace,
                          int B, int n_q, int H, int Hkv, int hd, int bs, int P,
@@ -536,17 +629,17 @@ cudaError_t launch_multi(const void* q, const void* k_pool, const void* v_pool,
   float* part_m = workspace;
   float* part_l = part_m + parts;
   float* part_acc = part_l + parts;
-  const size_t smem = multi_smem_bytes<T>(hd, rows);
-  auto split_kernel = paged_multi_split_kernel<T, DPL, RING>;
+  const size_t smem = multi_smem_bytes<typename TileLoad<KV>::S>(hd, rows);
+  auto split_kernel = paged_multi_split_kernel<T, KV, DPL, RING>;
   cudaError_t err = cudaFuncSetAttribute(
       split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   split_kernel<<<dim3(B, Hkv, n_splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, lens, positions, part_m, part_l,
-      part_acc, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, n_splits,
-      scale);
+      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), k_scale, v_scale, tables, lens,
+      positions, part_m, part_l, part_acc, n_q, H, Hkv, hd, bs, P, R, window,
+      split_tokens, n_splits, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_threads = ((hd + 31) / 32) * 32;
@@ -557,73 +650,100 @@ cudaError_t launch_multi(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
-template <typename T, bool RING>
+template <typename T, typename KV, bool RING>
 cudaError_t dispatch_multi_hd(const void* q, const void* k_pool,
-                              const void* v_pool, const int* tables,
+                              const void* v_pool, const float* k_scale,
+                              const float* v_scale, const int* tables,
                               const int* lens, const int* positions, void* out,
                               float* ws, int B, int n_q, int H, int Hkv,
                               int hd, int bs, int P, int R, int window,
                               int split_tokens, float scale,
                               cudaStream_t s) {
   if (hd <= 32)
-    return launch_multi<T, 1, RING>(q, k_pool, v_pool, tables, lens,
-                                    positions, out, ws, B, n_q, H, Hkv, hd,
-                                    bs, P, R, window, split_tokens, scale, s);
+    return launch_multi<T, KV, 1, RING>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
+        B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
   if (hd <= 64)
-    return launch_multi<T, 2, RING>(q, k_pool, v_pool, tables, lens,
-                                    positions, out, ws, B, n_q, H, Hkv, hd,
-                                    bs, P, R, window, split_tokens, scale, s);
+    return launch_multi<T, KV, 2, RING>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
+        B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
   if (hd <= 128)
-    return launch_multi<T, 4, RING>(q, k_pool, v_pool, tables, lens,
-                                    positions, out, ws, B, n_q, H, Hkv, hd,
-                                    bs, P, R, window, split_tokens, scale, s);
-  return launch_multi<T, 8, RING>(q, k_pool, v_pool, tables, lens, positions,
-                                  out, ws, B, n_q, H, Hkv, hd, bs, P, R,
-                                  window, split_tokens, scale, s);
+    return launch_multi<T, KV, 4, RING>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
+        B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
+  return launch_multi<T, KV, 8, RING>(
+      q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
+      B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
 }
 
+template <typename T, typename KV>
+cudaError_t dispatch_multi_ring(const void* q, const void* k_pool,
+                                const void* v_pool, const float* k_scale,
+                                const float* v_scale, const int* tables,
+                                const int* lens, const int* positions,
+                                void* out, float* ws, int B, int n_q, int H,
+                                int Hkv, int hd, int bs, int P, int R,
+                                int window, int split_tokens, float scale,
+                                cudaStream_t s) {
+  if (R > 0)
+    return dispatch_multi_hd<T, KV, true>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
+        B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
+  return dispatch_multi_hd<T, KV, false>(
+      q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws, B,
+      n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
+}
+
+// int8 pools when scale pools are given, else pools of T.
 template <typename T>
 cudaError_t dispatch_multi(const void* q, const void* k_pool,
-                           const void* v_pool, const int* tables,
+                           const void* v_pool, const float* k_scale,
+                           const float* v_scale, const int* tables,
                            const int* lens, const int* positions, void* out,
                            float* ws, int B, int n_q, int H, int Hkv, int hd,
                            int bs, int P, int R, int window, int split_tokens,
                            float scale, cudaStream_t s) {
-  if (R > 0)
-    return dispatch_multi_hd<T, true>(q, k_pool, v_pool, tables, lens,
-                                      positions, out, ws, B, n_q, H, Hkv, hd,
-                                      bs, P, R, window, split_tokens, scale,
-                                      s);
-  return dispatch_multi_hd<T, false>(q, k_pool, v_pool, tables, lens,
-                                     positions, out, ws, B, n_q, H, Hkv, hd,
-                                     bs, P, R, window, split_tokens, scale, s);
+  if (k_scale != nullptr)
+    return dispatch_multi_ring<T, int8_t>(
+        q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
+        B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
+  return dispatch_multi_ring<T, T>(
+      q, k_pool, v_pool, nullptr, nullptr, tables, lens, positions, out, ws, B,
+      n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked shapes,
+// dtype (of q and out): 0 = float32, 1 = bfloat16. The pools are of that
+// type, or int8 when k_scale / v_scale (N, bs, Hkv) f32 are given (both non-
+// null; null for pools of q's type). The Python wrapper has checked shapes,
 // types, contiguity, 16-byte alignment, 8 <= hd <= 256 with hd % 8 == 0 and
 // split_tokens % 32 == 0, and allocated `workspace`: B · H · n_splits ·
 // (hd + 2) floats, n_splits = ceil(P · bs / split_tokens). Returns the
 // launches' cudaError_t (0 on success).
 extern "C" int paged_attention_decode(const void* q, const void* k_pool,
-                                      const void* v_pool, const void* tables,
+                                      const void* v_pool, const void* k_scale,
+                                      const void* v_scale, const void* tables,
                                       const void* lens, void* out,
                                       void* workspace, int B, int H, int Hkv,
                                       int hd, int bs, int P, int split_tokens,
                                       float scale, int dtype, void* stream) {
   if (B == 0) return 0;
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if ((ks == nullptr) != (vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* tbl = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
   float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(q, k_pool, v_pool, tbl, ln, out, ws, B, H, Hkv,
-                              hd, bs, P, split_tokens, scale, s);
+    return dispatch_pool<float>(q, k_pool, v_pool, ks, vs, tbl, ln, out, ws, B,
+                                H, Hkv, hd, bs, P, split_tokens, scale, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k_pool, v_pool, tbl, ln, out, ws, B,
-                                      H, Hkv, hd, bs, P, split_tokens, scale,
-                                      s);
+    return dispatch_pool<__nv_bfloat16>(q, k_pool, v_pool, ks, vs, tbl, ln,
+                                        out, ws, B, H, Hkv, hd, bs, P,
+                                        split_tokens, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -631,13 +751,14 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pool,
 // and ring verify (B5: ring_pages > 0, n_q > 1). q and out are (B, n_q, H,
 // hd); `positions` (B,) int32 is read in ring mode only (the newest query's
 // absolute position; the caller passes any int32 buffer in full mode).
-// dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked shapes,
-// types, contiguity, alignment, ring_pages <= P, the shared-memory size and
-// allocated `workspace`: B · n_q · H · n_splits · (hd + 2) floats,
-// n_splits = ceil((ring_pages or P) · bs / split_tokens). Returns the
-// launches' cudaError_t (0 on success).
+// dtype and k_scale / v_scale as in paged_attention_decode. The Python
+// wrapper has checked shapes, types, contiguity, alignment, ring_pages <= P,
+// the shared-memory size and allocated `workspace`: B · n_q · H · n_splits ·
+// (hd + 2) floats, n_splits = ceil((ring_pages or P) · bs / split_tokens).
+// Returns the launches' cudaError_t (0 on success).
 extern "C" int paged_attention_multi(const void* q, const void* k_pool,
-                                     const void* v_pool, const void* tables,
+                                     const void* v_pool, const void* k_scale,
+                                     const void* v_scale, const void* tables,
                                      const void* lens, const void* positions,
                                      void* out, void* workspace, int B,
                                      int n_q, int H, int Hkv, int hd, int bs,
@@ -645,19 +766,23 @@ extern "C" int paged_attention_multi(const void* q, const void* k_pool,
                                      int split_tokens, float scale, int dtype,
                                      void* stream) {
   if (B == 0) return 0;
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if ((ks == nullptr) != (vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* tbl = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
   const int* pos = static_cast<const int*>(positions);
   float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_multi<float>(q, k_pool, v_pool, tbl, ln, pos, out, ws, B,
-                                 n_q, H, Hkv, hd, bs, P, ring_pages, window,
-                                 split_tokens, scale, s);
+    return dispatch_multi<float>(q, k_pool, v_pool, ks, vs, tbl, ln, pos, out,
+                                 ws, B, n_q, H, Hkv, hd, bs, P, ring_pages,
+                                 window, split_tokens, scale, s);
   if (dtype == 1)
-    return dispatch_multi<__nv_bfloat16>(q, k_pool, v_pool, tbl, ln, pos, out,
-                                         ws, B, n_q, H, Hkv, hd, bs, P,
-                                         ring_pages, window, split_tokens,
+    return dispatch_multi<__nv_bfloat16>(q, k_pool, v_pool, ks, vs, tbl, ln,
+                                         pos, out, ws, B, n_q, H, Hkv, hd, bs,
+                                         P, ring_pages, window, split_tokens,
                                          scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -66,11 +66,18 @@ def _masked_gqa_attend_multi(q, k, v, valid, scale):
     return out.reshape(B, K, H, hd).to(q.dtype)
 
 
-def _gather_pool(pool, tables, T):
-    """Gather pool blocks through a block table into (B, T, Hkv, hd) f32."""
+def _gather_pool(pool, tables, T, scl=None):
+    """Gather pool blocks through a block table into (B, T, Hkv, hd) f32.
+    When ``scl`` (N, bs, Hkv) is given the pool is int8 and each vector is
+    dequantized with the same per-(slot, head) f32 multiply as the kernels'
+    tile load — so ref-with-scales equals the ref run on the pool
+    dequantized beforehand, bit for bit."""
     B = tables.shape[0]
     Hkv, hd = pool.shape[2], pool.shape[3]
-    return pool[tables].float().reshape(B, T, Hkv, hd)
+    x = pool[tables].float()                            # (B, P, bs, Hkv, hd)
+    if scl is not None:
+        x = x * scl[tables][..., None]
+    return x.reshape(B, T, Hkv, hd)
 
 
 def ring_key_positions(positions, ring_pages, block_size):
@@ -88,11 +95,12 @@ def ring_key_positions(positions, ring_pages, block_size):
     return kpos.reshape(positions.shape[0], R * bs)
 
 
-def _ring_gather(k_pool, v_pool, block_tables, ring_pages):
+def _ring_gather(k_pool, v_pool, block_tables, ring_pages, k_scale=None,
+                 v_scale=None):
     bs = k_pool.shape[1]
     tables = block_tables[:, :ring_pages]
-    return (_gather_pool(k_pool, tables, ring_pages * bs),
-            _gather_pool(v_pool, tables, ring_pages * bs))
+    return (_gather_pool(k_pool, tables, ring_pages * bs, k_scale),
+            _gather_pool(v_pool, tables, ring_pages * bs, v_scale))
 
 
 def _check_ring_args(positions, ring_pages):
@@ -100,28 +108,36 @@ def _check_ring_args(positions, ring_pages):
         raise ValueError("ring mode needs window, positions AND ring_pages")
 
 
+def check_scales(k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+
+
 def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
                         scale=None, window=None, positions=None,
-                        ring_pages=None):
+                        ring_pages=None, k_scale=None, v_scale=None):
     """q: (B, H, hd); k_pool/v_pool: (N, bs, Hkv, hd);
     block_tables: (B, P) int32; seq_lens: (B,) int32. Returns (B, H, hd).
 
     window/positions/ring_pages switch on ring mode (all three required):
     attend the sliding window (positions - window, positions] through the
-    ring block layout."""
+    ring block layout. k_scale/v_scale (both or neither): int8 pools with
+    per-(slot, head) f32 dequant scales (N, bs, Hkv)."""
     hd = q.shape[-1]
     bs = k_pool.shape[1]
     scale = scale if scale is not None else hd ** -0.5
+    check_scales(k_scale, v_scale)
     if window is None:
         P = block_tables.shape[1]
-        k = _gather_pool(k_pool, block_tables, P * bs)
-        v = _gather_pool(v_pool, block_tables, P * bs)
+        k = _gather_pool(k_pool, block_tables, P * bs, k_scale)
+        v = _gather_pool(v_pool, block_tables, P * bs, v_scale)
         valid = (torch.arange(P * bs, device=q.device)[None, :]
                  < seq_lens[:, None])
         return _masked_gqa_attend(q, k, v, valid, scale)
 
     _check_ring_args(positions, ring_pages)
-    k, v = _ring_gather(k_pool, v_pool, block_tables, ring_pages)
+    k, v = _ring_gather(k_pool, v_pool, block_tables, ring_pages, k_scale,
+                        v_scale)
     kpos = ring_key_positions(positions, ring_pages, bs)          # (B, R*bs)
     pos = positions.long()[:, None]
     valid = ((kpos >= 0) & (kpos <= pos) & (kpos > pos - window)
@@ -131,7 +147,7 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
 
 def paged_attention_verify_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
                                scale=None, window=None, positions=None,
-                               ring_pages=None):
+                               ring_pages=None, k_scale=None, v_scale=None):
     """Multi-query verify for speculative decoding.
 
     q: (B, K, H, hd) — K draft queries per sequence. ``seq_lens[b]`` counts
@@ -144,23 +160,26 @@ def paged_attention_verify_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
     NEWEST draft position ``seq_lens[b] - 1``; each query attends its own
     sliding window ``(qpos - window, qpos]`` through the ring layout. The
     caller sizes the ring so that the oldest query's window is still
-    resident (``ring_pages(window, bs, draft=K-1)``). Returns (B, K, H, hd)."""
+    resident (``ring_pages(window, bs, draft=K-1)``). k_scale/v_scale as
+    in :func:`paged_attention_ref`. Returns (B, K, H, hd)."""
     K, hd = q.shape[1], q.shape[-1]
     bs = k_pool.shape[1]
     scale = scale if scale is not None else hd ** -0.5
+    check_scales(k_scale, v_scale)
     dev = q.device
     qpos = (seq_lens.long()[:, None] - K
             + torch.arange(K, device=dev)[None, :])                # (B, K)
     if window is None:
         P = block_tables.shape[1]
-        k = _gather_pool(k_pool, block_tables, P * bs)
-        v = _gather_pool(v_pool, block_tables, P * bs)
+        k = _gather_pool(k_pool, block_tables, P * bs, k_scale)
+        v = _gather_pool(v_pool, block_tables, P * bs, v_scale)
         kpos = torch.arange(P * bs, device=dev)
         valid = kpos[None, None, :] <= qpos[:, :, None]           # (B, K, P*bs)
         return _masked_gqa_attend_multi(q, k, v, valid, scale)
 
     _check_ring_args(positions, ring_pages)
-    k, v = _ring_gather(k_pool, v_pool, block_tables, ring_pages)
+    k, v = _ring_gather(k_pool, v_pool, block_tables, ring_pages, k_scale,
+                        v_scale)
     kpos = ring_key_positions(positions, ring_pages, bs)[:, None, :]
     valid = ((kpos >= 0) & (kpos <= qpos[:, :, None])
              & (kpos > qpos[:, :, None] - window)

@@ -5,7 +5,9 @@ Counterpart of the paged verbs in ``repro.models.attention``. The reference
 returns new pools; here the pools are updated IN PLACE (the returned dict is
 the one passed in), which saves a pool copy per layer. Rows the reference
 drops with ``mode="drop"`` go to the pool's scratch block at index N (see
-``state_providers``).
+``state_providers``). An int8 pool (a dict with "k_scale"/"v_scale")
+quantizes every write and scatters the scales at the same (block, offset);
+the kernels dequantize on read.
 """
 from __future__ import annotations
 
@@ -14,9 +16,39 @@ import torch
 
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_verify)
-from repro_torch.kernels.paged_attention.ref import (NEG_INF,
+from repro_torch.kernels.paged_attention.ref import (NEG_INF, _gather_pool,
                                                      ring_key_positions)
+from repro_torch.kernels.quantize import dequantize_kv, quantize_kv
 from repro_torch.models import layers as L
+
+
+def _quantize_pair(k, v):
+    """Quantize a K/V write for an int8 pool: per-vector nearest-even
+    rounding, so every path (paged prefill, decode, verify, re-prefill after
+    a preemption) stores identical values for the same input vector."""
+    qk, sk = quantize_kv(k)
+    qv, sv = quantize_kv(v)
+    return qk, sk, qv, sv
+
+
+def _scales(kv):
+    """The kernels' scale arguments: an int8 pool's scale pools, or none."""
+    return dict(k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"))
+
+
+def _scatter(kv, bids, offs, k, v, quantized=None):
+    """Write K/V rows at (block, offset), in place; an int8 pool stores the
+    quantized values and their scales (`quantized`, if the caller has
+    quantized k and v already)."""
+    if "k_scale" in kv:
+        qk, sk, qv, sv = quantized or _quantize_pair(k, v)
+        kv["k"][bids, offs] = qk
+        kv["v"][bids, offs] = qv
+        kv["k_scale"][bids, offs] = sk
+        kv["v_scale"][bids, offs] = sv
+    else:
+        kv["k"][bids, offs] = k
+        kv["v"][bids, offs] = v
 
 
 def _split_heads(x, n, hd):
@@ -93,7 +125,7 @@ def attention_decode_paged(params, x, kv, block_tables, positions, attn_lens,
     ring = {} if window is None else dict(window=window, positions=positions,
                                          ring_pages=ring_pages)
     out = paged_attention(q[:, 0].contiguous(), kv["k"], kv["v"],
-                          block_tables, attn_lens, **ring)
+                          block_tables, attn_lens, **ring, **_scales(kv))
     out = out.reshape(B, 1, h * hd)
     return out @ params["wo"], kv
 
@@ -104,11 +136,11 @@ def paged_write_multi(kv, k_new, v_new, block_tables, positions, valid, *,
     place. k_new/v_new: (B, K, Hkv, hd); positions: (B, K) absolute token
     positions; valid: (B, K) bool — invalid (rejected-horizon or inactive)
     writes go to the scratch block, so pool contents stay canonical.
-    ring_pages: sliding-window layers write page (pos // bs) % ring_pages."""
+    ring_pages: sliding-window layers write page (pos // bs) % ring_pages.
+    Int8 pools quantize on write, scales at the same (block, offset)."""
     bids = _block_ids(kv, block_tables, positions, valid, ring_pages)
     offs = (positions % kv["k"].shape[1]).long()
-    kv["k"][bids, offs] = k_new
-    kv["v"][bids, offs] = v_new
+    _scatter(kv, bids, offs, k_new, v_new)
     return kv
 
 
@@ -135,7 +167,8 @@ def attention_verify_paged(params, x, kv, block_tables, base, qlims, cfg, *,
     ring = {} if window is None else dict(
         window=window, positions=attn_lens - 1, ring_pages=ring_pages)
     out = paged_attention_verify(q.contiguous(), kv["k"], kv["v"],
-                                 block_tables, attn_lens, **ring)
+                                 block_tables, attn_lens, **ring,
+                                 **_scales(kv))
     out = out.reshape(B, K, h * hd)
     return out @ params["wo"], kv
 
@@ -160,12 +193,19 @@ def attention_prefill_paged(params, x, kv, table_rows, starts, valids, cfg):
     # padding positions may index past the table; only masked rows do
     bids = _block_ids(kv, table_rows, pos, valid, None)
     offs = (pos % bs).long()
-    kv["k"][bids, offs] = k
-    kv["v"][bids, offs] = v
+    _scatter(kv, bids, offs, k, v)
 
+    # the gather below reads the pool back (dequantized for an int8 pool),
+    # so every query attends the values the decode kernel will later see
     n_rep = h // hkv
-    kk = _repeat_kv(kv["k"][table_rows].reshape(G, P * bs, hkv, hd), n_rep)
-    vv = _repeat_kv(kv["v"][table_rows].reshape(G, P * bs, hkv, hd), n_rep)
+    if "k_scale" in kv:
+        kk = _gather_pool(kv["k"], table_rows, P * bs, kv["k_scale"])
+        vv = _gather_pool(kv["v"], table_rows, P * bs, kv["v_scale"])
+        kk, vv = kk.to(x.dtype), vv.to(x.dtype)
+    else:
+        kk = kv["k"][table_rows].reshape(G, P * bs, hkv, hd)
+        vv = kv["v"][table_rows].reshape(G, P * bs, hkv, hd)
+    kk, vv = _repeat_kv(kk, n_rep), _repeat_kv(vv, n_rep)
     scale = 1.0 / np.sqrt(hd)
     s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
     kpos = torch.arange(P * bs, device=x.device)
@@ -194,14 +234,29 @@ def attention_prefill_ring(params, x, kv, table_rows, starts, valids, cfg,
     ar = torch.arange(C, device=x.device, dtype=starts.dtype)
     pos = starts[:, None] + ar[None, :]                           # (G, C)
     q, k, v = _project_qkv(params, x, pos, cfg)
+    quant = "k_scale" in kv
+    quantized = None
+    if quant:
+        # the chunk's keys are attended from here, not read back from the
+        # pool: round-trip them so they equal what later decode steps read
+        quantized = qk, sk, qv, sv = _quantize_pair(k, v)
+        k = dequantize_kv(qk, sk).to(k.dtype)
+        v = dequantize_kv(qv, sv).to(v.dtype)
 
     bs = kv["k"].shape[1]
     R = ring_pages
 
-    # 1) each segment's ring as of starts - 1, copied before the writes
+    # 1) each segment's ring as of starts - 1, copied (and dequantized,
+    # scales included) before the writes
     ring_rows = table_rows[:, :R].long()                          # (G, R)
-    old_k = kv["k"][ring_rows].reshape(G, R * bs, hkv, hd)
-    old_v = kv["v"][ring_rows].reshape(G, R * bs, hkv, hd)
+    if quant:
+        old_k = _gather_pool(kv["k"], ring_rows, R * bs,
+                             kv["k_scale"]).to(x.dtype)
+        old_v = _gather_pool(kv["v"], ring_rows, R * bs,
+                             kv["v_scale"]).to(x.dtype)
+    else:
+        old_k = kv["k"][ring_rows].reshape(G, R * bs, hkv, hd)
+        old_v = kv["v"][ring_rows].reshape(G, R * bs, hkv, hd)
     old_pos = ring_key_positions(starts - 1, R, bs)               # (G, R*bs)
     # entries the pre-chunk ring never held: pages < 0 entirely, and the
     # current page's offsets past (start-1) % bs (previous-lap leftovers,
@@ -212,15 +267,14 @@ def attention_prefill_ring(params, x, kv, table_rows, starts, valids, cfg,
     # scratch block, and so does any position lapped by a LATER valid
     # position of this same chunk (C can exceed the ring capacity R*bs):
     # an index_put with repeated indices leaves the winner undefined, so
-    # only each (slot, offset)'s newest lap may write. Skipped positions
-    # are more than R*bs > window older than the chunk's last token —
-    # nothing downstream can attend them.
+    # only each (slot, offset)'s newest lap may write (values and scales).
+    # Skipped positions are more than R*bs > window older than the chunk's
+    # last token — nothing downstream can attend them.
     last_valid = (starts + valids - 1)[:, None]                   # (G, 1)
     write = (ar[None, :] < valids[:, None]) & (pos > last_valid - R * bs)
     bids = _block_ids(kv, table_rows, pos, write, R)
     offs = (pos % bs).long()
-    kv["k"][bids, offs] = k
-    kv["v"][bids, offs] = v
+    _scatter(kv, bids, offs, k, v, quantized)
 
     # 3) attend: keys = each segment's pre-chunk ring and its own chunk
     n_rep = h // hkv

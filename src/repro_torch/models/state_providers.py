@@ -23,17 +23,30 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.quantize import KVQuantConfig
 from repro_torch.models import layers as L
 
 
 # ------------------------------------------------------------- KV allocation
-def alloc_kv_pool(lead_shape, hkv: int, hd: int, dtype, device):
-    """THE allocator for K/V storage: {"k", "v"} of lead + (hkv, hd) in
-    `dtype`, zero-filled (tests/test_torch_port_rules.py fences raw KV
-    dicts elsewhere)."""
+def alloc_kv_pool(lead_shape, hkv: int, hd: int, dtype, device,
+                  kv_quant: Optional[KVQuantConfig] = None):
+    """THE allocator for K/V storage (tests/test_torch_port_rules.py fences
+    raw KV dicts elsewhere): {"k", "v"} of lead + (hkv, hd) in `dtype`,
+    zero-filled. With `kv_quant` the values are int8 and {"k_scale",
+    "v_scale"} f32 (lead + (hkv,)) carry one dequant scale per stored
+    vector; the attention code dispatches on the dict's structure ("k_scale"
+    in pool)."""
     shape = tuple(lead_shape) + (hkv, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_quant is None:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    sshape = tuple(lead_shape) + (hkv,)
+    # scale 1.0 is quantize_kv's on an all-zero vector, so untouched slots
+    # dequantize to exactly 0.0
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.ones(sshape, dtype=torch.float32, device=device),
+            "v_scale": torch.ones(sshape, dtype=torch.float32, device=device)}
 
 
 # ----------------------------------------------------------- layer kind lists
@@ -107,28 +120,56 @@ class _PagedPoolProvider:
     num_blocks: int
     block_size: int
     max_blocks_per_seq: Optional[int] = None
+    kv_quant: Optional[KVQuantConfig] = None
+
+    # Preemption rolls paged KV back by freeing blocks (and re-aliasing the
+    # registered ones on resume), ring KV by re-prefilling (its write cursor
+    # is a function of the token count): neither keeps a snapshot. These
+    # are the reference's rollback hooks, which the recurrent slabs (A9)
+    # fill in.
+    def preempt_checkpoint(self, state, slot: int):
+        return None
+
+    def resume_restore(self, state, slot: int, snap):
+        return state
 
     def init_layer_state(self, n_sb: int, device):
-        """(n_sb, num_blocks + 1, bs, Hkv, hd) pools, one per superblock;
-        block num_blocks is the scratch block that absorbs dropped
-        writes."""
+        """(n_sb, num_blocks + 1, bs, Hkv, hd) pools, one per superblock
+        (int8, plus (n_sb, num_blocks + 1, bs, Hkv) f32 scales, with
+        `kv_quant`); block num_blocks is the scratch block that absorbs
+        dropped writes."""
         hkv, hd = self.cfg.num_kv_heads, self.cfg.resolved_head_dim
         return alloc_kv_pool((n_sb, self.num_blocks + 1, self.block_size),
-                             hkv, hd, L.dtype_of(self.cfg), device)
+                             hkv, hd, L.dtype_of(self.cfg), device,
+                             self.kv_quant)
 
     def _bytes_per_token(self) -> int:
         """KV bytes one stored token costs in this pool (both K and V)."""
         hkv, hd = self.cfg.num_kv_heads, self.cfg.resolved_head_dim
+        if self.kv_quant is not None:
+            return 2 * hkv * (hd + 4)   # int8 vector + one f32 scale per head
         return 2 * hkv * hd * L.dtype_of(self.cfg).itemsize
 
     def state_bytes_per_slot(self, total_tokens: int) -> int:
         return (self.blocks_needed(total_tokens) * self.block_size
                 * self._bytes_per_token())
 
+    def pool_bytes_saved(self) -> int:
+        """Bytes of the num_blocks allocatable blocks saved by quantization
+        against the config's dtype (0 when quantization is off) — the
+        kv_quant_bytes_saved_total gauge."""
+        if self.kv_quant is None:
+            return 0
+        hkv, hd = self.cfg.num_kv_heads, self.cfg.resolved_head_dim
+        per_tok = 2 * hkv * hd * L.dtype_of(self.cfg).itemsize
+        return (self.num_blocks * self.block_size
+                * (per_tok - self._bytes_per_token()))
+
     def defrag_remap(self, state, perm):
-        """state leaves: (n_sb, N + 1, bs, Hkv, hd); perm (N,): new[i] =
-        old[perm[i]]. The gather reads into a new tensor before the copy
-        back, so no block is overwritten before it is read."""
+        """state leaves (values and, for int8 pools, scales): (n_sb, N + 1,
+        bs, ...); perm (N,): new[i] = old[perm[i]]. The gather reads into a
+        new tensor before the copy back, so no block is overwritten before
+        it is read."""
         for a in state.values():
             a[:, :self.num_blocks] = a[:, perm]
         return state
@@ -175,8 +216,8 @@ class RingKVProvider(_PagedPoolProvider):
 
     def write_cursor(self, seq_len: int) -> dict:
         """Where token `seq_len` will be written: a pure function of the
-        token count, so re-prefilling the same tokens reproduces the ring
-        wrap for wrap."""
+        token count, so re-prefilling the same tokens after a preemption
+        reproduces the ring wrap for wrap."""
         return {"page": (seq_len // self.block_size) % self.ring_pages,
                 "offset": seq_len % self.block_size}
 
@@ -188,12 +229,13 @@ _LATER = {"rwkv": "recurrent rwkv6 slabs (ROADMAP A9)",
 # ----------------------------------------------------------------- assembly
 def provider_for(skind: str, cfg: ModelConfig, *, num_blocks: int,
                  block_size: int, max_blocks_per_seq: Optional[int] = None,
-                 draft: int = 0):
+                 draft: int = 0, kv_quant: Optional[KVQuantConfig] = None):
     if skind == "full":
-        return PagedKVProvider(cfg, num_blocks, block_size, max_blocks_per_seq)
+        return PagedKVProvider(cfg, num_blocks, block_size, max_blocks_per_seq,
+                               kv_quant)
     if skind == "ring":
         return RingKVProvider(cfg, num_blocks, block_size, max_blocks_per_seq,
-                              window=cfg.window_size, draft=draft)
+                              kv_quant, window=cfg.window_size, draft=draft)
     if skind in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: state kind {skind!r} — {_LATER[skind]} — comes in a "
@@ -202,10 +244,12 @@ def provider_for(skind: str, cfg: ModelConfig, *, num_blocks: int,
 
 
 def providers_for(cfg: ModelConfig, *, num_blocks: int, block_size: int,
-                  max_blocks_per_seq: Optional[int] = None, draft: int = 0):
+                  max_blocks_per_seq: Optional[int] = None, draft: int = 0,
+                  kv_quant: Optional[KVQuantConfig] = None):
     """One provider per layer of a superblock, aligned with layer_kinds(cfg).
     Layers of the same kind share a (frozen, equal) provider instance.
-    ``draft`` = K - 1 when speculative decoding is on (ring slack)."""
+    ``draft`` = K - 1 when speculative decoding is on (ring slack);
+    ``kv_quant`` switches the KV pools to int8 with per-vector scales."""
     cache = {}
     out = []
     for sk in state_kinds(cfg):
@@ -213,7 +257,7 @@ def providers_for(cfg: ModelConfig, *, num_blocks: int, block_size: int,
             cache[sk] = provider_for(sk, cfg, num_blocks=num_blocks,
                                      block_size=block_size,
                                      max_blocks_per_seq=max_blocks_per_seq,
-                                     draft=draft)
+                                     draft=draft, kv_quant=kv_quant)
         out.append(cache[sk])
     return out
 

@@ -135,15 +135,18 @@ def _embed_tokens(cfg, params, tokens):
 
 # -------------------------------------------------------------- paged decode
 def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-                     device="cuda"):
+                     device="cuda", kv_quant=None):
     """Per-superblock, per-layer paged KV pools (n_sb, num_blocks + 1, bs,
     Hkv, hd) — all layers share one block table per sequence, each layer
     owns its pool storage (ring layers use the table's first ring_pages
-    entries modulo the ring), and block num_blocks is the scratch block."""
+    entries modulo the ring), and block num_blocks is the scratch block.
+    `kv_quant` (KVQuantConfig) makes the pools int8 with per-vector f32
+    scales; the decode, prefill and verify steps dispatch on the pools'
+    structure ("k_scale" in the layer's dict)."""
     check_supported(cfg)
     n_sb, _ = superblock_layout(cfg)
     providers = SP.providers_for(cfg, num_blocks=num_blocks,
-                                 block_size=block_size)
+                                 block_size=block_size, kv_quant=kv_quant)
     return {f"l{i}": p.init_layer_state(n_sb, device)
             for i, p in enumerate(providers)}
 

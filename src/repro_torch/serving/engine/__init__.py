@@ -1,4 +1,6 @@
+from repro_torch.kernels.quantize import KVQuantConfig
 from repro_torch.serving.engine.engine import Engine, EngineConfig
+from repro_torch.serving.engine.oversub import OversubConfig, SLOPolicy
 from repro_torch.serving.engine.paged_cache import (BlockPool, BlockPoolError,
                                                     prefix_hashes)
 from repro_torch.serving.engine.scheduler import Request, Scheduler
@@ -7,7 +9,8 @@ from repro_torch.serving.engine.spec import (Drafter, NgramDrafter,
 from repro_torch.serving.telemetry import (MetricsRegistry, RecompileTracker,
                                            RequestTracer, Telemetry)
 
-__all__ = ["Engine", "EngineConfig", "BlockPool", "BlockPoolError",
+__all__ = ["Engine", "EngineConfig", "KVQuantConfig", "BlockPool", "BlockPoolError",
            "Request", "Scheduler", "prefix_hashes", "MetricsRegistry",
            "RecompileTracker", "RequestTracer", "Telemetry", "Drafter",
-           "NgramDrafter", "ReplayDrafter", "SpecConfig"]
+           "NgramDrafter", "ReplayDrafter", "SpecConfig", "OversubConfig",
+           "SLOPolicy"]

@@ -45,8 +45,16 @@ table, and prefills only the uncached tail. Telemetry
 (``EngineConfig.telemetry``, on by default) traces every request's
 lifecycle and keeps every counter in one registry (``serving.telemetry``).
 
-Not ported yet: temperature sampling, oversubscription, int8 KV, the
-draft-model drafter, and the recurrent / hybrid / MoE families.
+Quantized KV (``EngineConfig.kv_quant``): every paged pool is int8 with one
+f32 scale per stored vector; the writes quantize and the hand-written
+kernels dequantize inside (the pools' dict structure carries the mode, so
+the step functions are the same). Oversubscription
+(``EngineConfig.oversub``, ``engine.oversub``): optimistic admission under
+a watermark, per-step block growth, and preemption with rollback to a
+re-prefill of ``prompt + generated``, which stores the same KV again.
+
+Not ported yet: temperature sampling, the draft-model drafter, and the
+recurrent / hybrid / MoE families (with the recurrent snapshot resume).
 """
 from __future__ import annotations
 
@@ -56,13 +64,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.quantize import KVQuantConfig
 from repro_torch.models import state_providers as SP
 from repro_torch.models import transformer as T
 from repro_torch.serving import telemetry as TM
 from repro_torch.serving.engine import spec as SPEC
+from repro_torch.serving.engine.oversub import OversubConfig, SLOPolicy
 from repro_torch.serving.engine.paged_cache import BlockPool
 from repro_torch.serving.engine.spec import SpecConfig
-from repro_torch.serving.engine.scheduler import (DECODING, FINISHED, Request,
+from repro_torch.serving.engine.scheduler import (DECODING, FINISHED,
+                                                  PREFILLING, Request,
                                                   Scheduler,
                                                   chunk_buckets_for,
                                                   segment_buckets_for)
@@ -82,9 +93,15 @@ class EngineConfig:
     prefill_buckets: tuple = ()         # chunk-length buckets; () = one
                                         #   bucket of prefill_chunk tokens
     packed_prefill: bool = True         # pack chunks into one prefill call
+    oversub: Optional[OversubConfig] = None   # optimistic admission + victim
+                                        #   preemption (engine.oversub);
+                                        #   None = conservative reservation
     spec: Optional[SpecConfig] = None   # speculative decoding (engine.spec):
                                         #   k-token draft + multi-query verify
                                         #   replaces the one-token decode step
+    kv_quant: Optional[KVQuantConfig] = None  # int8 paged KV + per-vector f32
+                                        #   scales, dequantized inside the
+                                        #   paged-attention kernels
 
     def __post_init__(self):
         object.__setattr__(self, "prefill_buckets",
@@ -171,7 +188,8 @@ class Engine:
         self.providers = SP.providers_for(
             cfg, num_blocks=e.num_blocks, block_size=e.block_size,
             max_blocks_per_seq=e.max_blocks_per_seq,
-            draft=e.spec.k - 1 if e.spec is not None else 0)
+            draft=e.spec.k - 1 if e.spec is not None else 0,
+            kv_quant=e.kv_quant)
         for p in self.providers:
             if p.kind == "ring" and p.ring_pages > e.max_blocks_per_seq:
                 raise ValueError(
@@ -205,6 +223,16 @@ class Engine:
         self._m_step_syncs = reg.counter(
             "engine_step_vector_syncs_total",
             "step vectors materialized on host for stop_token scanning")
+        self._m_preempts = reg.counter(
+            "engine_preemptions_total", "victims evicted and rolled back")
+        self._m_resumes = reg.counter(
+            "engine_resumes_total", "preempted requests re-admitted")
+        self._m_appends = reg.counter(
+            "engine_block_appends_total",
+            "blocks appended on demand to decoding sequences")
+        self._m_prefill_deferrals = reg.counter(
+            "engine_prefill_deferrals_total",
+            "steps that skipped prefill under SLO/pool pressure")
         self._m_verify_steps = reg.counter(
             "engine_verify_steps_total", "speculative verify steps dispatched")
         self._m_draft = reg.counter(
@@ -228,7 +256,16 @@ class Engine:
             "engine_request_e2e_seconds", "arrive -> finish")
 
         self.pool_state = T.init_paged_state(cfg, e.num_blocks, e.block_size,
-                                             device=self.device)
+                                             device=self.device,
+                                             kv_quant=e.kv_quant)
+        # pool bytes the int8 layout saves against the config's dtype (all
+        # layers and superblocks; 0 with quantization off)
+        n_sb, _ = SP.superblock_layout(cfg)
+        self._g_kv_quant_saved = reg.gauge(
+            "kv_quant_bytes_saved_total",
+            "pool bytes saved by KV quantization vs the unquantized layout")
+        self._g_kv_quant_saved.set(
+            n_sb * sum(p.pool_bytes_saved() for p in self.providers))
         on_evict = ((lambda b: self.telemetry.record(None, "evict", block=b))
                     if self.telemetry.enabled else None)
         self.block_pool = BlockPool(e.num_blocks, e.block_size,
@@ -244,6 +281,11 @@ class Engine:
                 f"engine_prefill_bucket_c{c}g{g}_dispatch_total",
                 f"prefill dispatches at chunk bucket {c} x {g} segments")
             for c, g in self.prefill_grid}
+        # oversubscription: the SLO policy flips the scheduler to optimistic
+        # prompt-only reservation; the engine then appends decode blocks per
+        # step and preempts victims when an append (or a higher-priority
+        # queue head) can't be satisfied
+        self._policy = SLOPolicy(e.oversub) if e.oversub is not None else None
         self.scheduler = Scheduler(
             self.block_pool, max_slots=e.max_slots,
             max_blocks_per_seq=e.max_blocks_per_seq,
@@ -253,7 +295,8 @@ class Engine:
             block_cost=self.blocks_needed,
             chunk_buckets=self.chunk_buckets,
             segment_buckets=self.segment_buckets,
-            packed_prefill=e.packed_prefill)
+            packed_prefill=e.packed_prefill,
+            policy=self._policy)
 
         # device-resident slot state (touched from the host only at request
         # lifecycle events; the decode loop never reads it back)
@@ -326,7 +369,10 @@ class Engine:
                 "emitted": self._m_emitted.value,
                 "occupancy_sum": self._m_occupancy.value,
                 "prefix_hit_tokens": self._m_prefix_hits.value,
-                "cow_copies": self._m_cow.value}
+                "cow_copies": self._m_cow.value,
+                "preemptions": self._m_preempts.value,
+                "resumes": self._m_resumes.value,
+                "block_appends": self._m_appends.value}
 
     def bucket_dispatches(self) -> dict:
         """Serving-time prefill dispatch counts per declared (chunk_len,
@@ -340,8 +386,11 @@ class Engine:
         return SP.seq_blocks_needed(self.providers, total_tokens)
 
     def add_request(self, prompt, max_new: int, *, temperature: float = 0.0,
-                    stop_token: Optional[int] = None) -> int:
+                    stop_token: Optional[int] = None,
+                    priority: int = 0) -> int:
         """Queue a greedy request; returns its id. `prompt`: 1-D int tokens.
+        `priority` is the oversubscription class (LOWER is more important;
+        ignored by the conservative scheduler).
 
         Validates up front that prompt + generation budget fits both the
         per-sequence block table and the whole pool, so infeasible requests
@@ -373,7 +422,8 @@ class Engine:
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, max_new=max_new,
-                      stop_token=stop_token)
+                      stop_token=stop_token, priority=priority,
+                      arrive_t=self.telemetry.clock())
         self.requests[rid] = req
         self.scheduler.submit(req)
         self.telemetry.record(rid, "arrive", prompt_len=int(prompt.shape[0]),
@@ -400,31 +450,58 @@ class Engine:
 
     def step(self) -> list:
         """One engine iteration: admit -> prefill chunk(s) -> batched decode.
-        Returns the rids that emitted a token this step (token values are
-        materialized lazily — read them via `drain()` / `output()`)."""
+        Under oversubscription the order becomes: priority preemption ->
+        (policy-gated) admit + prefill -> per-sequence block growth (with
+        victim preemption on append failure) -> batched decode. Returns the
+        rids that emitted a token this step (token values are materialized
+        lazily — read them via `drain()` / `output()`)."""
         e = self.ecfg
         tel = self.telemetry
         emitted = []
         self._step_device_s = 0.0
         t_step = tel.clock() if tel.step_timing else 0.0
+        t_wall = tel.clock() if self._policy is not None else 0.0
         n_prefills = 0
         sync_memo = {}                  # one host transfer per step vector
 
-        for req in self.scheduler.admit():
+        pol = self._policy
+        if pol is not None and pol.cfg.priority_preemption:
+            self._priority_preempt()
+        allow_prefill = True
+        if pol is not None:
+            head_wait = None
+            if self.scheduler.waiting:
+                head = self.scheduler.waiting[0]
+                if head.arrive_t is not None:
+                    head_wait = pol.clock() - head.arrive_t
+            decoding = sum(1 for r in self.scheduler.running.values()
+                           if r.state == DECODING)
+            allow_prefill = pol.allow_prefill(
+                head_wait_s=head_wait, decoding=decoding,
+                pool_util=self.block_pool.utilization)
+            if not allow_prefill:
+                self._m_prefill_deferrals.inc()
+
+        for req in (self.scheduler.admit() if allow_prefill else []):
             row = self.block_pool.table(req.rid)
             padded = np.zeros((e.max_blocks_per_seq,), np.int32)
             padded[:len(row)] = row
             self.tables[req.slot] = self._to_device(padded)
             self._m_prefix_hits.inc(req.prefilled)
+            resumed = req.preempts > 0
             if tel.enabled:
-                t_admit = tel.record(req.rid, "admit", slot=req.slot)
-                t_arrive = tel.tracer.first(req.rid, "arrive")
-                if t_arrive is not None:
-                    self._h_queue_wait.observe(t_admit - t_arrive)
+                t_admit = tel.record(req.rid, "resume" if resumed else "admit",
+                                     slot=req.slot)
+                if not resumed:
+                    t_arrive = tel.tracer.first(req.rid, "arrive")
+                    if t_arrive is not None:
+                        self._h_queue_wait.observe(t_admit - t_arrive)
                 if req.prefilled:
                     tel.record(req.rid, "prefix_hit", tokens=req.prefilled,
                                blocks=req.shared_blocks
                                + (1 if req.cow_src is not None else 0))
+            if resumed:
+                self._m_resumes.inc()
             self.seq_lens = _set(self.seq_lens, req.slot, req.prefilled)
             if req.cow_src is not None:
                 # whole prefill cached: copy the last matched block into the
@@ -436,7 +513,8 @@ class Engine:
                     self.pool_state, int(req.cow_src), int(dst))
                 self._m_cow.inc()
 
-        for batch in self.scheduler.next_prefills():
+        for batch in (self.scheduler.next_prefills() if allow_prefill
+                      else []):
             # one segment-masked device call per batch: segment j carries
             # request j's chunk, padded to the (C, G) bucket; missing
             # segments get valid=0 and the out-of-range slot sentinel
@@ -462,20 +540,27 @@ class Engine:
                 n_prefills += 1
                 tel.record(req.rid, "prefill_chunk", start=start, tokens=valid)
                 if req.prefilled == req.prefill_len:
-                    # prefill complete: segment j's logits yield the
-                    # request's first token
+                    # prefill complete: segment j's logits yield the next
+                    # token (the request's FIRST, unless this is a resumed
+                    # re-prefill continuing an interrupted generation)
                     self._record_token(req, greedy, j, sync_memo)
                     emitted.append(req.rid)
                     if tel.enabled:
-                        t_first = tel.record(req.rid, "first_token")
-                        t_arrive = tel.tracer.first(req.rid, "arrive")
-                        if t_arrive is not None:
-                            self._h_ttft.observe(t_first - t_arrive)
+                        if req.got_first:
+                            tel.record(req.rid, "decode_token")
+                        else:
+                            t_first = tel.record(req.rid, "first_token")
+                            t_arrive = tel.tracer.first(req.rid, "arrive")
+                            if t_arrive is not None:
+                                self._h_ttft.observe(t_first - t_arrive)
+                    req.got_first = True
                     req.state = DECODING
                     self.active = _set(self.active, req.slot, True)
                     if req.done:
                         self._finish(req)
 
+        if pol is not None:
+            self._grow_decode()
         batch = self.scheduler.decode_batch()
         if batch and self._verify is not None:
             emitted.extend(self._spec_decode(batch, sync_memo))
@@ -505,6 +590,8 @@ class Engine:
                     host_s=total - self._step_device_s,
                     device_s=self._step_device_s, prefills=n_prefills,
                     decode_batch=len(batch), emitted=len(emitted))
+        if pol is not None:
+            pol.note_step(tel.clock() - t_wall)
         return emitted
 
     def drain(self, max_steps: int = 100_000) -> dict:
@@ -558,6 +645,80 @@ class Engine:
         self.tables = self._to_device(tables)
         return src
 
+    # -------------------------------------------------- preemption internals
+    def _grow_decode(self) -> None:
+        """Optimistic growth: append the block(s) each decoding sequence's
+        next KV write needs, strongest request first (the policy's
+        protection order). When the pool can't satisfy an append, preempt
+        strictly-WEAKER victims until it can — and if none exist, the
+        growing request itself is the weakest and rolls back. The maximal
+        request is never victimized while anything weaker runs, so progress
+        is guaranteed (its full span fits the pool, validated at submit)."""
+        sched = self.scheduler
+        order = sorted(sched.decode_batch(), key=SLOPolicy.protection_key)
+        for req in order:
+            if req.rid not in sched.running:
+                continue                # became a victim earlier this pass
+            need = sched.growth_need(req, extra=self._spec_horizon(req))
+            if need == 0:
+                continue
+            while not self.block_pool.can_alloc(need):
+                me = SLOPolicy.protection_key(req)
+                victim = self._policy.pick_victim(
+                    [r for r in sched.running.values()
+                     if r is not req and SLOPolicy.protection_key(r) > me])
+                self._preempt(victim if victim is not None else req)
+                if victim is None:
+                    break
+            if req.rid in sched.running:
+                fresh = sched.grow(req, extra=self._spec_horizon(req))
+                old = len(self.block_pool.table(req.rid)) - len(fresh)
+                self.tables[req.slot, old:old + len(fresh)] = \
+                    self._to_device(np.asarray(fresh, np.int32))
+                self._m_appends.inc(len(fresh))
+
+    def _priority_preempt(self) -> None:
+        """A blocked queue head may evict strictly-lower-class victims: while
+        the head cannot be admitted and such a victim runs, preempt the
+        weakest one. Equal-or-higher-class work is never disturbed, so this
+        terminates and never inverts the class order."""
+        sched = self.scheduler
+        while sched.waiting and not sched.can_admit_head():
+            head = sched.waiting[0]
+            victim = self._policy.pick_victim(
+                list(sched.running.values()), max_priority=head.priority)
+            if victim is None:
+                return
+            self._preempt(victim)
+
+    def _preempt(self, req: Request) -> None:
+        """Evict one running request and roll it back to WAITING. Host-side
+        order matters: materialize its lazy token refs (the step vectors are
+        unreachable once the slot turns over), deactivate the slot, then let
+        the scheduler register + free its blocks and requeue it.
+        Materialization uses a private memo: this call drops the victim's
+        step-vector refs, so a shared id()-keyed memo could dangle for the
+        rest of the step."""
+        req.out_tokens = [int(t) for t in self._materialize(req, {})]
+        self.active = _set(self.active, req.slot, False)
+        blocks = len(self.block_pool.table(req.rid))
+        if self.drafter is not None:
+            self.drafter.forget(req.rid)
+        self.scheduler.preempt(req)
+        self._m_preempts.inc()
+        self.telemetry.record(req.rid, "preempt",
+                              generated=len(req.out_tokens), blocks=blocks)
+
+    def preempt_request(self, rid: int) -> bool:
+        """Force-preempt one running request (test/ops hook — the soak tests
+        drive every request through at least one evict/resume cycle with
+        this). Returns False if the request isn't currently running."""
+        req = self.requests[rid]
+        if req.state not in (PREFILLING, DECODING):
+            return False
+        self._preempt(req)
+        return True
+
     # ------------------------------------------------------------- internal
     def _spec_decode(self, batch: list, sync_memo: dict) -> list:
         """One speculative decode step over the DECODING batch: host
@@ -570,10 +731,9 @@ class Engine:
         Per slot the verify row is ``[pending, d1 .. d_{k-1}]``: the last
         emitted (true) token plus the drafter's guesses for the next k-1
         stream positions. ``qlims`` caps accepted tokens AND KV writes at
-        what the request may still emit. The reference also feeds it to
-        oversubscription's block growth (``_spec_horizon``); this engine
-        reserves each request's whole span at admission, so ``qlims``
-        alone keeps the writes inside the reservation."""
+        what the request may still emit, so writes never pass the block
+        reservation; under oversubscription ``_spec_horizon`` grows the
+        table by the same horizon first."""
         e = self.ecfg
         tel = self.telemetry
         k = e.spec.k
@@ -628,6 +788,14 @@ class Engine:
             if req.done:
                 self._finish(req)
         return emitted
+
+    def _spec_horizon(self, req: Request) -> int:
+        """Extra block-growth horizon under speculation: the next verify
+        step writes KV at positions ``seq_tokens-1 .. seq_tokens-2+qlims``,
+        i.e. qlims-1 tokens past what the one-token decode step writes."""
+        if self._verify is None:
+            return 0
+        return min(self.ecfg.spec.k, req.max_new - len(req.out_tokens)) - 1
 
     def _record_token(self, req: Request, greedy_vec, greedy_idx,
                       sync_memo: dict):

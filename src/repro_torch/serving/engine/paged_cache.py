@@ -1,8 +1,9 @@
 """Paged KV cache bookkeeping, ported near verbatim from
-``repro.serving.engine.paged_cache`` (host numpy code; the oversubscription
-calls ``append`` and ``evict_seq`` come with that slice of the port): a
-fixed pool of fixed-size blocks, per-sequence block tables, per-block refcounts, and a prefix index for cross-request KV
-reuse (vLLM-style PagedAttention memory management with prefix caching).
+``repro.serving.engine.paged_cache`` (host numpy code): a fixed pool of
+fixed-size blocks, per-sequence block tables, per-block refcounts, and a
+prefix index for cross-request KV reuse (vLLM-style PagedAttention memory
+management with prefix caching), plus the oversubscription calls
+``append`` (on-demand growth) and ``evict_seq`` (victim eviction).
 
 `BlockPool` is pure host-side accounting — the device-side pool tensors live
 in the Engine (`models.transformer.init_paged_state`, plus one scratch
@@ -181,6 +182,23 @@ class BlockPool:
             got.append(b)
         self._owned.setdefault(rid, []).extend(got)
         return got
+
+    def append(self, rid, n_blocks: int) -> list:
+        """On-demand growth: append `n_blocks` fresh blocks to an EXISTING
+        sequence (the oversubscription per-step decode append). Unlike
+        `alloc` this never creates an owner — growing a sequence the pool
+        has never seen is a bookkeeping bug, not a request."""
+        if rid not in self._owned:
+            raise BlockPoolError(f"append to unknown sequence {rid!r}")
+        return self.alloc(rid, n_blocks)
+
+    def evict_seq(self, rid) -> int:
+        """Victim eviction: release every block of a preempted sequence.
+        Identical accounting to `free_seq` — callers register the victim's
+        fully written prefix blocks FIRST, so refcount-zero registered
+        blocks park on the cold end of the free list content-intact and the
+        victim's resume can alias them back instead of recomputing."""
+        return self.free_seq(rid)
 
     def share(self, rid, blocks: list) -> None:
         """Alias existing blocks into `rid`'s table (refcount +1 each).

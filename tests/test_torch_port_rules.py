@@ -173,9 +173,14 @@ def test_kv_pool_allocation_only_in_state_providers():
 def test_kv_alloc_regex_catches_the_banned_patterns():
     bad = ['return {"k": torch.zeros(shape), "v": torch.zeros(shape)}',
            "cache = dict(k=torch.zeros(s), v=torch.zeros(s))",
-           "pool = {'v': torch.empty(s)}"]
+           "pool = {'v': torch.empty(s)}",
+           '"k_scale": torch.ones(sshape, dtype=torch.float32),',
+           "scales = dict(k_scale=torch.ones(s), v_scale=torch.ones(s))",
+           "{'v_scale': torch.full(s, 1.0)}"]
     good = ['"ln_scale": torch.ones(d)', "k = torch.zeros((4, 4))",
-            'kv["k"][bids, offs] = k_new', "kv = dict(k=new_k, v=new_v)"]
+            'kv["k"][bids, offs] = k_new', "kv = dict(k=new_k, v=new_v)",
+            'kv["k_scale"][bids, offs] = sk',
+            "dict(k_scale=kv.get(\"k_scale\"), v_scale=kv.get(\"v_scale\"))"]
     assert all(_KV_POOL_ALLOC.search(s) for s in bad)
     assert not any(_KV_POOL_ALLOC.search(s) for s in good)
 
