@@ -7,8 +7,9 @@ NVIDIA GPU. Run from the repository root:
 Phases, in order; any failure exits non-zero before the final ok line:
 
   1. device — require CUDA; print the card's name and power limit.
-  2. build  — compile the paged-attention source (every kernel of the main
-     paths) with nvcc into build/.
+  2. build  — compile the paged-attention and flash-attention sources
+     (every kernel of the main paths) with nvcc into build/, one compiler
+     per source, started together.
   3. kernel — every kernel against its plain PyTorch version on the card
      (f32 atol 2e-5, bf16 atol 2e-2): B1 over the reference's test sweep
      and the yi-9b decode shape; B2 (ring decode), B4 (verify) and B5 (ring
@@ -19,14 +20,22 @@ Phases, in order; any failure exits non-zero before the final ok line:
      yi-9b decode shape, B2/B4/B5 at gemma3-12b's). Then B3, the same four
      modes on int8 pools with their scales (dequantized in the kernel),
      over the same sweeps with poisoned dead keys and NaN scales, each
-     timed likewise and beside the bf16 kernel on the same values.
+     timed likewise and beside the bf16 kernel on the same values. Then
+     B6 (flash attention, the training forward): causal and windowed
+     (32, 1024), GQA 1/4/8, hd 64/128/256 and ragged lengths, with its
+     row log-sum-exp; the autograd.Function's gradients against autograd
+     through the plain version; timed at the training shape (yi-9b,
+     batch 2 x 4096) beside its plain version, SDPA(is_causal) and its
+     operation bound.
   4. parity — tiny f32 models served on cuda and on cpu from the same
      weights: a full-attention one (staggered requests, a mid-flight
      defragment, a prefix-cache copy-on-write replay), reduced gemma3 and a
      dense sliding config, each also with SpecConfig(k=4) on cuda: greedy
      tokens must be equal. The three again with int8 pools, plain and with
      speculation, and two of them under OversubConfig() with every request
-     force-preempted once.
+     force-preempted once. Then training: reduced f32 yi-9b and gemma3
+     trained 3 Adam steps on cuda and on cpu from the same weights and
+     batches; the losses must agree per step.
   5. main paths — yi-9b at full width (48 layers, bf16, seeded random
      weights) through the port's Engine: mixed requests plus two
      ~1000-token prompts, with bf16 and with int8 pools, then both pool
@@ -37,7 +46,11 @@ Phases, in order; any failure exits non-zero before the final ok line:
      plus two prompts that wrap the ring, and with int8 pools without
      speculation and with the n-gram drafter. Every request finishes,
      logits stay finite, no block leaks, and each kernel ran once per
-     layer of its kind per decode or verify step.
+     layer of its kind per decode or verify step. Last, training: yi-9b
+     at full width cut to 8 of its 48 layers, batch 2 x 4096, Adam with
+     remat, 1 warm-up and 3 timed steps through the port's trainer; the
+     losses stay finite and B6 runs twice per layer per step (forward and
+     recompute).
 
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -1391,6 +1404,323 @@ def gemma3_main_phase(card, rows):
     where_time_goes(card, fast, prompts[:8], news[:8])
 
 
+# ------------------------------------------ phase 3d: flash attention (B6)
+# (B, S, H, Hkv, hd, causal, window): GQA groups 1, 4 and 8, hd 64 / 128 /
+# 256, windows 32 and 1024, ragged lengths (not multiples of the 64-row
+# query tile or of the key tile), and the mask without its causal half
+FLASH_SWEEP = [
+    (2, 256, 4, 4, 64, True, None),
+    (2, 256, 8, 2, 64, True, None),
+    (1, 512, 8, 1, 128, True, None),
+    (1, 384, 4, 1, 256, True, None),
+    (2, 200, 4, 1, 64, True, 32),
+    (1, 2048, 8, 1, 128, True, 1024),
+    (1, 1100, 4, 2, 256, True, 1024),
+    (2, 130, 8, 2, 128, True, None),
+    (1, 300, 4, 4, 64, False, None),
+    (1, 333, 4, 2, 128, False, 100),
+]
+# forward and backward cases: (B, S, H, Hkv, hd, causal, window)
+FLASH_GRAD_CASES = [
+    (2, 256, 8, 2, 64, True, None),
+    (1, 300, 4, 1, 128, True, 64),
+    (1, 640, 8, 1, 128, True, None),
+]
+# the training main path's attention: yi-9b, batch 2 x 4096
+FLASH_MAIN = (2, 4096, 32, 4, 128, True, None)
+
+
+def _admitted_pairs(S, causal, window):
+    """(query, key) pairs the mask admits: the work the kernel must do."""
+    q = np.arange(S)
+    hi = q + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, q - window + 1) if window is not None else 0
+    return int(np.sum(hi - lo))
+
+
+def _flash_inputs(gen, B, S, H, Hkv, hd, dtype):
+    import torch
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def flash_kernel_phase(card):
+    """B6 against its plain version on the card: the forward (and its row
+    log-sum-exp) over FLASH_SWEEP in f32 and bf16, the autograd.Function's
+    dq/dk/dv against autograd through the plain version, then the kernel
+    timed at the training main path's shape beside its plain version,
+    SDPA(is_causal=True) as the library yardstick, its bound and the
+    backward's time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (_forward_kernel,
+                                                         attention_backward)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for B, S, H, Hkv, hd, causal, window in FLASH_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(gen, B, S, H, Hkv, hd, dt)
+            out, lse = _forward_kernel(q, k, v, hd ** -0.5, causal, window)
+            ref, ref_lse = flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            label = (f"B6 B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal={causal} "
+                     f"window={window} {dt}")
+            # lse: a log of an f32 sum taken in another order, |lse| ~ 10
+            check(math.isfinite(err) and err <= tol[dt] and lse_err <= 1e-4,
+                  f"{label}: max_abs_err {err} (tol {tol[dt]}), lse err "
+                  f"{lse_err} (tol 1e-4)")
+            worst[dt] = max(worst[dt], err)
+            print(f"kernel {label}: max_abs_err {err:.3e}, lse {lse_err:.3e}")
+    # gradients: the kernel's forward + the PyTorch backward against
+    # autograd through the plain version, tolerance scaled by the largest
+    # gradient (f32: 2e-5 x max(1, |g|); bf16: 2e-2 x max(1, |g|), each
+    # gradient rounded once to bf16 on both sides)
+    for B, S, H, Hkv, hd, causal, window in FLASH_GRAD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (t.requires_grad_() for t in
+                       _flash_inputs(gen, B, S, H, Hkv, hd, dt))
+            dout = torch.randn((B, S, H, hd), generator=gen,
+                               device="cuda").to(dt)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            got = torch.autograd.grad(out, (q, k, v), dout)
+            ref, _ = flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+            want = torch.autograd.grad(ref, (q, k, v), dout)
+            errs = []
+            for name, a, b in zip("qkv", got, want):
+                err = (a.float() - b.float()).abs().max().item()
+                bound = tol[dt] * max(1.0, b.float().abs().max().item())
+                check(math.isfinite(err) and err <= bound,
+                      f"B6 grad d{name} S={S} hd={hd} window={window} {dt}: "
+                      f"{err} > {bound}")
+                errs.append(f"d{name} {err:.3e} (tol {bound:.3e})")
+            print(f"kernel B6 backward B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
+                  f"window={window} {dt}: " + ", ".join(errs))
+
+    B, S, H, Hkv, hd, causal, window = FLASH_MAIN
+    q, k, v = _flash_inputs(gen, B, S, H, Hkv, hd, torch.bfloat16)
+    with torch.no_grad():
+        out, lse = _forward_kernel(q, k, v, hd ** -0.5, causal, window)
+        ref, _ = flash_attention_ref(q, k, v, causal=causal, window=window)
+        main_err = (out.float() - ref.float()).abs().max().item()
+        check(main_err <= tol[torch.bfloat16],
+              f"B6 at the main path's shape: max_abs_err {main_err}")
+        del ref
+        item = q.element_size()
+        pairs = _admitted_pairs(S, causal, window)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * item + lse.numel() * 4
+        flops = 4 * hd * pairs * B * H
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        ms = time_ms(lambda: flash_attention(q, k, v), iters=10)
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), iters=5,
+                           warmup=1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
+        lib_err = (library().transpose(1, 2).float()
+                   - out.float()).abs().max().item()
+        library_ms = time_ms(library, iters=10)
+        dout = torch.randn_like(q)
+        bwd_ms = time_ms(lambda: attention_backward(
+            q, k, v, out, lse, dout, scale=hd ** -0.5, causal=causal,
+            window=window), iters=3, warmup=1)
+    print(f"B6 flash_attention @ yi-9b training shape (B={B}, S={S}, H={H}, "
+          f"Hkv={Hkv}, hd={hd}, bf16, causal): kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+          f"SDPA(is_causal) {library_ms:.4f} ms (err vs kernel {lib_err:.2e}), "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
+          f"PyTorch backward {bwd_ms:.4f} ms | {card}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+            "launches": None, "max_abs_err": main_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ------------------------------------------------ phase 4d: training parity
+TRAIN_PARITY_TOL = 1e-4    # |loss cuda - loss cpu| per step, losses near 6.3
+
+
+def train_parity_phase(card):
+    """Reduced f32 yi-9b (remat off) and gemma3-12b (local + global, remat
+    on) trained 3 steps with Adam on cuda and on cpu from the same params
+    and the same SyntheticLM batches: the losses agree per step within
+    TRAIN_PARITY_TOL (f32 sums in another order on the card; Adam's first
+    steps move each weight by about lr·sign(g), so tiny gradient
+    differences can show). tf32 off."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, remat in (("yi-9b", False), ("gemma3-12b", True)):
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
+                                  remat=remat)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        batches = list(SyntheticLM(cfg.vocab_size, 64, seed=0).batches(2, 3))
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+            p = tree_map(lambda t: t.clone().to(dev), params)
+            state = {"params": p, "opt": opt.init(p)}
+            step = make_train_step(cfg, opt)
+            kernels.reset_launch_counts()
+            losses[dev] = []
+            for b in batches:
+                state, metrics = step(state, b)
+                losses[dev].append(float(metrics["loss"]))
+            n = kernels.launch_counts["flash_attention"]
+            check(n > 0 if dev == "cuda" else n == 0,
+                  f"{arch} train parity on {dev}: flash launches {n}")
+        diff = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+        check(all(map(math.isfinite, losses["cuda"]))
+              and diff <= TRAIN_PARITY_TOL,
+              f"{arch} train parity: cuda losses {losses['cuda']} vs cpu "
+              f"{losses['cpu']} (max diff {diff} > {TRAIN_PARITY_TOL})")
+        print(f"train parity {cfg.name} (f32, remat {remat}, Adam, 3 steps): "
+              f"cuda losses {losses['cuda']} vs cpu {losses['cpu']}, max diff "
+              f"{diff:.3e} (tol {TRAIN_PARITY_TOL}), B6 launches {n} | {card}")
+
+
+# --------------------------------------------- phase 5c: training main path
+TRAIN_LAYERS = 8     # of yi-9b's 48: Adam's state for all 48 needs ~141 GB
+
+
+def train_main_phase(card, row):
+    """yi-9b at full width (d_model 4096, 32 heads over 4 kv heads, hd 128,
+    d_ff 11008, vocab 64000, bf16), cut to TRAIN_LAYERS layers, trained
+    through the port's own entry points (trainer.init_state,
+    make_train_step -> loss_fn -> forward -> attention_train -> B6): Adam
+    with lr 3e-4 and grad clip 1.0 (the launcher's defaults), remat on,
+    batch 2 x 4096 from SyntheticLM, 1 warm-up step and 3 timed steps.
+    Every loss is finite and each step launches B6 exactly 2 x layers times
+    (the forward and the remat recompute)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import trainer
+    batch, seq = 2, 4096
+    _release_card()         # engines of the serving phases wait in cycles
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
+    opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+    t0 = time.perf_counter()
+    state = trainer.init_state(cfg, opt, seed=0)
+    torch.cuda.synchronize()
+    print(f"train: yi-9b at full width, {cfg.num_layers} of 48 layers "
+          f"({cfg.param_count() / 1e9:.2f} B params, bf16, remat "
+          f"{cfg.remat}), Adam state made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    batches = list(SyntheticLM(cfg.vocab_size, seq, seed=0).batches(batch, 4))
+    step = trainer.make_train_step(cfg, opt)
+    per_step = 2 * cfg.num_layers
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for i, b in enumerate(batches):
+        before = kernels.launch_counts["flash_attention"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = kernels.launch_counts["flash_attention"] - before
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(math.isfinite(loss), f"train step {i}: loss {loss}")
+        check(n == per_step, f"train step {i}: B6 launches {n} != {per_step}")
+        label = "warm-up" if i == 0 else f"step {i}"
+        print(f"train {label}: loss {loss:.4f}, {dt * 1e3:.1f} ms, "
+              f"{batch * seq / dt:.0f} tokens/s, peak {peak:.2f} GiB, B6 "
+              f"launches {n} | {card}")
+        if i:
+            times.append(dt)
+            losses.append(loss)
+    launches = kernels.launch_counts["flash_attention"]
+    check(launches == per_step * len(batches),
+          f"train: B6 launches {launches} != {per_step * len(batches)}")
+    row["launches"] = launches
+    print(f"train: 3 timed steps, median {np.median(times) * 1e3:.1f} ms = "
+          f"{batch * seq / np.median(times):.0f} tokens/s; losses {losses}; "
+          f"B6 launches {launches} = {per_step} x {len(batches)} steps | "
+          f"{card}")
+    train_profile(card, step, state, batches[-1])
+    del state
+    _release_card()
+
+
+TRAIN_KINDS = ("B6 flash_attention forward", "matmul (cuBLAS)",
+               "other kernels and copies")
+
+
+def train_profile(card, step, state, batch):
+    """Device kernel time by kind over one more training step, from
+    torch.profiler; busy share = kernel time / the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in kern) / 1e3
+    if busy_ms == 0:
+        print(f"train profile: no device time recorded — not measured | "
+              f"{card}")
+        return
+    by_kind = dict.fromkeys(TRAIN_KINDS, 0.0)
+    for e in kern:
+        name = e.key.lower()
+        kind = (TRAIN_KINDS[0] if "flash_fwd" in name else
+                TRAIN_KINDS[1] if any(p in name for p in (
+                    "gemm", "nvjet", "cutlass", "xmma", "sm90")) else
+                TRAIN_KINDS[2])
+        by_kind[kind] += device_us(e) / 1e3
+    parts = "; ".join(f"{k} {v:.2f} ms ({v / busy_ms:.1%})"
+                      for k, v in by_kind.items())
+    print(f"train profile: one step, wall {wall_ms:.2f} ms (profiler on), "
+          f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} of wall, "
+          f"{sum(e.count for e in kern)} device ops; by kind: {parts} | "
+          f"{card}")
+    top = sorted(kern, key=device_us, reverse=True)[:8]
+    print("train profile: top kernels: " + "; ".join(
+        f"{e.key[:60]} {device_us(e) / 1e3:.2f} ms x{e.count}" for e in top))
+
+
 DEVICE_KINDS = ("B1 paged_attention (full decode)", "B2/B5 ring split",
                 "B4 verify split", "B2/B4/B5 merge", "matmul (cuBLAS)",
                 "other kernels and copies")
@@ -1481,25 +1811,37 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8,
 
 
 def build_phase():
-    """nvcc the paged-attention source (every kernel of the main path) into
-    build/; the compiler's per-kernel report goes to build/ptxas-report.txt
-    and one summary line (kernels, most registers, spills) is printed."""
-    import contextlib
+    """nvcc every kernel source of the main paths (paged attention, flash
+    attention) into build/, one compiler per source, all started together;
+    each compiler's per-kernel report goes to build/ptxas-<source>.txt and
+    one summary line per source (kernels, most registers, spills) is
+    printed."""
     import io
     import re
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention.kernel import SOURCE
+    from repro_torch.kernels.flash_attention.kernel import SOURCE as FLASH
+    from repro_torch.kernels.paged_attention.kernel import SOURCE as PAGED
+
+    def one(src):
+        t0 = time.perf_counter()
+        report = io.StringIO()
+        lib = build.build(src, extra_flags=("-Xptxas", "-v"), report=report)
+        return src, lib, report.getvalue(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    report = io.StringIO()
-    with contextlib.redirect_stdout(report):
-        lib = build.build(SOURCE, extra_flags=("-Xptxas", "-v"), echo=True)
-    text = report.getvalue()
-    (build.BUILD_DIR / "ptxas-report.txt").write_text(text)
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s; "
-          f"{len(regs)} kernels, most registers {max(regs, default=0)}, "
-          f"spill stores {sum(spills)} B (report: build/ptxas-report.txt)")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        results = list(pool.map(one, (PAGED, FLASH)))
+    for src, lib, text, secs in results:
+        report = build.BUILD_DIR / f"ptxas-{src.stem}.txt"
+        report.write_text(text)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        print(f"build: {lib.name} in {secs:.1f} s; {len(regs)} kernels, most "
+              f"registers {max(regs, default=0)}, spill stores {sum(spills)} "
+              f"B (report: build/{report.name})")
+    print(f"build: all sources in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1522,13 +1864,17 @@ def main() -> int:
         build_phase()
         rows = ([kernel_phase(card)] + multi_kernel_phase(card)
                 + int8_kernel_phase(card))
+        flash_row = flash_kernel_phase(card)
+        rows.append(flash_row)
         parity_phase(card)
         ring_spec_parity_phase(card)
         int8_parity_phase(card)
+        train_parity_phase(card)
         yi = main_path_phase(card, rows[0])
         yi9b_int8_phase(card, rows, *yi)
         del yi
         gemma3_main_phase(card, rows)
+        train_main_phase(card, flash_row)
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()

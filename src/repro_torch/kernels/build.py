@@ -47,12 +47,13 @@ def library_path(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build(src: Path, extra_flags=(), echo: bool = False) -> Path:
+def build(src: Path, extra_flags=(), report=None) -> Path:
     """Compile `src` unless its library is already built; returns its path.
     The compiler writes to a temporary name that is renamed into place, so
     builds started together for different sources never see a partial
-    library. `echo` prints the compiler's report (with ``-Xptxas -v`` in
-    `extra_flags`: registers, shared memory and spills per kernel)."""
+    library. `report`, a text stream, receives the compiler's output (with
+    ``-Xptxas -v`` in `extra_flags`: registers, shared memory and spills
+    per kernel)."""
     out = library_path(src)
     if out.exists():
         return out
@@ -66,8 +67,8 @@ def build(src: Path, extra_flags=(), echo: bool = False) -> Path:
             raise KernelBuildError(
                 f"nvcc failed on {src.name} ({r.returncode}):\n{r.stdout}\n"
                 f"{r.stderr}")
-        if echo:
-            print(r.stdout + r.stderr, end="")
+        if report is not None:
+            report.write(r.stdout + r.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -1,9 +1,16 @@
-"""GQA attention against the paged KV pool: decode, packed prefill and
-speculative verify, in full and ring (sliding-window) layouts.
+"""GQA attention: training over a full sequence, and against the paged KV
+pool decode, packed prefill and speculative verify, in full and ring
+(sliding-window) layouts.
 
-Counterpart of the paged verbs in ``repro.models.attention``. The reference
-returns new pools; here the pools are updated IN PLACE (the returned dict is
-the one passed in), which saves a pool copy per layer. Rows the reference
+Counterpart of ``attention_train`` and the paged verbs in
+``repro.models.attention``. Training attention takes the device's path:
+on CUDA the hand-written flash-attention kernel (``kernels/flash_attention``,
+the reference's "TPU-native third" strategy); on the CPU the reference's
+two XLA strategies, ``naive`` (materialized scores) and ``chunked`` (query
+chunks, each checkpointed), which are its oracle for that kernel.
+
+For the paged verbs the reference returns new pools; here the pools are
+updated IN PLACE (the returned dict is the one passed in), which saves a pool copy per layer. Rows the reference
 drops with ``mode="drop"`` go to the pool's scratch block at index N (see
 ``state_providers``). An int8 pool (a dict with "k_scale"/"v_scale")
 quantizes every write and scatters the scales at the same (block, offset);
@@ -13,7 +20,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_verify)
 from repro_torch.kernels.paged_attention.ref import (NEG_INF, _gather_pool,
@@ -73,6 +82,84 @@ def _project_qkv(params, x, positions, cfg):
         raise NotImplementedError(
             f"rope_mode {cfg.rope_mode!r} comes in a later slice of the port")
     return q, k, v
+
+
+def _mask(q_pos, k_pos, window):
+    """causal (+ optional sliding window) mask: True = attend."""
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+def _attend_full(q, k, v, n_rep, scale, chunk, window):
+    """Full-sequence causal(+window) attention, dispatching naive/chunked
+    (chunked needs S % chunk == 0; odd lengths take the naive path)."""
+    S = q.shape[1]
+    if S <= chunk or S % chunk != 0:
+        kk = _repeat_kv(k, n_rep)
+        vv = _repeat_kv(v, n_rep)
+        qpos = torch.arange(S, device=q.device)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
+        mask = _mask(qpos, qpos, window)
+        scores = torch.where(mask[None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+    return _chunked_attention(q, k, v, n_rep, scale, chunk, window)
+
+
+def attention_train(params, x, positions, cfg, *, window=None,
+                    impl="chunked"):
+    """Self-attention over a full sequence. x: (B,S,D); positions (B,S).
+    A CUDA tensor runs the flash-attention kernel (`impl` is not read); a
+    CPU tensor takes the reference's `impl`: "naive" or "chunked" (query
+    chunks of ``cfg.attn_chunk``)."""
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(params, x, positions, cfg)
+    B, S = x.shape[0], x.shape[1]
+    if x.is_cuda:
+        out = flash_attention(q, k, v, causal=True, window=window)
+    else:
+        chunk = S if impl == "naive" else cfg.attn_chunk
+        out = _attend_full(q, k, v, h // hkv, 1.0 / np.sqrt(hd), chunk,
+                           window)
+    return out.reshape(B, S, h * hd) @ params["wo"]
+
+
+def _chunked_attention(q, k, v, n_rep, scale, chunk, window):
+    """Online-softmax attention over query chunks (flash-style), each chunk
+    checkpointed: its scores and probabilities are recomputed in the
+    backward pass, so peak live memory stays O(one chunk).
+
+    For sliding-window layers each query chunk only reads the KV slice
+    [chunk_start - window, chunk_end) — sub-quadratic work.
+    """
+    B, S, H, hd = q.shape
+    kk = _repeat_kv(k, n_rep)          # (B, S, H, hd)
+    vv = _repeat_kv(v, n_rep)
+    kpos_all = torch.arange(S, device=q.device)
+    span = None
+    if window is not None:
+        span = int(min(S, chunk * int(np.ceil(window / chunk)) + chunk))
+
+    def one_chunk(q_start, q_chunk):
+        qpos = q_start + torch.arange(chunk, device=q.device)
+        if span is None:
+            keys, vals, kpos = kk, vv, kpos_all
+        else:
+            k_start = max(q_start + chunk - span, 0)
+            keys = kk[:, k_start:k_start + span]
+            vals = vv[:, k_start:k_start + span]
+            kpos = kpos_all[k_start:k_start + span]
+        s = torch.einsum("bqhd,bkhd->bhqk", q_chunk, keys).float() * scale
+        m = _mask(qpos, kpos, window)
+        s = torch.where(m[None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vals)
+
+    outs = [checkpoint(one_chunk, q0, q[:, q0:q0 + chunk], use_reentrant=False)
+            for q0 in range(0, S, chunk)]
+    return torch.cat(outs, dim=1)
 
 
 def _scratch_block(kv) -> int:

@@ -1,5 +1,6 @@
-"""Decoder assembled from a ModelConfig: parameters and the paged entry
-points the serving engine drives (counterpart of ``repro.models.transformer``).
+"""Decoder assembled from a ModelConfig: parameters, the training forward
+and loss, and the paged entry points the serving engine drives (counterpart
+of ``repro.models.transformer``).
 
 Parameters are a plain dict with the reference's layout: per-layer weights
 are stacked on a leading superblock axis (n_sb, ...), so the JAX
@@ -9,6 +10,8 @@ are stacked on a leading superblock axis (n_sb, ...), so the JAX
 
 Entry points:
   init_params(cfg, seed=..., device=...)
+  forward(cfg, params, inputs)                  -> hidden (B,S,D), aux
+  loss_fn(cfg, params, batch)                   -> scalar loss (chunked CE)
   init_paged_state(cfg, num_blocks, block_size, device=...)
   paged_decode_step(cfg, params, pool, inputs, block_tables, positions, attn_lens)
   paged_verify_step(cfg, params, pool, tokens, block_tables, base, qlims)
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -131,6 +135,105 @@ def _embed_tokens(cfg, params, tokens):
     if cfg.family != "ssm":
         x = x * float(np.sqrt(cfg.d_model))
     return x
+
+
+# -------------------------------------------------------------------- forward
+def _apply_layer_train(kind, lp, x, positions, cfg):
+    """One layer over a full sequence: x + attention, then x + MLP.
+    Returns (x, aux loss)."""
+    if kind == "moe_attn":
+        raise NotImplementedError(
+            "layer kind 'moe_attn' (MoE) comes with the MoE slice of the port "
+            "(ROADMAP A13)")
+    if kind not in _ATTN_KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} (recurrent / hybrid) comes with the "
+            f"recurrent slice of the port (ROADMAP A9)")
+    window = None
+    if kind == "local" or (cfg.attention_type == "sliding" and kind == "attn"):
+        window = cfg.window_size
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + A.attention_train(lp["attn"], h, positions, cfg, window=window)
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.swiglu(lp["mlp"], h), 0.0
+
+
+def _checkpointed(fn):
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
+def forward(cfg: ModelConfig, params, inputs):
+    """inputs: {"tokens": (B,S)} or {"embeds": (B,S,D)}, optional
+    "positions" (B,S). Returns (hidden (B,S,D), aux_loss f32 scalar).
+
+    With ``cfg.remat`` each superblock is checkpointed (only its input is
+    kept; its layers run again in the backward pass), and when a superblock
+    has more than one layer each layer is checkpointed again inside it, so
+    the superblock's backward holds one layer's intermediates at a time.
+    Gradients reach the stacked (n_sb, ...) weights through the superblock
+    views (``_at``)."""
+    if "embeds" in inputs:
+        x = inputs["embeds"].to(L.dtype_of(cfg))
+    else:
+        x = _embed_tokens(cfg, params, inputs["tokens"])
+    B, Sq = x.shape[0], x.shape[1]
+    positions = inputs.get("positions")
+    if positions is None:
+        positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
+    kinds = _layer_kinds(cfg)
+    layer_fn = _apply_layer_train
+    if cfg.remat and len(kinds) > 1:
+        layer_fn = _checkpointed(_apply_layer_train)
+
+    def sb_fn(x, sb_params):
+        aux = 0.0
+        for i, kind in enumerate(kinds):
+            x, a = layer_fn(kind, sb_params[f"l{i}"], x, positions, cfg)
+            aux = aux + a
+        return x, aux
+
+    if cfg.remat:
+        sb_fn = _checkpointed(sb_fn)
+    n_sb, _ = superblock_layout(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for sb in range(n_sb):
+        x, a = sb_fn(x, _at(params["blocks"], sb))
+        aux = aux + a
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, aux
+
+
+def _ce_chunk(h, labels, head):
+    """Summed cross-entropy of one chunk: h (B, c, D) against head (D, V)."""
+    lg = (h @ head).float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Chunked cross-entropy over sequence chunks of ``cfg.loss_chunk``,
+    each chunk checkpointed so its (B, chunk, V) f32 logits are recomputed
+    in the backward pass instead of stored; plus 0.01 · aux. The gold logit
+    is a gather (the reference contracts a one-hot only to keep its
+    vocab-sharded logits sharded). batch: {"tokens", "labels"} (B, S)."""
+    hidden, aux = forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    B, Sq, _ = hidden.shape
+    chunk = min(cfg.loss_chunk, Sq)
+    if Sq % chunk:
+        raise ValueError(f"sequence length {Sq} is not a multiple of "
+                         f"loss_chunk {chunk}")
+    head = (params["embed"]["table"].T if cfg.tie_embeddings
+            else params["lm_head"]["w"])                          # (D, V)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, Sq, chunk):
+        total = total + checkpoint(_ce_chunk, hidden[:, c0:c0 + chunk],
+                                   labels[:, c0:c0 + chunk], head,
+                                   use_reentrant=False)
+    return total / (B * Sq) + 0.01 * aux
 
 
 # -------------------------------------------------------------- paged decode

@@ -3,8 +3,9 @@
 * Nothing under ``src/repro_torch/`` or in ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (AST scan), and importing the engine leaves both out
   of ``sys.modules``.
-* Entry points default to the card: ``Engine(cfg, params)`` with no device
-  raises where there is no CUDA instead of running on the CPU.
+* Entry points default to the card: ``Engine(cfg, params)``,
+  ``trainer.init_state`` and the training launcher with no device raise
+  where there is no CUDA instead of running on the CPU.
 * ``params_from_jax`` round-trips the reference's float32 and bfloat16
   parameter trees with the port's shapes and dtypes.
 * The port's own copies of the reference's repo-lint fences: KV pools are
@@ -90,6 +91,47 @@ def test_importing_the_engine_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, env=env)
     assert r.returncode == 0 and "PASS" in r.stdout, r.stderr
+
+
+TRAINING_SUBPACKAGES = ("optim", "data", "train", "launch",
+                        "kernels/flash_attention")
+
+
+@pytest.mark.parametrize("sub", TRAINING_SUBPACKAGES)
+def test_import_fence_covers_the_training_subpackages(sub):
+    files = [p for p in PORT_FILES if (PORT / sub) in p.parents]
+    assert files, f"no module of src/repro_torch/{sub} is scanned"
+    offenders = [f"{p.relative_to(REPO)}:{line}: {mod}"
+                 for p in files for line, mod in _imports(p) if _banned(mod)]
+    assert not offenders, "\n".join(offenders)
+
+
+def test_importing_the_training_path_loads_no_jax():
+    code = ("import sys, repro_torch.launch.train, repro_torch.train.trainer, "
+            "repro_torch.train.checkpoint, repro_torch.optim, "
+            "repro_torch.data.pipeline, repro_torch.kernels.flash_attention\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\nprint('PASS')\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env)
+    assert r.returncode == 0 and "PASS" in r.stdout, r.stderr
+
+
+def test_training_entry_points_default_to_cuda_and_refuse_cpu_fallback():
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import trainer
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+    cfg = ModelConfig(**CFG_KW, dtype="float32")
+    assert trainer.init_state.__kwdefaults__["device"] == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.init_state(cfg, make_optimizer("sgd"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.main(["--arch", "yi-9b", "--preset", "reduced",
+                       "--steps", "1"])
 
 
 def test_engine_defaults_to_cuda_and_refuses_cpu_fallback():
