@@ -7,9 +7,9 @@ NVIDIA GPU. Run from the repository root:
 Phases, in order; any failure exits non-zero before the final ok line:
 
   1. device — require CUDA; print the card's name and power limit.
-  2. build  — compile the paged-attention and flash-attention sources
-     (every kernel of the main paths) with nvcc into build/, one compiler
-     per source, started together.
+  2. build  — compile the paged-attention, flash-attention and quantize
+     sources (every kernel of the main paths) with nvcc into build/, one
+     compiler per source, started together.
   3. kernel — every kernel against its plain PyTorch version on the card
      (f32 atol 2e-5, bf16 atol 2e-2): B1 over the reference's test sweep
      and the yi-9b decode shape; B2 (ring decode), B4 (verify) and B5 (ring
@@ -26,7 +26,13 @@ Phases, in order; any failure exits non-zero before the final ok line:
      row log-sum-exp; the autograd.Function's gradients against autograd
      through the plain version; timed at the training shape (yi-9b,
      batch 2 x 4096) beside its plain version, SDPA(is_causal) and its
-     operation bound.
+     operation bound. Then B9 and B8 (the block quantizers, stochastic and
+     nearest): bits 8 and 4, n = 256, 1000, 4096, 65537 and a case with an
+     all-zero row and a ragged tail, q and scales EQUAL to the plain
+     version; the int8 KV quantizer equal on cuda and cpu; each mode timed
+     at the largest yi-9b training leaf and over a training step's 12
+     leaves beside its plain version and byte bound (no library call
+     computes the function).
   4. parity — tiny f32 models served on cuda and on cpu from the same
      weights: a full-attention one (staggered requests, a mid-flight
      defragment, a prefix-cache copy-on-write replay), reduced gemma3 and a
@@ -35,7 +41,11 @@ Phases, in order; any failure exits non-zero before the final ok line:
      speculation, and two of them under OversubConfig() with every request
      force-preempted once. Then training: reduced f32 yi-9b and gemma3
      trained 3 Adam steps on cuda and on cpu from the same weights and
-     batches; the losses must agree per step.
+     batches; the losses must agree per step. Then the paper-mode trainer
+     on a one-rank group (gloo for cpu, then nccl for cuda): reduced f32
+     yi-9b, 3 Adam steps with the ring allreduce and no compression,
+     onebit and topk, cuda vs cpu; and int8 on cuda with B9 vs the same run
+     with the plain quantizer (B9 launching only in the first).
   5. main paths — yi-9b at full width (48 layers, bf16, seeded random
      weights) through the port's Engine: mixed requests plus two
      ~1000-token prompts, with bf16 and with int8 pools, then both pool
@@ -50,7 +60,12 @@ Phases, in order; any failure exits non-zero before the final ok line:
      at full width cut to 8 of its 48 layers, batch 2 x 4096, Adam with
      remat, 1 warm-up and 3 timed steps through the port's trainer; the
      losses stay finite and B6 runs twice per layer per step (forward and
-     recompute).
+     recompute). Then the same model, batch and optimizer through the
+     paper-mode trainer (launch/mesh.py's one-rank nccl group, ring
+     allreduce, int8 compression with error feedback): finite losses, B6
+     twice per layer and B9 once per gradient leaf (12) per step, B8
+     never, a finite nonzero residual; step time and peak memory beside
+     the plain step's, the compression timed alone, one profiled step.
 
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -1671,13 +1686,14 @@ def train_main_phase(card, row):
     train_profile(card, step, state, batches[-1])
     del state
     _release_card()
+    return float(np.median(times)) * 1e3
 
 
-TRAIN_KINDS = ("B6 flash_attention forward", "matmul (cuBLAS)",
-               "other kernels and copies")
+TRAIN_KINDS = ("B6 flash_attention forward", "B9 quantize_rows (int8)",
+               "matmul (cuBLAS)", "other kernels and copies")
 
 
-def train_profile(card, step, state, batch):
+def train_profile(card, step, state, batch, label="train"):
     """Device kernel time by kind over one more training step, from
     torch.profiler; busy share = kernel time / the step's wall time."""
     import torch
@@ -1699,26 +1715,348 @@ def train_profile(card, step, state, batch):
             and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in kern) / 1e3
     if busy_ms == 0:
-        print(f"train profile: no device time recorded — not measured | "
+        print(f"{label} profile: no device time recorded — not measured | "
               f"{card}")
         return
     by_kind = dict.fromkeys(TRAIN_KINDS, 0.0)
     for e in kern:
         name = e.key.lower()
         kind = (TRAIN_KINDS[0] if "flash_fwd" in name else
-                TRAIN_KINDS[1] if any(p in name for p in (
+                TRAIN_KINDS[1] if "quantize_rows" in name else
+                TRAIN_KINDS[2] if any(p in name for p in (
                     "gemm", "nvjet", "cutlass", "xmma", "sm90")) else
-                TRAIN_KINDS[2])
+                TRAIN_KINDS[3])
         by_kind[kind] += device_us(e) / 1e3
     parts = "; ".join(f"{k} {v:.2f} ms ({v / busy_ms:.1%})"
                       for k, v in by_kind.items())
-    print(f"train profile: one step, wall {wall_ms:.2f} ms (profiler on), "
+    print(f"{label} profile: one step, wall {wall_ms:.2f} ms (profiler on), "
           f"device busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} of wall, "
           f"{sum(e.count for e in kern)} device ops; by kind: {parts} | "
           f"{card}")
     top = sorted(kern, key=device_us, reverse=True)[:8]
-    print("train profile: top kernels: " + "; ".join(
+    print(f"{label} profile: top kernels: " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3:.2f} ms x{e.count}" for e in top))
+
+
+# ------------------------------------------------ phase 3e: kernels B8/B9
+QUANT_NS = (256, 1000, 4096, 65_537)
+QUANT_SOURCE = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
+
+
+def _quant_bytes(n, stochastic):
+    """Bytes B8/B9 must move for n values: x (f32) read once, the noise
+    (f32, B9 only, every row in full) read once, q (int8) and one f32 scale
+    per 256-value row written once."""
+    rows = -(-n // 256)
+    return n * 4 + rows * 256 * (5 if stochastic else 1) + rows * 4
+
+
+def _train_leaf_sizes():
+    """Values in each parameter leaf of the training main path (yi-9b at
+    full width, TRAIN_LAYERS layers): one gradient leaf each per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
+    return [math.prod(shape) for shape, _, _ in tree_leaves(param_specs(cfg))]
+
+
+def quantize_kernel_phase(card):
+    """B9 (stochastic rounding) and B8 (round half to even) against their
+    plain version on the card: both modes, bits 8 and 4, n in QUANT_NS plus
+    a case with an all-zero row and a ragged tail; q and scales must be
+    EQUAL (both compute the same IEEE f32 operations). Then the int8 KV
+    quantizer on cuda against cpu, bit for bit (a Python-number divisor
+    would be a reciprocal multiply on cuda). Then each mode timed at the
+    largest training leaf (yi-9b's MLP weight over 8 layers) and over the
+    whole step's 12 leaves, beside the plain version and the byte bound;
+    no single PyTorch call computes the function (library: none)."""
+    import torch
+    from repro_torch.kernels.quantize import ops, quantize_kv
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    worst = {"stochastic": 0.0, "nearest": 0.0}
+    n_cases = 0
+    for mode in ("stochastic", "nearest"):
+        for bits in (8, 4):
+            cases = [(f"n={n}", torch.randn(n, generator=gen, device="cuda")
+                      * 0.02) for n in QUANT_NS]
+            ragged = torch.randn(256 * 3 + 5, generator=gen,
+                                 device="cuda") * 0.1
+            ragged[256:512] = 0.0
+            cases.append(("zero row + ragged tail n=773", ragged))
+            for label, flat in cases:
+                rows = -(-flat.numel() // 256)
+                noise = (torch.rand((rows, 256), generator=gen, device="cuda")
+                         if mode == "stochastic" else None)
+                q, s = ops._kernel(flat, noise, bits, 256, mode)
+                qp, sp = ops._plain(flat, noise, bits, 256, mode)
+                torch.cuda.synchronize()
+                err = max((q.int() - qp.int()).abs().max().item(),
+                          (s - sp).abs().max().item())
+                check(torch.equal(q, qp) and torch.equal(s, sp),
+                      f"B8/B9 {mode} bits={bits} {label}: q differs in "
+                      f"{int((q != qp).sum())}, scales in "
+                      f"{int((s != sp).sum())} of {rows} rows")
+                if label.startswith("zero"):
+                    check(s[1].item() == 1.0 and not q[1].any()
+                          and not q[3, 5:].any(),
+                          f"B8/B9 {mode} bits={bits}: zero row / tail")
+                worst[mode] = max(worst[mode], err)
+                n_cases += 1
+    print(f"kernel B9/B8: {n_cases} cases (stochastic and nearest, bits 8 "
+          f"and 4, n {QUANT_NS} + a zero row with a ragged tail): q and "
+          f"scales equal to the plain version in every case | {card}")
+    x = torch.randn((4096, 8, 128), generator=gen, device="cuda")
+    qg, sg = quantize_kv(x)
+    qc, sc = quantize_kv(x.cpu())
+    amax = x.abs().amax(-1)
+    recip = int((amax / 127.0 != amax / torch.full((), 127.0,
+                                                   device="cuda")).sum())
+    check(torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc),
+          "quantize_kv: cuda and cpu differ")
+    print(f"quantize_kv (int8 KV write) cuda == cpu bit for bit on "
+          f"{amax.numel()} vectors (a Python-number divisor on cuda would "
+          f"differ in {recip} scales)")
+    del x, qg, sg, amax
+
+    sizes = _train_leaf_sizes()
+    n = max(sizes)
+    rows_out = []
+    for mode, name, line in (("stochastic", "quantize_stochastic", 25),
+                             ("nearest", "quantize_nearest", 38)):
+        stoch = mode == "stochastic"
+        xs = [torch.randn(k, generator=gen, device="cuda") * 0.01
+              for k in sizes]
+        us = [torch.rand((-(-k // 256), 256), generator=gen, device="cuda")
+              if stoch else None for k in sizes]
+        big = sizes.index(n)
+        x, u = xs[big], us[big]
+        q, s = ops._kernel(x, u, 8, 256, mode)
+        qp, sp = ops._plain(x, u, 8, 256, mode)
+        check(torch.equal(q, qp) and torch.equal(s, sp),
+              f"B8/B9 {mode} at the largest leaf: differs from plain")
+        del q, s, qp, sp
+        ms = time_ms(lambda: ops._kernel(x, u, 8, 256, mode), iters=20)
+        plain_ms = time_ms(lambda: ops._plain(x, u, 8, 256, mode), iters=5,
+                           warmup=1)
+        step_ms = time_ms(lambda: [ops._kernel(a, b, 8, 256, mode)
+                                   for a, b in zip(xs, us)], iters=5)
+        step_plain_ms = time_ms(lambda: [ops._plain(a, b, 8, 256, mode)
+                                         for a, b in zip(xs, us)], iters=2,
+                                warmup=1)
+        nbytes = _quant_bytes(n, stoch)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        step_bytes = sum(_quant_bytes(k, stoch) for k in sizes)
+        step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+        tag = "B9" if stoch else "B8"
+        print(f"{tag} {name} @ the largest yi-9b training leaf ({n} values, "
+              f"{-(-n // 256)} rows, bits 8): kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e9:.2f} TB/s), plain {plain_ms:.4f} ms, "
+              f"library none, bound {bound_ms:.4f} ms by bytes ({nbytes} B); "
+              f"over the step's {len(sizes)} leaves ({sum(sizes)} values): "
+              f"kernel {step_ms:.4f} ms, plain {step_plain_ms:.4f} ms, bound "
+              f"{step_bound:.4f} ms ({step_bytes} B) | {card}")
+        rows_out.append({
+            "name": name, "route": "cuda", "source": QUANT_SOURCE,
+            "replaces": f"src/repro/kernels/quantize/kernel.py:{line}",
+            "launches": None, "max_abs_err": worst[mode], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None})
+        del xs, us, x, u
+        _release_card()
+    return rows_out
+
+
+# ----------------------------------------- phase 4e: paper-mode parity
+PAPER_COMPRESS = ("none", "onebit", "topk")
+
+
+def _paper_losses(cfg, params, batches, dev, compress, group):
+    """Losses of 3 paper-mode Adam steps (ring allreduce, one rank) from
+    `params` on `dev`, with the named compressor ("none": no compression)."""
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_map
+    opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+    p = tree_map(lambda t: t.clone().to(dev), params)
+    state = {"params": p, "opt": opt.init(p)}
+    comp = None if compress == "none" else make_compressor(compress)
+    step = trainer.make_paper_train_step(cfg, opt, group, algorithm="ring",
+                                         compression=comp)
+    res = trainer.zero_residual(p) if comp else None
+    losses = []
+    for b in batches:
+        state, metrics, res = step(state, b, res)
+        losses.append(float(metrics["loss"]))
+    return losses
+
+
+def paper_parity_phase(card):
+    """Reduced f32 yi-9b through the paper-mode step on a one-rank group
+    (launch/mesh.py), 3 Adam steps: with no compression, onebit and topk
+    (deterministic) the cuda losses (nccl group) agree with the cpu losses
+    (gloo group) within TRAIN_PARITY_TOL; with int8 the cuda run with B9
+    agrees within it with the same cuda run whose quantize_blocks takes the
+    plain version (this phase only), B9 launching in the first run and not
+    in the second. A process holds one default group at a time: the gloo
+    group is destroyed before the nccl group is made."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.quantize import ops
+    from repro_torch.launch.mesh import make_dp_group
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")), dtype="float32",
+                              remat=False)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    batches = list(SyntheticLM(cfg.vocab_size, 64, seed=0).batches(2, 3))
+    losses = {}
+    group = make_dp_group("cpu")
+    try:
+        for c in PAPER_COMPRESS:
+            losses["cpu", c] = _paper_losses(cfg, params, batches, "cpu", c,
+                                             group)
+    finally:
+        dist.destroy_process_group()
+    group = make_dp_group("cuda")
+    try:
+        for c in PAPER_COMPRESS:
+            got = losses["cuda", c] = _paper_losses(cfg, params, batches,
+                                                    "cuda", c, group)
+            want = losses["cpu", c]
+            diff = max(abs(a - b) for a, b in zip(got, want))
+            check(all(map(math.isfinite, got)) and diff <= TRAIN_PARITY_TOL,
+                  f"paper parity {c}: cuda {got} vs cpu {want}")
+            print(f"paper parity {cfg.name} (f32, ring, {c}, Adam, 3 steps): "
+                  f"cuda losses {got} vs cpu {want}, max diff {diff:.3e} "
+                  f"(tol {TRAIN_PARITY_TOL}) | {card}")
+        kernels.reset_launch_counts()
+        with_kernel = _paper_losses(cfg, params, batches, "cuda", "int8",
+                                    group)
+        n_kernel = kernels.launch_counts["quantize_stochastic"]
+        saved, ops._kernel = ops._kernel, ops._plain
+        try:
+            plain = _paper_losses(cfg, params, batches, "cuda", "int8", group)
+        finally:
+            ops._kernel = saved
+        n_plain = kernels.launch_counts["quantize_stochastic"] - n_kernel
+        diff = max(abs(a - b) for a, b in zip(with_kernel, plain))
+        check(n_kernel > 0 and n_plain == 0
+              and all(map(math.isfinite, with_kernel))
+              and diff <= TRAIN_PARITY_TOL,
+              f"paper parity int8: B9 {with_kernel} ({n_kernel} launches) vs "
+              f"plain {plain} ({n_plain} launches)")
+        print(f"paper parity {cfg.name} (f32, ring, int8, cuda): B9 losses "
+              f"{with_kernel} ({n_kernel} launches) vs plain quantize "
+              f"{plain} ({n_plain} launches), max diff {diff:.3e} (tol "
+              f"{TRAIN_PARITY_TOL}) | {card}")
+    finally:
+        dist.destroy_process_group()
+
+
+# ------------------------------------------ phase 5d: paper-mode main path
+def paper_main_phase(card, rows, plain_ms):
+    """yi-9b at full width cut to TRAIN_LAYERS layers, batch 2 x 4096,
+    through the paper-mode trainer: launch/mesh.py's one-rank nccl group,
+    make_paper_train_step(algorithm="ring", compression=int8) (QSGD with
+    error feedback: B9 on each of the 12 gradient leaves, then the ring
+    allreduce, which returns the gradient at one rank), Adam lr 3e-4, clip
+    1.0, remat; 1 warm-up and 3 timed steps. Every loss is finite, each
+    step launches B6 2 x layers times and B9 once per leaf, B8 never; the
+    residual is finite and nonzero. Then the error-feedback compression
+    timed alone over the step's leaves, and one profiled step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_dp_group
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    batch, seq = 2, 4096
+    _release_card()
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
+    opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+    group = make_dp_group("cuda")
+    try:
+        probe = torch.ones(1, device="cuda")
+        dist.all_reduce(probe, group=group)
+        check(probe.item() == 1.0, f"nccl one-rank all_reduce: {probe}")
+        state = trainer.init_state(cfg, opt, seed=0)
+        comp = make_compressor("int8")
+        residual = trainer.zero_residual(state["params"])
+        n_leaves = len(tree_leaves(state["params"]))
+        step = trainer.make_paper_train_step(cfg, opt, group,
+                                             algorithm="ring",
+                                             compression=comp)
+        batches = list(SyntheticLM(cfg.vocab_size, seq, seed=0)
+                       .batches(batch, 4))
+        per_step = {"flash_attention": 2 * cfg.num_layers,
+                    "quantize_stochastic": n_leaves, "quantize_nearest": 0}
+        kernels.reset_launch_counts()
+        times, losses, peak = [], [], 0.0
+        for i, b in enumerate(batches):
+            before = dict(kernels.launch_counts)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics, residual = step(state, b, residual)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = {k: kernels.launch_counts[k] - before[k] for k in per_step}
+            step_peak = torch.cuda.max_memory_allocated() / 2**30
+            peak = max(peak, step_peak)
+            check(math.isfinite(loss), f"paper step {i}: loss {loss}")
+            check(n == per_step, f"paper step {i}: launches {n} != {per_step}")
+            label = "warm-up" if i == 0 else f"step {i}"
+            print(f"paper {label}: loss {loss:.4f}, {dt * 1e3:.1f} ms, "
+                  f"{batch * seq / dt:.0f} tokens/s, peak {step_peak:.2f} "
+                  f"GiB, launches {n} | {card}")
+            if i:
+                times.append(dt)
+                losses.append(loss)
+        launches = dict(kernels.launch_counts)
+        want = {k: v * len(batches) for k, v in per_step.items()}
+        check({k: launches[k] for k in want} == want,
+              f"paper: launches {launches} != {want}")
+        for r in rows:
+            if r["name"] in ("quantize_stochastic", "quantize_nearest"):
+                r["launches"] = launches[r["name"]]
+        res = tree_leaves(residual)
+        check(all(bool(torch.isfinite(r).all()) for r in res)
+              and any(bool(r.abs().max() > 0) for r in res),
+              "paper: the error-feedback residual is not finite and nonzero")
+        med = float(np.median(times)) * 1e3
+        print(f"paper: 3 timed steps (yi-9b, {cfg.num_layers} layers, int8 + "
+              f"error feedback, ring, 1 rank), median {med:.1f} ms = "
+              f"{batch * seq / med * 1e3:.0f} tokens/s, peak {peak:.2f} GiB; "
+              f"plain step of this run {plain_ms:.1f} ms "
+              f"({med / plain_ms - 1:+.1%}); losses {losses}; launches "
+              f"{want} over {len(batches)} steps | {card}")
+        grads = tree_map(lambda p: torch.randn(p.shape, device="cuda")
+                         .to(p.dtype) * 1e-3, state["params"])
+        ef_ms = time_ms(lambda: comp.compress_with_feedback(grads, residual),
+                        iters=3, warmup=1)
+        print(f"paper: int8 compress_with_feedback over the {n_leaves} "
+              f"leaves alone (residual add, noise draw, B9, dequantize, "
+              f"cast, residual update) {ef_ms:.2f} ms = {ef_ms / med:.1%} of "
+              f"a paper step | {card}")
+        del grads
+        train_profile(card, lambda s, b: step(s, b, residual)[:2], state,
+                      batches[-1], label="paper")
+    finally:
+        dist.destroy_process_group()
+    del state, residual
+    _release_card()
 
 
 DEVICE_KINDS = ("B1 paged_attention (full decode)", "B2/B5 ring split",
@@ -1812,7 +2150,8 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8,
 
 def build_phase():
     """nvcc every kernel source of the main paths (paged attention, flash
-    attention) into build/, one compiler per source, all started together;
+    attention, the block quantizers) into build/, one compiler per source,
+    all started together;
     each compiler's per-kernel report goes to build/ptxas-<source>.txt and
     one summary line per source (kernels, most registers, spills) is
     printed."""
@@ -1822,6 +2161,7 @@ def build_phase():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.kernel import SOURCE as FLASH
     from repro_torch.kernels.paged_attention.kernel import SOURCE as PAGED
+    from repro_torch.kernels.quantize.kernel import SOURCE as QUANT
 
     def one(src):
         t0 = time.perf_counter()
@@ -1830,8 +2170,9 @@ def build_phase():
         return src, lib, report.getvalue(), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        results = list(pool.map(one, (PAGED, FLASH)))
+    sources = (PAGED, FLASH, QUANT)
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        results = list(pool.map(one, sources))
     for src, lib, text, secs in results:
         report = build.BUILD_DIR / f"ptxas-{src.stem}.txt"
         report.write_text(text)
@@ -1866,15 +2207,18 @@ def main() -> int:
                 + int8_kernel_phase(card))
         flash_row = flash_kernel_phase(card)
         rows.append(flash_row)
+        rows += quantize_kernel_phase(card)
         parity_phase(card)
         ring_spec_parity_phase(card)
         int8_parity_phase(card)
         train_parity_phase(card)
+        paper_parity_phase(card)
         yi = main_path_phase(card, rows[0])
         yi9b_int8_phase(card, rows, *yi)
         del yi
         gemma3_main_phase(card, rows)
-        train_main_phase(card, flash_row)
+        plain_ms = train_main_phase(card, flash_row)
+        paper_main_phase(card, rows, plain_ms)
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()

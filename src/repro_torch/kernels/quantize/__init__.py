@@ -1,14 +1,18 @@
-"""Per-vector int8 quantization of paged K/V (the port's copy of
-``KVQuantConfig``, ``quantize_kv`` and ``dequantize_kv`` from
-``repro.kernels.quantize.ops``), in plain PyTorch.
+"""Block quantizers: the flat-gradient quantizer over 256-value rows
+(``quantize_blocks``: kernel B9 in stochastic mode, B8 in nearest mode, on
+the card; ``core/compression.quantize_int`` routes every int8/int4/QSGD
+compression through it) and the per-vector int8 quantization of paged K/V
+(``quantize_kv``, plain PyTorch on the KV write path, dequantized inside the
+paged-attention kernels).
 
-The KV path quantizes on write with these plain functions, as the reference
-does; the dequant side runs inside the hand-written paged-attention kernels
-(``kernels/paged_attention``). The reference's two Pallas quantizers over
-256-value rows, ``quantize_nearest_kernel`` and ``quantize_kernel`` (used by
-``core/compression.py``, not by the KV path), are not ported yet.
+The reference's ``core/compression.py`` calls no kernel: its
+``quantize_int`` computes B9's function in jnp. The port routes it to B9.
 """
-from repro_torch.kernels.quantize.ops import (KVQuantConfig, dequantize_kv,
+from repro_torch.kernels.quantize.ops import (KVQuantConfig,
+                                              dequantize_blocks,
+                                              dequantize_kv, quantize_blocks,
                                               quantize_kv)
+from repro_torch.kernels.quantize.ref import quantize_blocks_ref
 
-__all__ = ["KVQuantConfig", "dequantize_kv", "quantize_kv"]
+__all__ = ["KVQuantConfig", "dequantize_blocks", "dequantize_kv",
+           "quantize_blocks", "quantize_blocks_ref", "quantize_kv"]

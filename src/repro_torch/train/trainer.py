@@ -7,15 +7,22 @@ is split into microbatches run one after another with f32 gradient
 accumulation, which shrinks the activations' live range by about
 ``accum_steps``.
 
-Left out: the sharding plan (``state_shardings``, ``jit_train_step``) —
-the port trains on one device — and the paper mode with explicit
-collectives and gradient compression (``make_paper_train_step``,
-``zero_residual``), which comes with ``torch.distributed`` (ROADMAP A15).
+The paper mode (``make_paper_train_step``) is data-parallel SGD with an
+explicit gradient allreduce over a ``torch.distributed`` process group —
+one of the survey's ring/tree/butterfly/Rabenseifner schedules
+(``core.collectives``) — with optional gradient compression and error
+feedback (``core.compression``): the survey's distributed-SGD pipeline made
+concrete (§5.1, §2.5, §6.3).
+
+Left out: the sharding plan (``state_shardings``, ``jit_train_step``),
+which comes with ``core/parallelism.py`` (ROADMAP A15).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import collectives as coll
 from repro_torch.models import transformer as T
 from repro_torch.tree import leaves_with_path, tree_from_leaves, tree_map
 
@@ -43,24 +50,30 @@ def _on(batch, device):
     return out
 
 
+def _device(params):
+    return leaves_with_path(params)[0][1].device
+
+
+def _grads_of(cfg, params, batch):
+    """(loss, gradient tree) of ``loss_fn`` by autograd."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    paths, leaves = zip(*leaves_with_path(live))
+    loss = T.loss_fn(cfg, live, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_from_leaves(zip(paths, grads))
+
+
 def make_train_step(cfg, optimizer, *, accum_steps: int = 1):
     """train_step(state, batch) -> (state, {"loss": f32 scalar tensor}).
     batch: {"tokens", "labels"} (B, S), numpy or tensors, B divisible by
     `accum_steps`. The params and optimizer state are updated in place."""
 
-    def grads_of(params, batch):
-        live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        paths, leaves = zip(*leaves_with_path(live))
-        loss = T.loss_fn(cfg, live, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tree_from_leaves(zip(paths, grads))
-
     def train_step(state, batch):
         params = state["params"]
-        device = next(iter(leaves_with_path(params)))[1].device
+        device = _device(params)
         batch = _on(batch, device)
         if accum_steps == 1:
-            loss, grads = grads_of(params, batch)
+            loss, grads = _grads_of(cfg, params, batch)
         else:
             B = next(iter(batch.values())).shape[0]
             mb = B // accum_steps
@@ -69,7 +82,7 @@ def make_train_step(cfg, optimizer, *, accum_steps: int = 1):
                                                    device=device), params)
             for i in range(accum_steps):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                loss_i, g_i = grads_of(params, micro)
+                loss_i, g_i = _grads_of(cfg, params, micro)
                 loss = loss + loss_i
                 tree_map(lambda a, g: a.add_(g.float()), grads, g_i)
             loss = loss / accum_steps
@@ -78,3 +91,51 @@ def make_train_step(cfg, optimizer, *, accum_steps: int = 1):
         return {"params": params, "opt": opt}, {"loss": loss}
 
     return train_step
+
+
+# ------------------------------------------------------------- paper mode
+def make_paper_train_step(cfg, optimizer, group=None, *, algorithm="ring",
+                          compression=None):
+    """step(state, batch, residual) -> (state, {"loss"}, residual): explicit
+    data-parallel SGD over the process group `group` (None: the default
+    group) — the counterpart of the reference's ``shard_map`` over the
+    mesh's data axis (survey §5.1 + §6.3).
+
+    Each rank takes its contiguous slice of the global batch along axis 0
+    (``P("data")``), computes its gradients with autograd, compresses them
+    with error feedback when `compression` (a ``core.compression.
+    Compressor``) is given — each sent leaf cast to its gradient's dtype,
+    the f32 residual, this rank's own, updated in place — averages each leaf
+    with ``allreduce_mean(algorithm)`` (ring|tree|butterfly|rabenseifner|
+    psum) and the loss with ``psum``, and applies the optimizer in place.
+    `residual` is ``zero_residual(params)`` with a compressor, else unused.
+    """
+
+    def step(state, batch, residual):
+        params = state["params"]
+        P, rank = dist.get_world_size(group), dist.get_rank(group)
+        batch = _on(batch, _device(params))
+        local = {}
+        for k, v in batch.items():
+            if v.shape[0] % P:
+                raise ValueError(f"batch axis 0 of {k!r} ({v.shape[0]}) does "
+                                 f"not divide into {P} ranks")
+            n = v.shape[0] // P
+            local[k] = v[rank * n:(rank + 1) * n]
+        loss, grads = _grads_of(cfg, params, local)
+        if compression is not None:
+            grads, residual = compression.compress_with_feedback(grads,
+                                                                 residual)
+        grads = tree_map(lambda g: coll.allreduce_mean(g, group, algorithm),
+                         grads)
+        loss = coll.allreduce_mean(loss, group, "psum")
+        params, opt = optimizer.update(grads, state["opt"], params)
+        return {"params": params, "opt": opt}, {"loss": loss}, residual
+
+    return step
+
+
+def zero_residual(params):
+    """The error-feedback residual: f32 zeros of every param's shape."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)

@@ -4,8 +4,9 @@
   ``jax`` or ``repro`` (AST scan), and importing the engine leaves both out
   of ``sys.modules``.
 * Entry points default to the card: ``Engine(cfg, params)``,
-  ``trainer.init_state`` and the training launcher with no device raise
-  where there is no CUDA instead of running on the CPU.
+  ``trainer.init_state``, the data-parallel group and the training launcher
+  (also with ``--paper-mode``) with no device raise where there is no CUDA
+  instead of running on the CPU.
 * ``params_from_jax`` round-trips the reference's float32 and bfloat16
   parameter trees with the port's shapes and dtypes.
 * The port's own copies of the reference's repo-lint fences: KV pools are
@@ -94,7 +95,7 @@ def test_importing_the_engine_loads_no_jax():
 
 
 TRAINING_SUBPACKAGES = ("optim", "data", "train", "launch",
-                        "kernels/flash_attention")
+                        "kernels/flash_attention", "core", "kernels/quantize")
 
 
 @pytest.mark.parametrize("sub", TRAINING_SUBPACKAGES)
@@ -132,6 +133,33 @@ def test_training_entry_points_default_to_cuda_and_refuse_cpu_fallback():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launcher.main(["--arch", "yi-9b", "--preset", "reduced",
                        "--steps", "1"])
+
+
+def test_paper_mode_defaults_to_cuda_and_refuses_cpu_fallback():
+    import torch.distributed as dist
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_dp_group
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+    assert make_dp_group.__defaults__ == ("cuda",)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.main(["--arch", "yi-9b", "--preset", "reduced",
+                       "--steps", "1", "--paper-mode", "--compress", "int8"])
+    assert not dist.is_initialized()
+
+
+def test_importing_the_paper_mode_loads_no_jax():
+    code = ("import sys, repro_torch.core.compression, "
+            "repro_torch.core.collectives, repro_torch.core.consistency, "
+            "repro_torch.core.consolidation, repro_torch.core.metaopt, "
+            "repro_torch.launch.mesh, repro_torch.kernels.quantize\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\nprint('PASS')\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env)
+    assert r.returncode == 0 and "PASS" in r.stdout, r.stderr
 
 
 def test_engine_defaults_to_cuda_and_refuses_cpu_fallback():

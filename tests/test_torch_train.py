@@ -336,8 +336,10 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
         np.testing.assert_array_equal(have, want, err_msg=str(path_))
 
 
-@pytest.mark.parametrize("args", [["--paper-mode"], ["--compress", "topk"],
+@pytest.mark.parametrize("args", [["--plan", "tp"], ["--plan", "dp_tp_zero1"],
                                   ["--plan", "dp_tp"]])
 def test_launcher_refuses_multi_device_modes(args):
+    """The sharding plans other than dp come with core/parallelism.py; the
+    paper mode runs (test_torch_paper_mode.py)."""
     with pytest.raises(NotImplementedError):
         _launch("--steps", "1", *args)
