@@ -7,9 +7,9 @@ NVIDIA GPU. Run from the repository root:
 Phases, in order; any failure exits non-zero before the final ok line:
 
   1. device — require CUDA; print the card's name and power limit.
-  2. build  — compile the paged-attention, flash-attention and quantize
-     sources (every kernel of the main paths) with nvcc into build/, one
-     compiler per source, started together.
+  2. build  — compile the paged-attention, flash-attention, quantize and
+     matmul sources (every kernel of the main paths) with nvcc into build/,
+     one compiler per source, started together.
   3. kernel — every kernel against its plain PyTorch version on the card
      (f32 atol 2e-5, bf16 atol 2e-2): B1 over the reference's test sweep
      and the yi-9b decode shape; B2 (ring decode), B4 (verify) and B5 (ring
@@ -22,17 +22,22 @@ Phases, in order; any failure exits non-zero before the final ok line:
      over the same sweeps with poisoned dead keys and NaN scales, each
      timed likewise and beside the bf16 kernel on the same values. Then
      B6 (flash attention, the training forward): causal and windowed
-     (32, 1024), GQA 1/4/8, hd 64/128/256 and ragged lengths, with its
-     row log-sum-exp; the autograd.Function's gradients against autograd
-     through the plain version; timed at the training shape (yi-9b,
-     batch 2 x 4096) beside its plain version, SDPA(is_causal) and its
-     operation bound. Then B9 and B8 (the block quantizers, stochastic and
-     nearest): bits 8 and 4, n = 256, 1000, 4096, 65537 and a case with an
+     (32, 64, 1024), GQA 1/4/8, hd 8/64/80/128/136/256 and ragged lengths,
+     with its row log-sum-exp; the autograd.Function's gradients against
+     autograd through the plain version (also at hd 80); timed at the
+     training shapes (yi-9b, batch 2 x 4096; stablelm-3b, hd 80, 1 x 2048)
+     beside its plain version, SDPA(is_causal) and its operation bound.
+     Then B9 and B8 (the block quantizers, stochastic and nearest): bits 8
+     and 4, n = 256, 1000, 4096, 65537 and a case with an
      all-zero row and a ragged tail, q and scales EQUAL to the plain
      version; the int8 KV quantizer equal on cuda and cpu; each mode timed
      at the largest yi-9b training leaf and over a training step's 12
      leaves beside its plain version and byte bound (no library call
-     computes the function).
+     computes the function). Then B7 (the blocked GEMM) in f32 and bf16
+     over the reference's sweep, ragged shapes and the five im2col shapes
+     of the survey's Table 6 layer, against its plain version (f32 within
+     min(2e-6 K, 1e-5 max|ref|), bf16 within 2e-2 max|ref|), timed at the
+     K=3 and K=13 shapes beside its plain version, cuBLAS and its bound.
   4. parity — tiny f32 models served on cuda and on cpu from the same
      weights: a full-attention one (staggered requests, a mid-flight
      defragment, a prefix-cache copy-on-write replay), reduced gemma3 and a
@@ -40,8 +45,9 @@ Phases, in order; any failure exits non-zero before the final ok line:
      tokens must be equal. The three again with int8 pools, plain and with
      speculation, and two of them under OversubConfig() with every request
      force-preempted once. Then training: reduced f32 yi-9b and gemma3
-     trained 3 Adam steps on cuda and on cpu from the same weights and
-     batches; the losses must agree per step. Then the paper-mode trainer
+     and a tiny dense model at head dim 80 trained 3 Adam steps on cuda and
+     on cpu from the same weights and batches; the losses must agree per
+     step. Then the paper-mode trainer
      on a one-rank group (gloo for cpu, then nccl for cuda): reduced f32
      yi-9b, 3 Adam steps with the ring allreduce and no compression,
      onebit and topk, cuda vs cpu; and int8 on cuda with B9 vs the same run
@@ -66,6 +72,14 @@ Phases, in order; any failure exits non-zero before the final ok line:
      twice per layer and B9 once per gradient leaf (12) per step, B8
      never, a finite nonzero residual; step time and peak memory beside
      the plain step's, the compression timed alone, one profiled step.
+     Then stablelm-3b (head dim 80) at full width cut to 2 of its 32
+     layers, batch 1 x 2048, Adam with remat, 1 warm-up and 2 timed steps:
+     finite losses, B6 twice per layer per step. Last, the survey's §4.3
+     convolutions at its Table 6 layer (N=64, C=K=64, 56 x 56, f32, kernel
+     sizes 3/5/7/11/13, Winograd at 3): every algorithm against
+     conv_direct, conv_direct against float64, im2col's GEMM on B7 (once
+     per conv_im2col call, also once in bf16), each timed beside its
+     Work-Depth W, and the survey's Winograd accuracy claim measured.
 
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -88,6 +102,7 @@ SRC = ROOT / "src"
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12                # dense tensor-core peak
+FP32_FLOPS = 67e12                 # FP32 on the CUDA cores (no tensor cores)
 
 
 class SmokeFailure(RuntimeError):
@@ -1422,7 +1437,8 @@ def gemma3_main_phase(card, rows):
 # ------------------------------------------ phase 3d: flash attention (B6)
 # (B, S, H, Hkv, hd, causal, window): GQA groups 1, 4 and 8, hd 64 / 128 /
 # 256, windows 32 and 1024, ragged lengths (not multiples of the 64-row
-# query tile or of the key tile), and the mask without its causal half
+# query tile or of the key tile), and the mask without its causal half;
+# then head dims that run in a padded tile (80 as stablelm-3b, 8, 136)
 FLASH_SWEEP = [
     (2, 256, 4, 4, 64, True, None),
     (2, 256, 8, 2, 64, True, None),
@@ -1434,15 +1450,24 @@ FLASH_SWEEP = [
     (2, 130, 8, 2, 128, True, None),
     (1, 300, 4, 4, 64, False, None),
     (1, 333, 4, 2, 128, False, 100),
+    (2, 256, 4, 4, 80, True, None),
+    (1, 300, 8, 2, 80, True, 64),
+    (1, 200, 4, 1, 80, False, None),
+    (2, 100, 4, 2, 8, True, None),
+    (1, 260, 4, 2, 136, True, 100),
 ]
 # forward and backward cases: (B, S, H, Hkv, hd, causal, window)
 FLASH_GRAD_CASES = [
     (2, 256, 8, 2, 64, True, None),
     (1, 300, 4, 1, 128, True, 64),
     (1, 640, 8, 1, 128, True, None),
+    (1, 256, 4, 4, 80, True, None),
+    (1, 200, 4, 2, 80, True, 32),
 ]
-# the training main path's attention: yi-9b, batch 2 x 4096
+# the training main paths' attention: yi-9b, batch 2 x 4096; stablelm-3b
+# (MHA, hd 80), batch 1 x 2048
 FLASH_MAIN = (2, 4096, 32, 4, 128, True, None)
+FLASH_HD80 = (1, 2048, 32, 32, 80, True, None)
 
 
 def _admitted_pairs(S, causal, window):
@@ -1465,15 +1490,14 @@ def flash_kernel_phase(card):
     """B6 against its plain version on the card: the forward (and its row
     log-sum-exp) over FLASH_SWEEP in f32 and bf16, the autograd.Function's
     dq/dk/dv against autograd through the plain version, then the kernel
-    timed at the training main path's shape beside its plain version,
-    SDPA(is_causal=True) as the library yardstick, its bound and the
-    backward's time."""
+    timed at the training main paths' shapes (FLASH_MAIN, FLASH_HD80)
+    beside its plain version, SDPA(is_causal=True) as the library
+    yardstick, its bound and the backward's time. Returns the two rows of
+    the kernels line."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
-    from repro_torch.kernels.flash_attention.ops import (_forward_kernel,
-                                                         attention_backward)
+    from repro_torch.kernels.flash_attention.ops import _forward_kernel
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
@@ -1522,14 +1546,30 @@ def flash_kernel_phase(card):
             print(f"kernel B6 backward B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
                   f"window={window} {dt}: " + ", ".join(errs))
 
-    B, S, H, Hkv, hd, causal, window = FLASH_MAIN
+    return [_flash_timed(card, gen, FLASH_MAIN, "flash_attention",
+                         "yi-9b training shape"),
+            _flash_timed(card, gen, FLASH_HD80, "flash_attention_hd80",
+                         "stablelm-3b training shape")]
+
+
+def _flash_timed(card, gen, shape, name, where):
+    """B6 in bf16 at one training shape: checked against the plain
+    version, timed beside it, SDPA and its bound; one row of the kernels
+    line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (_forward_kernel,
+                                                         attention_backward)
+    B, S, H, Hkv, hd, causal, window = shape
     q, k, v = _flash_inputs(gen, B, S, H, Hkv, hd, torch.bfloat16)
     with torch.no_grad():
         out, lse = _forward_kernel(q, k, v, hd ** -0.5, causal, window)
         ref, _ = flash_attention_ref(q, k, v, causal=causal, window=window)
         main_err = (out.float() - ref.float()).abs().max().item()
-        check(main_err <= tol[torch.bfloat16],
-              f"B6 at the main path's shape: max_abs_err {main_err}")
+        check(main_err <= 2e-2,
+              f"B6 at the {where}: max_abs_err {main_err}")
         del ref
         item = q.element_size()
         pairs = _admitted_pairs(S, causal, window)
@@ -1554,13 +1594,13 @@ def flash_kernel_phase(card):
         bwd_ms = time_ms(lambda: attention_backward(
             q, k, v, out, lse, dout, scale=hd ** -0.5, causal=causal,
             window=window), iters=3, warmup=1)
-    print(f"B6 flash_attention @ yi-9b training shape (B={B}, S={S}, H={H}, "
-          f"Hkv={Hkv}, hd={hd}, bf16, causal): kernel {ms:.4f} ms "
+    print(f"B6 {name} @ {where} (B={B}, S={S}, H={H}, Hkv={Hkv}, hd={hd}, "
+          f"bf16, causal): kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
           f"SDPA(is_causal) {library_ms:.4f} ms (err vs kernel {lib_err:.2e}), "
           f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
           f"PyTorch backward {bwd_ms:.4f} ms | {card}")
-    return {"name": "flash_attention", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
@@ -1573,16 +1613,24 @@ def flash_kernel_phase(card):
 TRAIN_PARITY_TOL = 1e-4    # |loss cuda - loss cpu| per step, losses near 6.3
 
 
+# a tiny dense MHA model at head dim 80 (stablelm-3b's; reduced() sets 64),
+# so B6 runs in its padded tile inside a training step
+HD80_TINY = dict(name="hd80-tiny", family="dense", num_layers=2, d_model=160,
+                 num_heads=2, num_kv_heads=2, head_dim=80, d_ff=320,
+                 vocab_size=256, dtype="float32", remat=False, loss_chunk=64,
+                 attn_chunk=32)
+
+
 def train_parity_phase(card):
-    """Reduced f32 yi-9b (remat off) and gemma3-12b (local + global, remat
-    on) trained 3 steps with Adam on cuda and on cpu from the same params
-    and the same SyntheticLM batches: the losses agree per step within
-    TRAIN_PARITY_TOL (f32 sums in another order on the card; Adam's first
-    steps move each weight by about lr·sign(g), so tiny gradient
+    """Reduced f32 yi-9b (remat off), gemma3-12b (local + global, remat
+    on) and HD80_TINY trained 3 steps with Adam on cuda and on cpu from the
+    same params and the same SyntheticLM batches: the losses agree per step
+    within TRAIN_PARITY_TOL (f32 sums in another order on the card; Adam's
+    first steps move each weight by about lr·sign(g), so tiny gradient
     differences can show). tf32 off."""
     import torch
     from repro_torch import kernels
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import ModelConfig, get_config, reduced
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import transformer as T
     from repro_torch.optim import make_optimizer
@@ -1590,9 +1638,11 @@ def train_parity_phase(card):
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for arch, remat in (("yi-9b", False), ("gemma3-12b", True)):
-        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
-                                  remat=remat)
+    cfgs = [dataclasses.replace(reduced(get_config(arch)), dtype="float32",
+                                remat=remat)
+            for arch, remat in (("yi-9b", False), ("gemma3-12b", True))]
+    for cfg in cfgs + [ModelConfig(**HD80_TINY)]:
+        arch, remat = cfg.name, cfg.remat
         params = T.init_params(cfg, seed=0, device="cpu")
         batches = list(SyntheticLM(cfg.vocab_size, 64, seed=0).batches(2, 3))
         losses = {}
@@ -1621,36 +1671,43 @@ def train_parity_phase(card):
 
 # --------------------------------------------- phase 5c: training main path
 TRAIN_LAYERS = 8     # of yi-9b's 48: Adam's state for all 48 needs ~141 GB
+STABLELM_LAYERS = 2  # of stablelm-3b's 32: the hd-80 path at full width
 
 
-def train_main_phase(card, row):
-    """yi-9b at full width (d_model 4096, 32 heads over 4 kv heads, hd 128,
-    d_ff 11008, vocab 64000, bf16), cut to TRAIN_LAYERS layers, trained
+def train_main_phase(card, row, arch="yi-9b", layers=TRAIN_LAYERS, batch=2,
+                     seq=4096, timed=3, profile=True):
+    """A model at full width (yi-9b: d_model 4096, 32 heads over 4 kv heads,
+    hd 128, d_ff 11008, vocab 64000, bf16; stablelm-3b: d_model 2560, 32
+    heads, hd 80, d_ff 6912, vocab 50304), cut to `layers` layers, trained
     through the port's own entry points (trainer.init_state,
     make_train_step -> loss_fn -> forward -> attention_train -> B6): Adam
     with lr 3e-4 and grad clip 1.0 (the launcher's defaults), remat on,
-    batch 2 x 4096 from SyntheticLM, 1 warm-up step and 3 timed steps.
-    Every loss is finite and each step launches B6 exactly 2 x layers times
-    (the forward and the remat recompute)."""
+    batch `batch` x `seq` from SyntheticLM, 1 warm-up step and `timed`
+    timed steps. Every loss is finite and each step launches B6 exactly 2 x
+    layers times (the forward and the remat recompute). Returns the median
+    step ms."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.optim import make_optimizer
     from repro_torch.train import trainer
-    batch, seq = 2, 4096
+    tag = "train" if arch == "yi-9b" else f"train {arch}"
     _release_card()         # engines of the serving phases wait in cycles
-    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
     opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
     t0 = time.perf_counter()
     state = trainer.init_state(cfg, opt, seed=0)
     torch.cuda.synchronize()
-    print(f"train: yi-9b at full width, {cfg.num_layers} of 48 layers "
+    print(f"{tag}: {arch} at full width, {cfg.num_layers} of "
+          f"{full.num_layers} layers "
           f"({cfg.param_count() / 1e9:.2f} B params, bf16, remat "
-          f"{cfg.remat}), Adam state made on the card in "
-          f"{time.perf_counter() - t0:.1f} s; "
+          f"{cfg.remat}, hd {cfg.resolved_head_dim}), Adam state made on "
+          f"the card in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    batches = list(SyntheticLM(cfg.vocab_size, seq, seed=0).batches(batch, 4))
+    batches = list(SyntheticLM(cfg.vocab_size, seq, seed=0)
+                   .batches(batch, timed + 1))
     step = trainer.make_train_step(cfg, opt)
     per_step = 2 * cfg.num_layers
     kernels.reset_launch_counts()
@@ -1666,10 +1723,10 @@ def train_main_phase(card, row):
         dt = time.perf_counter() - t0
         n = kernels.launch_counts["flash_attention"] - before
         peak = torch.cuda.max_memory_allocated() / 2**30
-        check(math.isfinite(loss), f"train step {i}: loss {loss}")
-        check(n == per_step, f"train step {i}: B6 launches {n} != {per_step}")
+        check(math.isfinite(loss), f"{tag} step {i}: loss {loss}")
+        check(n == per_step, f"{tag} step {i}: B6 launches {n} != {per_step}")
         label = "warm-up" if i == 0 else f"step {i}"
-        print(f"train {label}: loss {loss:.4f}, {dt * 1e3:.1f} ms, "
+        print(f"{tag} {label}: loss {loss:.4f}, {dt * 1e3:.1f} ms, "
               f"{batch * seq / dt:.0f} tokens/s, peak {peak:.2f} GiB, B6 "
               f"launches {n} | {card}")
         if i:
@@ -1677,13 +1734,14 @@ def train_main_phase(card, row):
             losses.append(loss)
     launches = kernels.launch_counts["flash_attention"]
     check(launches == per_step * len(batches),
-          f"train: B6 launches {launches} != {per_step * len(batches)}")
+          f"{tag}: B6 launches {launches} != {per_step * len(batches)}")
     row["launches"] = launches
-    print(f"train: 3 timed steps, median {np.median(times) * 1e3:.1f} ms = "
-          f"{batch * seq / np.median(times):.0f} tokens/s; losses {losses}; "
-          f"B6 launches {launches} = {per_step} x {len(batches)} steps | "
-          f"{card}")
-    train_profile(card, step, state, batches[-1])
+    print(f"{tag}: {timed} timed steps, median {np.median(times) * 1e3:.1f} "
+          f"ms = {batch * seq / np.median(times):.0f} tokens/s; losses "
+          f"{losses}; B6 launches {launches} = {per_step} x {len(batches)} "
+          f"steps | {card}")
+    if profile:
+        train_profile(card, step, state, batches[-1])
     del state
     _release_card()
     return float(np.median(times)) * 1e3
@@ -2148,10 +2206,283 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8,
         for e in host[:10]))
 
 
+# ------------------------------------------------------ phase 3f: kernel B7
+MATMUL_SOURCE = "src/repro_torch/kernels/matmul/csrc/matmul.cu"
+# (M, K, N): the reference's sweep (tests/test_kernels.py:14), then shapes
+# no tile divides (K past a 16-deep k tile, M and N past a 128 x 64 tile)
+MATMUL_SWEEP = [(128, 128, 128), (256, 512, 128), (128, 1024, 256),
+                (384, 256, 640), (1000, 577, 65), (1, 9, 1), (130, 17, 70),
+                (7, 33, 129)]
+# the survey's Table 6 layer (benchmarks/table6_conv_algorithms.py): batch
+# 64, 64 input and 64 output channels, 56 x 56, VALID, at each kernel size
+CONV_LAYER = (64, 64, 56, 64)      # N, C_in, H (= W), C_out
+CONV_KS = (3, 5, 7, 11, 13)
+MATMUL_TIMED = (3, 13)             # kernel sizes whose GEMM is timed
+
+
+def _im2col_shape(k):
+    """(M, K, N) of conv_im2col's GEMM at the Table 6 layer, kernel k x k."""
+    N, C, H, K = CONV_LAYER
+    Ho = H - k + 1
+    return N * Ho * Ho, C * k * k, K
+
+
+def _matmul_tol(dt, K, scale):
+    """f32: 1e-5 of max |ref| (a K-long sum in f32 on both sides, in
+    another order), and never looser than the reference's 2e-6 K; bf16: 2e-2
+    of max |ref| (both sum in f32; each output rounds once to bf16, one
+    bf16 step is 2**-8 of the value)."""
+    import torch
+    if dt == torch.float32:
+        return min(2e-6 * K, 1e-5 * scale)
+    return 2e-2 * scale
+
+
+def matmul_kernel_phase(card):
+    """B7 against its plain version (f32 cuBLAS on f32 copies, no TF32) on
+    the card, in f32 and bf16, over MATMUL_SWEEP and the five im2col
+    shapes; bf16 in with f32 out and f32 in with bf16 out at one ragged
+    shape; then B7 timed at the K=3 and K=13 im2col shapes beside its plain
+    version, torch.matmul at the working dtype (cuBLAS: the library
+    yardstick; in f32 it is the plain version's call) and its bound. Returns
+    the f32 and bf16 rows of the kernels line (K=3)."""
+    import torch
+    from repro_torch.kernels.matmul import matmul_ref
+    from repro_torch.kernels.matmul.ops import _kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = MATMUL_SWEEP + [_im2col_shape(k) for k in CONV_KS]
+    for M, K, N in shapes:
+        a32 = torch.randn((M, K), generator=gen, device="cuda")
+        b32 = torch.randn((K, N), generator=gen, device="cuda")
+        errs = []
+        for dt in (f32, bf16):
+            a, b = a32.to(dt), b32.to(dt)
+            out = _kernel(a, b, None)
+            ref = matmul_ref(a, b)
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = _matmul_tol(dt, K, scale)
+            check(out.dtype == dt and math.isfinite(err) and err <= tol,
+                  f"B7 M={M} K={K} N={N} {dt}: max_abs_err {err} > {tol}")
+            errs.append(f"{dt}: {err:.3e} (tol {tol:.3e}, max|ref| "
+                        f"{scale:.1f})")
+            del a, b, out, ref
+        print(f"kernel B7 M={M} K={K} N={N}: " + ", ".join(errs))
+        del a32, b32
+    a = torch.randn((1000, 577), generator=gen, device="cuda")
+    b = torch.randn((577, 65), generator=gen, device="cuda")
+    for dt, out_dt in ((f32, bf16), (bf16, f32)):
+        out = _kernel(a.to(dt), b.to(dt), out_dt)
+        ref = matmul_ref(a.to(dt), b.to(dt), out_dt)
+        scale = ref.float().abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = _matmul_tol(out_dt, 577, scale)
+        check(out.dtype == out_dt and err <= tol,
+              f"B7 {dt} -> {out_dt}: max_abs_err {err} > {tol}")
+        print(f"kernel B7 M=1000 K=577 N=65 {dt} in, {out_dt} out: "
+              f"max_abs_err {err:.3e} (tol {tol:.3e})")
+    _release_card()
+
+    rows = []
+    for k in MATMUL_TIMED:
+        M, K, N = _im2col_shape(k)
+        a32 = torch.randn((M, K), generator=gen, device="cuda")
+        b32 = torch.randn((K, N), generator=gen, device="cuda")
+        for dt in (f32, bf16):
+            a, b = a32.to(dt), b32.to(dt)
+            out = _kernel(a, b, None)
+            ref = matmul_ref(a, b)
+            err = (out.float() - ref.float()).abs().max().item()
+            del out, ref
+            iters = 10 if k == 3 else 4
+            ms = time_ms(lambda: _kernel(a, b, None), iters=iters)
+            plain_ms = time_ms(lambda: matmul_ref(a, b), iters=iters)
+            library_ms = time_ms(lambda: torch.matmul(a, b), iters=iters)
+            item = a.element_size()
+            nbytes = (M * K + K * N + M * N) * item
+            flops = 2 * M * N * K
+            peak = FP32_FLOPS if dt == f32 else BF16_FLOPS
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            print(f"B7 matmul @ Table 6 im2col GEMM, kernel {k}x{k} (M={M}, "
+                  f"K={K}, N={N}, {dt}): kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain (f32 cuBLAS) "
+                  f"{plain_ms:.4f} ms, library torch.matmul {library_ms:.4f} "
+                  f"ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, "
+                  f"{flops} flop; peak {peak / 1e12:.0f} TFLOP/s) | {card}")
+            if k == 3:
+                rows.append({
+                    "name": "matmul" if dt == f32 else "matmul_bf16",
+                    "route": "cuda", "source": MATMUL_SOURCE,
+                    "replaces": "src/repro/kernels/matmul/kernel.py:21",
+                    "launches": None, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms})
+            del a, b
+        del a32, b32
+        _release_card()
+    return rows
+
+
+# ------------------------------------------- phase 5e: §4.3 convolutions
+# |algorithm - conv_direct| and |conv_direct - float64| over max |float64|:
+# f32 accuracy. The longest f32 sum here is conv_im2col's at K=13 (10,816
+# terms, one FMA chain per output in B7); its rounding error stays a few
+# 1e-6 of the largest output. TF32 (10-bit mantissa) would give ~1e-3.
+CONV_TOL = 2e-5
+CONV_F64_BATCH = 8       # images of the batch held against float64
+CLAIM_DRAWS = 32         # draws at the reference test's shape
+
+
+def conv_phase(card, rows):
+    """The survey's §4.3 algorithms at its Table 6 layer (CONV_LAYER, f32,
+    weights x 0.2 as the reference's tests draw them) for each kernel size
+    in CONV_KS (Winograd, F(2x2, 3x3), at 3 only), through the port's
+    models/conv.py: each algorithm against conv_direct on the card within
+    CONV_TOL of max |ref|, and conv_direct against float64 F.conv2d on
+    CONV_F64_BATCH images, with cuDNN's TF32 left at PyTorch's default (on)
+    so that conv_direct's own scoped setting is what keeps it f32. B7 runs
+    once per conv_im2col call and nothing else launches it; once more in
+    bf16 at 3 x 3 (within 2e-2 of max |ref|). Each algorithm timed beside
+    its Work-Depth W (core/workdepth.py, as Table 6 computes it); the
+    fastest at each size printed. Then the survey's claim that Winograd is
+    less accurate than im2col, measured (not gated): at this layer with
+    inputs x 100 against float64, and over CLAIM_DRAWS draws at the
+    reference test's shape (2 x 3 x 18 x 18, 4 kernels)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.core import workdepth as WD
+    from repro_torch.models import conv as CV
+    N, C, H, K = CONV_LAYER
+    _release_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True           # PyTorch's default
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    x = torch.randn((N, C, H, H), generator=gen, device="cuda")
+    calls = {torch.float32: 0, torch.bfloat16: 0}    # conv_im2col calls
+
+    def im2col(a, b):
+        calls[a.dtype] += 1
+        return CV.conv_im2col(a, b)
+    algos = {**CV.ALGORITHMS, "im2col": im2col}
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    fastest = {}
+    for k in CONV_KS:
+        w = torch.randn((K, C, k, k), generator=gen, device="cuda") * 0.2
+        ref = CV.conv_direct(x, w)
+        check(torch.backends.cudnn.allow_tf32,
+              "conv_direct changed the caller's cuDNN TF32 setting")
+        r64 = F.conv2d(x[:CONV_F64_BATCH].double(), w.double())
+        scale64 = r64.abs().max().item()
+        err64 = ((ref[:CONV_F64_BATCH].double() - r64).abs().max().item()
+                 / scale64)
+        check(err64 <= CONV_TOL, f"conv_direct {k}x{k} vs float64: "
+              f"{err64:.3e} of max|ref| > {CONV_TOL}")
+        line = [f"direct vs float64 {err64:.2e}"]
+        if k == 3:
+            tf32 = F.conv2d(x[:CONV_F64_BATCH], w)       # cuDNN's default
+            e = (tf32.double() - r64).abs().max().item() / scale64
+            line.append(f"plain F.conv2d under the TF32 default vs float64 "
+                        f"{e:.2e}")
+            del tf32
+        del r64
+        scale = ref.abs().max().item()
+        wd = {"direct": WD.conv_direct(N, H, H, C, K, k, k),
+              "im2col": WD.conv_im2col(N, H, H, C, K, k, k),
+              "fft": WD.conv_fft(N, H, H, C, K),
+              "winograd": WD.conv_winograd(N, H, H, C, K, r=3, m=2)}
+        times = {}
+        for name, fn in algos.items():
+            if name == "winograd" and k != 3:
+                continue
+            if name != "direct":
+                out = fn(x, w)
+                check(tuple(out.shape) == tuple(ref.shape),
+                      f"{name} {k}x{k}: shape {tuple(out.shape)}")
+                err = (out - ref).abs().max().item() / scale
+                check(math.isfinite(err) and err <= CONV_TOL,
+                      f"{name} {k}x{k} vs conv_direct: {err:.3e} of max|ref| "
+                      f"> {CONV_TOL}")
+                line.append(f"{name} vs direct {err:.2e}")
+                del out
+            times[name] = time_ms(lambda: fn(x, w), iters=3, warmup=1)
+        if k == 3:
+            out = im2col(x.bfloat16(), w.bfloat16())
+            err = (out.float() - ref).abs().max().item() / scale
+            check(out.dtype == torch.bfloat16 and err <= 2e-2,
+                  f"im2col bf16 3x3 vs conv_direct: {err:.3e} of max|ref|")
+            line.append(f"im2col bf16 vs direct {err:.2e}")
+            del out
+        del ref
+        fastest[k] = min(times, key=times.get)
+        macs = wd["direct"].work
+        print(f"conv {k}x{k} @ Table 6 layer (N={N}, C={C}, {H}x{H}, K={K}, "
+              f"f32): errors over max|ref|: " + ", ".join(line) + " | "
+              f"{card}")
+        for name, t in times.items():
+            print(f"conv {k}x{k} {name}: {t:.4f} ms; Work-Depth W = "
+                  f"{wd[name].work:.4e}, D = {wd[name].depth}; W / time = "
+                  f"{wd[name].work / t / 1e6:.1f} G op/s; direct-equivalent "
+                  f"2 x {macs:.4e} MAC / time = {2 * macs / t / 1e9:.2f} "
+                  f"TFLOP/s")
+        print(f"conv {k}x{k}: fastest {fastest[k]} ({times[fastest[k]]:.4f} "
+              f"ms), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB")
+        del w
+        _release_card()
+        torch.cuda.reset_peak_memory_stats()
+    launches = dict(kernels.launch_counts)
+    n_calls = sum(calls.values())
+    check(launches["matmul"] == n_calls and all(calls.values()),
+          f"conv: B7 launches {launches['matmul']} != conv_im2col calls "
+          f"{n_calls}")
+    others = {k: v for k, v in launches.items() if k != "matmul" and v}
+    check(not others, f"conv: other kernels launched: {others}")
+    for r in rows:
+        if r["name"] in ("matmul", "matmul_bf16"):
+            r["launches"] = calls[torch.float32 if r["name"] == "matmul"
+                                  else torch.bfloat16]
+    print(f"conv: B7 launches {launches['matmul']} == conv_im2col calls "
+          f"{n_calls} (f32 {calls[torch.float32]}, bf16 "
+          f"{calls[torch.bfloat16]}); "
+          f"fastest per kernel size {fastest} (no one algorithm wins "
+          f"everywhere: {len(set(fastest.values())) > 1}) | {card}")
+
+    # the survey's claim, measured: Winograd's error against im2col's
+    w = torch.randn((K, C, 3, 3), generator=gen, device="cuda") * 0.2
+    xs = x[:CONV_F64_BATCH] * 100.0
+    r64 = F.conv2d(xs.double(), w.double())
+    e_w = (CV.conv_winograd(xs, w).double() - r64).abs().max().item()
+    e_i = (CV.conv_im2col(xs, w).double() - r64).abs().max().item()
+    wins = 0
+    for _ in range(CLAIM_DRAWS):
+        xt = torch.randn((2, 3, 18, 18), generator=gen, device="cuda") * 100
+        wt = torch.randn((4, 3, 3, 3), generator=gen, device="cuda") * 0.2
+        t64 = F.conv2d(xt.double(), wt.double())
+        wins += ((CV.conv_winograd(xt, wt).double() - t64).abs().max()
+                 >= (CV.conv_im2col(xt, wt).double() - t64).abs().max()).item()
+    print(f"conv claim (survey §4.3: Winograd less accurate than im2col), "
+          f"against float64, inputs x 100: Table 6 layer ({CONV_F64_BATCH} "
+          f"images) Winograd {e_w:.3e} vs im2col {e_i:.3e} -> "
+          f"{'holds' if e_w >= e_i else 'does not hold'}; the reference "
+          f"test's shape: holds in {wins} of {CLAIM_DRAWS} draws | {card}")
+    del x, xs, w, r64
+    _release_card()
+
+
 def build_phase():
     """nvcc every kernel source of the main paths (paged attention, flash
-    attention, the block quantizers) into build/, one compiler per source,
-    all started together;
+    attention, the block quantizers, the blocked GEMM) into build/, one
+    compiler per source, all started together;
     each compiler's per-kernel report goes to build/ptxas-<source>.txt and
     one summary line per source (kernels, most registers, spills) is
     printed."""
@@ -2160,6 +2491,7 @@ def build_phase():
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.kernel import SOURCE as FLASH
+    from repro_torch.kernels.matmul.kernel import SOURCE as MATMUL
     from repro_torch.kernels.paged_attention.kernel import SOURCE as PAGED
     from repro_torch.kernels.quantize.kernel import SOURCE as QUANT
 
@@ -2170,7 +2502,7 @@ def build_phase():
         return src, lib, report.getvalue(), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (PAGED, FLASH, QUANT)
+    sources = (PAGED, FLASH, QUANT, MATMUL)
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         results = list(pool.map(one, sources))
     for src, lib, text, secs in results:
@@ -2205,9 +2537,10 @@ def main() -> int:
         build_phase()
         rows = ([kernel_phase(card)] + multi_kernel_phase(card)
                 + int8_kernel_phase(card))
-        flash_row = flash_kernel_phase(card)
-        rows.append(flash_row)
+        flash_row, hd80_row = flash_kernel_phase(card)
+        rows += [flash_row, hd80_row]
         rows += quantize_kernel_phase(card)
+        rows += matmul_kernel_phase(card)
         parity_phase(card)
         ring_spec_parity_phase(card)
         int8_parity_phase(card)
@@ -2219,6 +2552,10 @@ def main() -> int:
         gemma3_main_phase(card, rows)
         plain_ms = train_main_phase(card, flash_row)
         paper_main_phase(card, rows, plain_ms)
+        train_main_phase(card, hd80_row, arch="stablelm-3b",
+                         layers=STABLELM_LAYERS, batch=1, seq=2048, timed=2,
+                         profile=False)
+        conv_phase(card, rows)
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()

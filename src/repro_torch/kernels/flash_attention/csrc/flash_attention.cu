@@ -10,9 +10,16 @@
 // It also writes the row log-sum-exp, m + log(l), for the backward pass.
 //
 // Layouts (all contiguous): q and out (B, S, H, hd); k and v (B, S, Hkv, hd);
-// lse (B, H, S) f32. GQA: query head h reads kv head h / (H / Hkv) in place
-// (the TPU wrapper repeats K/V in device memory first, ops.py:26-28; here
-// nothing is copied). Types: f32 or bf16 for q/k/v/out, one type for all.
+// lse (B, H, S) f32. Head dims: any multiple of 8 up to 256 (the paged
+// kernels' rule). The kernel is instantiated at the padded tile width HD, the
+// next multiple of 64 (64, 128, 192, 256), and takes the true hd at run time:
+// rows are hd elements apart, columns hd .. HD - 1 of each tile are
+// zero-filled on load (zeros add nothing to q.k, and their p.v columns are
+// never stored), and the store skips them. At hd 80 that wastes 3/8 of the
+// flops on zeros; a tensor-core redesign can cut tiles to hd's own width.
+// GQA: query head h reads kv head h / (H / Hkv) in place (the TPU wrapper
+// repeats K/V in device memory first, ops.py:26-28; here nothing is
+// copied). Types: f32 or bf16 for q/k/v/out, one type for all.
 //
 // Grid. The TPU grid (BH, S/bq, S/bk) runs in order on one core and carries
 // (m, l, acc) in VMEM scratch across its innermost kv axis, skipping the
@@ -102,19 +109,20 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Copies rows pos0 .. pos0 + ROWS - 1 of one head into an f32 tile with row
-// stride LD; `base` points at row 0 of that head and consecutive rows are
-// `row_stride` elements apart. Rows at or past S are zero-filled.
+// Copies rows pos0 .. pos0 + ROWS - 1 of one head into an f32 tile of HD
+// columns with row stride LD; `base` points at row 0 of that head and
+// consecutive rows are `row_stride` elements apart. Rows at or past S and
+// columns at or past hd (a multiple of 8) are zero-filled.
 template <typename T, int HD, int ROWS, int LD>
 __device__ __forceinline__ void load_tile(float* dst, const T* base, int pos0,
-                                          int S, int64_t row_stride) {
+                                          int S, int64_t row_stride, int hd) {
   constexpr int kVecs = HD / 8;
   for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
     const int r = i / kVecs;
     const int c = (i % kVecs) * 8;
     float* d = dst + r * LD + c;
     const int p = pos0 + r;
-    if (p < S) {
+    if (p < S && c < hd) {
       load8(d, base + p * row_stride + c);
     } else {
       float4* d4 = reinterpret_cast<float4*>(d);
@@ -129,13 +137,14 @@ constexpr int smem_floats() {
   return kBQ * (HD + 4) + BK * (HD + 4) + BK * HD + kBQ * (BK + 4);
 }
 
-// BK: keys per shared-memory tile (a multiple of 16).
+// HD: the padded tile width (a multiple of 64, >= hd); BK: keys per
+// shared-memory tile (a multiple of 16).
 template <typename T, int HD, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, int Hkv, int n_qt,
-                 float scale, int causal, int window) {
+                 float* __restrict__ lse, int S, int H, int Hkv, int hd,
+                 int n_qt, float scale, int causal, int window) {
   constexpr int LQ = HD + 4;        // Q / K tile row stride (floats)
   constexpr int LP = BK + 4;        // P tile row stride
   constexpr int KJ = BK / 16;       // keys a thread scores per tile
@@ -156,16 +165,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(Hkv) * HD;
+  const int64_t q_stride = static_cast<int64_t>(H) * hd;
+  const int64_t kv_stride = static_cast<int64_t>(Hkv) * hd;
   const T* q_base = q + static_cast<int64_t>(b) * S * q_stride +
-                    static_cast<int64_t>(h) * HD;
+                    static_cast<int64_t>(h) * hd;
   const int64_t kv_off = static_cast<int64_t>(b) * S * kv_stride +
-                         static_cast<int64_t>(kvh) * HD;
+                         static_cast<int64_t>(kvh) * hd;
   const T* k_base = k + kv_off;
   const T* v_base = v + kv_off;
 
-  load_tile<T, HD, kBQ, LQ>(q_s, q_base, q0, S, q_stride);
+  load_tile<T, HD, kBQ, LQ>(q_s, q_base, q0, S, q_stride, hd);
 
   // the keys this query tile needs: the window's reach to the diagonal
   const int q_last = min(q0 + kBQ, S) - 1;
@@ -184,8 +193,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                  // the last tile's readers are done
-    load_tile<T, HD, BK, LQ>(k_s, k_base, k0, S, kv_stride);
-    load_tile<T, HD, BK, HD>(v_s, v_base, k0, S, kv_stride);
+    load_tile<T, HD, BK, LQ>(k_s, k_base, k0, S, kv_stride, hd);
+    load_tile<T, HD, BK, HD>(v_s, v_base, k0, S, kv_stride, hd);
     __syncthreads();
 
     float s[4][KJ];
@@ -283,9 +292,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qp >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     T* o_row = out + (static_cast<int64_t>(b) * S + qp) * q_stride +
-               static_cast<int64_t>(h) * HD;
+               static_cast<int64_t>(h) * hd;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) {
+      if (4 * tx + 64 * jj >= hd) continue;   // a padding column
       const float4 a = acc[i][jj];
       store4(o_row + 4 * tx + 64 * jj,
              make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom));
@@ -297,8 +307,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, int BK>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int S, int H, int Hkv, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int B, int S, int H, int Hkv, int hd, float scale, int causal,
+           int window, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * smem_floats<HD, BK>();
   auto kern = flash_fwd_kernel<T, HD, BK>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -308,30 +318,34 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   const dim3 grid(static_cast<unsigned>(n_qt) * B * H);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, Hkv, n_qt,
-      scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, Hkv, hd,
+      n_qt, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Key tile per head dim: 64 keys at hd 64 (69 KB of shared memory), 32 at
-// hd 128 (76 KB) and hd 256 (142 KB); with 108-130 registers a thread that
-// is two, two and one block an SM.
+// Key tile per padded head dim: 64 keys at HD 64 (69 KB of shared memory),
+// 32 at HD 128 (76 KB), 192 (109 KB) and 256 (142 KB); with 115-128
+// registers a thread at HD 64-192 and 187 at 256 (ptxas) that is two, two,
+// two and one block an SM.
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int S, int H, int Hkv, int hd, float scale,
              int causal, int window, cudaStream_t s) {
-  switch (hd) {
-    case 64:
-      return launch<T, 64, 64>(q, k, v, out, lse, B, S, H, Hkv, scale, causal,
-                               window, s);
-    case 128:
-      return launch<T, 128, 32>(q, k, v, out, lse, B, S, H, Hkv, scale,
+  if (hd % 8 != 0 || hd < 8 || hd > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((hd + 63) / 64) {
+    case 1:
+      return launch<T, 64, 64>(q, k, v, out, lse, B, S, H, Hkv, hd, scale,
+                               causal, window, s);
+    case 2:
+      return launch<T, 128, 32>(q, k, v, out, lse, B, S, H, Hkv, hd, scale,
                                 causal, window, s);
-    case 256:
-      return launch<T, 256, 32>(q, k, v, out, lse, B, S, H, Hkv, scale,
+    case 3:
+      return launch<T, 192, 32>(q, k, v, out, lse, B, S, H, Hkv, hd, scale,
                                 causal, window, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<T, 256, 32>(q, k, v, out, lse, B, S, H, Hkv, hd, scale,
+                                causal, window, s);
   }
 }
 
@@ -339,8 +353,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 
 // q, out (B, S, H, hd); k, v (B, S, Hkv, hd); lse (B, H, S) f32; all
 // contiguous, 16-byte aligned. dtype 0 = f32, 1 = bf16. causal 0/1; window
-// 0 = none, else keys in (pos - window, pos]. hd in {64, 128, 256}. Launches
-// on `stream` and returns the launch's CUDA error code (0 = launched).
+// 0 = none, else keys in (pos - window, pos]. hd a multiple of 8 up to 256.
+// Launches on `stream` and returns the launch's CUDA error code (0 =
+// launched).
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* out, void* lse,
                                        int B, int S, int H, int Hkv, int hd,

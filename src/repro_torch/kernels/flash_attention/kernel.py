@@ -20,8 +20,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# head dims the source instantiates
-HEAD_DIMS = (64, 128, 256)
+# head dims the source takes: multiples of 8 up to 256, as the paged
+# kernels (each runs in a tile padded to the next multiple of 64)
+HEAD_DIMS = tuple(range(8, 257, 8))
 
 
 @functools.cache

@@ -48,8 +48,8 @@ def _check(q, k, v, window):
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v must be on one device")
     if q.is_cuda and hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} unsupported: the kernel is built for "
-                         f"{HEAD_DIMS}")
+        raise ValueError(f"head_dim {hd} unsupported: the kernel takes "
+                         f"multiples of 8 up to 256")
 
 
 def _forward_plain(q, k, v, scale, causal, window):
@@ -153,6 +153,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q: (B, S, H, hd); k, v: (B, S, Hkv, hd) with H % Hkv == 0, one
     dtype (f32 or bf16). Returns (B, S, H, hd) in q's dtype, differentiable
-    in q, k and v. On CUDA, hd must be 64, 128 or 256; S is any length."""
+    in q, k and v. On CUDA, hd must be a multiple of 8 up to 256; S is any
+    length."""
     _check(q, k, v, window)
     return FlashAttention.apply(q, k, v, q.shape[-1] ** -0.5, causal, window)

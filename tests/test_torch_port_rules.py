@@ -96,9 +96,11 @@ def test_importing_the_engine_loads_no_jax():
 
 TRAINING_SUBPACKAGES = ("optim", "data", "train", "launch",
                         "kernels/flash_attention", "core", "kernels/quantize")
+# the survey's §4.3 convolutions and their GEMM (B7)
+CONV_SUBPACKAGES = ("models", "kernels/matmul")
 
 
-@pytest.mark.parametrize("sub", TRAINING_SUBPACKAGES)
+@pytest.mark.parametrize("sub", TRAINING_SUBPACKAGES + CONV_SUBPACKAGES)
 def test_import_fence_covers_the_training_subpackages(sub):
     files = [p for p in PORT_FILES if (PORT / sub) in p.parents]
     assert files, f"no module of src/repro_torch/{sub} is scanned"
@@ -111,6 +113,18 @@ def test_importing_the_training_path_loads_no_jax():
     code = ("import sys, repro_torch.launch.train, repro_torch.train.trainer, "
             "repro_torch.train.checkpoint, repro_torch.optim, "
             "repro_torch.data.pipeline, repro_torch.kernels.flash_attention\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\nprint('PASS')\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env)
+    assert r.returncode == 0 and "PASS" in r.stdout, r.stderr
+
+
+def test_importing_the_conv_path_loads_no_jax():
+    code = ("import sys, repro_torch.models.conv, repro_torch.kernels.matmul, "
+            "repro_torch.core.workdepth, repro_torch.configs.stablelm_3b\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\nprint('PASS')\n")
