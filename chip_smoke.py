@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero before the final ok line:
   1. device — require CUDA; print the card's name and power limit.
   2. build  — compile the paged-attention, flash-attention, quantize and
      matmul sources (every kernel of the main paths) with nvcc into build/,
-     one compiler per source, started together.
+     one compiler per source, started together; print the registers and
+     spills of each tensor-core instantiation (B6 bf16 by width, B7 bf16
+     by output type) and require 0 spill stores for B6 bf16 at widths 64,
+     80 and 128 and for B7 bf16.
   3. kernel — every kernel against its plain PyTorch version on the card
      (f32 atol 2e-5, bf16 atol 2e-2): B1 over the reference's test sweep
      and the yi-9b decode shape; B2 (ring decode), B4 (verify) and B5 (ring
@@ -21,23 +24,32 @@ Phases, in order; any failure exits non-zero before the final ok line:
      modes on int8 pools with their scales (dequantized in the kernel),
      over the same sweeps with poisoned dead keys and NaN scales, each
      timed likewise and beside the bf16 kernel on the same values. Then
-     B6 (flash attention, the training forward): causal and windowed
-     (32, 64, 1024), GQA 1/4/8, hd 8/64/80/128/136/256 and ragged lengths,
-     with its row log-sum-exp; the autograd.Function's gradients against
-     autograd through the plain version (also at hd 80); timed at the
-     training shapes (yi-9b, batch 2 x 4096; stablelm-3b, hd 80, 1 x 2048)
-     beside its plain version, SDPA(is_causal) and its operation bound.
+     B6 (flash attention, the training forward; bf16 on the tensor cores,
+     f32 on the CUDA cores): causal and windowed (32, 40, 48, 64, 100,
+     1024; 40 and 48 cut a key tile mid-way), GQA 1/4/8, hd 8, 16, 64, 80,
+     96, 112, 128, 136, 200, 256 and ragged lengths, with its row
+     log-sum-exp within 1e-4 (bf16 also within 1e-2 of each row's rms,
+     the check that sees a dropped key tile in a long row); the
+     autograd.Function's gradients against autograd through the plain
+     version (also at hd 80, and bf16 at hd 80 and 128 on lengths no tile
+     divides); at the training shapes (yi-9b, batch 2 x 4096; stablelm-3b,
+     hd 80, 1 x 2048) checked by the same three measures and timed beside
+     its plain version, SDPA(is_causal) and its operation bound, each with
+     TFLOP/s.
      Then B9 and B8 (the block quantizers, stochastic and nearest): bits 8
      and 4, n = 256, 1000, 4096, 65537 and a case with an
      all-zero row and a ragged tail, q and scales EQUAL to the plain
      version; the int8 KV quantizer equal on cuda and cpu; each mode timed
      at the largest yi-9b training leaf and over a training step's 12
      leaves beside its plain version and byte bound (no library call
-     computes the function). Then B7 (the blocked GEMM) in f32 and bf16
-     over the reference's sweep, ragged shapes and the five im2col shapes
-     of the survey's Table 6 layer, against its plain version (f32 within
+     computes the function). Then B7 (the blocked GEMM; bf16 on the tensor
+     cores, f32 on the CUDA cores) in f32 and bf16 over the reference's
+     sweep, ragged shapes (K = 577 and N = 65 take the bf16 kernel's masked
+     scalar loader, N = 200 a partial tile) and the five im2col shapes of
+     the survey's Table 6 layer, against its plain version (f32 within
      min(2e-6 K, 1e-5 max|ref|), bf16 within 2e-2 max|ref|), timed at the
-     K=3 and K=13 shapes beside its plain version, cuBLAS and its bound.
+     K=3 and K=13 shapes beside its plain version, cuBLAS and its bound,
+     each with TFLOP/s and GB/s.
   4. parity — tiny f32 models served on cuda and on cpu from the same
      weights: a full-attention one (staggered requests, a mid-flight
      defragment, a prefix-cache copy-on-write replay), reduced gemma3 and a
@@ -124,6 +136,10 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------------ timing
+def _tflops(flops, ms):
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
+
+
 def time_ms(fn, iters=30, warmup=3):
     """Mean device ms per call from CUDA events around each call, with the
     50 MB L2 flushed before every call (a decode step meets each layer's
@@ -1438,7 +1454,11 @@ def gemma3_main_phase(card, rows):
 # (B, S, H, Hkv, hd, causal, window): GQA groups 1, 4 and 8, hd 64 / 128 /
 # 256, windows 32 and 1024, ragged lengths (not multiples of the 64-row
 # query tile or of the key tile), and the mask without its causal half;
-# then head dims that run in a padded tile (80 as stablelm-3b, 8, 136)
+# then head dims that the f32 kernel runs in a padded tile (80 as
+# stablelm-3b, 8, 136); then head dims that the bf16 kernel runs at the
+# next width of its table (16 at 64, 96 and 112 at 128, 200 at 256),
+# lengths no tile divides, and windows (40, 48) that cut a 32-key tile
+# mid-way
 FLASH_SWEEP = [
     (2, 256, 4, 4, 64, True, None),
     (2, 256, 8, 2, 64, True, None),
@@ -1455,6 +1475,11 @@ FLASH_SWEEP = [
     (1, 200, 4, 1, 80, False, None),
     (2, 100, 4, 2, 8, True, None),
     (1, 260, 4, 2, 136, True, 100),
+    (1, 200, 4, 2, 16, True, None),
+    (2, 333, 4, 1, 96, True, None),
+    (1, 277, 8, 2, 112, True, 48),
+    (1, 300, 4, 4, 200, True, 100),
+    (2, 515, 4, 2, 128, True, 40),
 ]
 # forward and backward cases: (B, S, H, Hkv, hd, causal, window)
 FLASH_GRAD_CASES = [
@@ -1463,11 +1488,31 @@ FLASH_GRAD_CASES = [
     (1, 640, 8, 1, 128, True, None),
     (1, 256, 4, 4, 80, True, None),
     (1, 200, 4, 2, 80, True, 32),
+    (1, 515, 8, 2, 80, True, None),
+    (2, 384, 8, 1, 128, True, 100),
 ]
 # the training main paths' attention: yi-9b, batch 2 x 4096; stablelm-3b
 # (MHA, hd 80), batch 1 x 2048
 FLASH_MAIN = (2, 4096, 32, 4, 128, True, None)
 FLASH_HD80 = (1, 2048, 32, 32, 80, True, None)
+# bf16: the largest error of a row of hd outputs relative to that row's
+# scale, max over rows of rms(out - ref) / rms(ref). Late rows of a long
+# causal row average thousands of values (rms ~0.03 at S = 4096), where an
+# absolute 2e-2 would pass a kernel that drops a key tile; a sound kernel
+# differs by P's rounding (~2^-9 of each p) and one bf16 ulp on either side
+B6_ROW_TOL = 1e-2
+
+
+def _flash_errors(out, lse, ref, ref_lse):
+    """B6's forward against its plain version: (max abs error, the
+    largest row error relative to the row's scale, max lse error)."""
+    diff = out.float() - ref.float()
+
+    def rms(x):
+        return x.pow(2).mean(-1).sqrt()
+    row = (rms(diff) / rms(ref.float()).clamp_min(1e-30)).max().item()
+    return (diff.abs().max().item(), row,
+            (lse - ref_lse).abs().max().item())
 
 
 def _admitted_pairs(S, causal, window):
@@ -1510,16 +1555,18 @@ def flash_kernel_phase(card):
             ref, ref_lse = flash_attention_ref(q, k, v, causal=causal,
                                                window=window)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
+            err, row, lse_err = _flash_errors(out, lse, ref, ref_lse)
+            row_tol = B6_ROW_TOL if dt == torch.bfloat16 else math.inf
             label = (f"B6 B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal={causal} "
                      f"window={window} {dt}")
             # lse: a log of an f32 sum taken in another order, |lse| ~ 10
-            check(math.isfinite(err) and err <= tol[dt] and lse_err <= 1e-4,
-                  f"{label}: max_abs_err {err} (tol {tol[dt]}), lse err "
-                  f"{lse_err} (tol 1e-4)")
+            check(math.isfinite(err) and err <= tol[dt] and row <= row_tol
+                  and lse_err <= 1e-4,
+                  f"{label}: max_abs_err {err} (tol {tol[dt]}), row error "
+                  f"{row} (tol {row_tol}), lse err {lse_err} (tol 1e-4)")
             worst[dt] = max(worst[dt], err)
-            print(f"kernel {label}: max_abs_err {err:.3e}, lse {lse_err:.3e}")
+            print(f"kernel {label}: max_abs_err {err:.3e}, row {row:.3e}, "
+                  f"lse {lse_err:.3e}")
     # gradients: the kernel's forward + the PyTorch backward against
     # autograd through the plain version, tolerance scaled by the largest
     # gradient (f32: 2e-5 x max(1, |g|); bf16: 2e-2 x max(1, |g|), each
@@ -1566,11 +1613,13 @@ def _flash_timed(card, gen, shape, name, where):
     q, k, v = _flash_inputs(gen, B, S, H, Hkv, hd, torch.bfloat16)
     with torch.no_grad():
         out, lse = _forward_kernel(q, k, v, hd ** -0.5, causal, window)
-        ref, _ = flash_attention_ref(q, k, v, causal=causal, window=window)
-        main_err = (out.float() - ref.float()).abs().max().item()
-        check(main_err <= 2e-2,
-              f"B6 at the {where}: max_abs_err {main_err}")
-        del ref
+        ref, ref_lse = flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+        main_err, row, lse_err = _flash_errors(out, lse, ref, ref_lse)
+        check(main_err <= 2e-2 and row <= B6_ROW_TOL and lse_err <= 1e-4,
+              f"B6 at the {where}: max_abs_err {main_err} (tol 2e-2), row "
+              f"error {row} (tol {B6_ROW_TOL}), lse err {lse_err} (tol 1e-4)")
+        del ref, ref_lse
         item = q.element_size()
         pairs = _admitted_pairs(S, causal, window)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * item + lse.numel() * 4
@@ -1594,12 +1643,16 @@ def _flash_timed(card, gen, shape, name, where):
         bwd_ms = time_ms(lambda: attention_backward(
             q, k, v, out, lse, dout, scale=hd ** -0.5, causal=causal,
             window=window), iters=3, warmup=1)
+    print(f"B6 {name} @ {where}: max_abs_err {main_err:.3e}, row error "
+          f"{row:.3e}, lse err {lse_err:.3e}")
     print(f"B6 {name} @ {where} (B={B}, S={S}, H={H}, Hkv={Hkv}, hd={hd}, "
-          f"bf16, causal): kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
-          f"SDPA(is_causal) {library_ms:.4f} ms (err vs kernel {lib_err:.2e}), "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
-          f"PyTorch backward {bwd_ms:.4f} ms | {card}")
+          f"bf16, causal): kernel {ms:.4f} ms ({_tflops(flops, ms)}), plain "
+          f"{plain_ms:.4f} ms ({_tflops(flops, plain_ms)}), library "
+          f"SDPA(is_causal) {library_ms:.4f} ms "
+          f"({_tflops(flops, library_ms)}; err vs kernel {lib_err:.2e}), "
+          f"bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({_tflops(flops, bound_ms)}; {nbytes} B, {flops} "
+          f"flop); PyTorch backward {bwd_ms:.4f} ms | {card}")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -2209,10 +2262,13 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8,
 # ------------------------------------------------------ phase 3f: kernel B7
 MATMUL_SOURCE = "src/repro_torch/kernels/matmul/csrc/matmul.cu"
 # (M, K, N): the reference's sweep (tests/test_kernels.py:14), then shapes
-# no tile divides (K past a 16-deep k tile, M and N past a 128 x 64 tile)
+# no tile divides (K past a k tile, M and N past a 128 x 64 tile); K or N
+# not a multiple of 8 sends that operand through the bf16 kernel's masked
+# scalar loader (K = 577, N = 65), N = 200 ends in a partial 64-wide tile
 MATMUL_SWEEP = [(128, 128, 128), (256, 512, 128), (128, 1024, 256),
                 (384, 256, 640), (1000, 577, 65), (1, 9, 1), (130, 17, 70),
-                (7, 33, 129)]
+                (7, 33, 129), (513, 576, 65), (300, 577, 200),
+                (1000, 576, 200)]
 # the survey's Table 6 layer (benchmarks/table6_conv_algorithms.py): batch
 # 64, 64 input and 64 output channels, 56 x 56, VALID, at each kernel size
 CONV_LAYER = (64, 64, 56, 64)      # N, C_in, H (= W), C_out
@@ -2310,12 +2366,17 @@ def matmul_kernel_phase(card):
             t_ops = flops / peak * 1e3
             bound_ms = max(t_bytes, t_ops)
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
+
+            def rates(t):
+                return (f"{_tflops(flops, t)}, "
+                        f"{nbytes / t / 1e6:.1f} GB/s")
             print(f"B7 matmul @ Table 6 im2col GEMM, kernel {k}x{k} (M={M}, "
-                  f"K={K}, N={N}, {dt}): kernel {ms:.4f} ms "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain (f32 cuBLAS) "
-                  f"{plain_ms:.4f} ms, library torch.matmul {library_ms:.4f} "
-                  f"ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, "
-                  f"{flops} flop; peak {peak / 1e12:.0f} TFLOP/s) | {card}")
+                  f"K={K}, N={N}, {dt}): kernel {ms:.4f} ms ({rates(ms)}), "
+                  f"plain (f32 cuBLAS) {plain_ms:.4f} ms ({rates(plain_ms)}), "
+                  f"library torch.matmul {library_ms:.4f} ms "
+                  f"({rates(library_ms)}), bound {bound_ms:.4f} ms by "
+                  f"{bound_by} ({rates(bound_ms)}; {nbytes} B, {flops} flop; "
+                  f"peak {peak / 1e12:.0f} TFLOP/s) | {card}")
             if k == 3:
                 rows.append({
                     "name": "matmul" if dt == f32 else "matmul_bf16",
@@ -2479,13 +2540,42 @@ def conv_phase(card, rows):
     _release_card()
 
 
+# tensor-core kernels whose ptxas report must show 0 spill stores: B6 in
+# bf16 at the widths of the configs' head dims 64, 80 and 128, and B7 in
+# bf16 (both output types)
+NO_SPILL = {"flash_attention": r"flash_fwd_bf16ILi(64|80|128)E",
+            "matmul": r"matmul_bf16_kernel"}
+# their instantiations by mangled template arguments, for the summary
+TC_KERNELS = {"flash_attention": (r"flash_fwd_bf16ILi(\d+)E", "width"),
+              "matmul": (r"matmul_bf16_kernelI(\w+?)E", "out")}
+TC_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16"}
+
+
+def _ptxas_kernels(text):
+    """(mangled name, registers, spill-store bytes) of each kernel in a
+    `ptxas -v` report."""
+    import re
+    kernels, name, spill = [], None, 0
+    for line in text.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spill = int(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            kernels.append((name, int(m.group(1)), spill))
+            name = None
+    return kernels
+
+
 def build_phase():
     """nvcc every kernel source of the main paths (paged attention, flash
     attention, the block quantizers, the blocked GEMM) into build/, one
     compiler per source, all started together;
     each compiler's per-kernel report goes to build/ptxas-<source>.txt and
     one summary line per source (kernels, most registers, spills) is
-    printed."""
+    printed, then registers and spills of each tensor-core instantiation
+    (B6 bf16 by width, B7 bf16 by output type); fails if one in NO_SPILL
+    spills."""
     import io
     import re
     from concurrent.futures import ThreadPoolExecutor
@@ -2514,6 +2604,18 @@ def build_phase():
         print(f"build: {lib.name} in {secs:.1f} s; {len(regs)} kernels, most "
               f"registers {max(regs, default=0)}, spill stores {sum(spills)} "
               f"B (report: build/{report.name})")
+        if src.stem in TC_KERNELS:
+            pattern, what = TC_KERNELS[src.stem]
+            found = [(re.search(pattern, n).group(1), r, sp)
+                     for n, r, sp in _ptxas_kernels(text)
+                     if re.search(pattern, n)]
+            print(f"build: {src.stem} tensor-core kernels by {what}: " + ", "
+                  .join(f"{TC_NAMES.get(key, key)} {r} registers / {sp} B "
+                        f"spilled" for key, r, sp in found))
+            gated = [(n, sp) for n, _, sp in _ptxas_kernels(text)
+                     if re.search(NO_SPILL[src.stem], n)]
+            check(gated and all(sp == 0 for _, sp in gated),
+                  f"{src.name}: tensor-core kernels spill: {gated}")
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s")
 
 

@@ -1,7 +1,10 @@
-"""ctypes binding of the hand-written CUDA flash-attention forward kernel
+"""ctypes binding of the hand-written CUDA flash-attention forward kernels
 (``csrc/flash_attention.cu``, the Hopper port of the TPU body ``flash_kernel``
 in ``repro/kernels/flash_attention/kernel.py``): ``flash_attention_forward``
-writes the attention output and the row log-sum-exp.
+writes the attention output and the row log-sum-exp. bf16 runs on the tensor
+cores (``mma.sync`` fed by ``cp.async``) at the widths of the source's
+``kTcWidths``; f32 runs on the CUDA cores in a tile padded to the next
+multiple of 64.
 
 The library is built with ``nvcc`` on first use (``kernels.build``), never
 at import, so this module imports on a machine without CUDA.
@@ -20,8 +23,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# head dims the source takes: multiples of 8 up to 256, as the paged
-# kernels (each runs in a tile padded to the next multiple of 64)
+# head dims the source takes: multiples of 8 up to 256, as the paged kernels
 HEAD_DIMS = tuple(range(8, 257, 8))
 
 

@@ -8,36 +8,53 @@
 // convolution (repro_torch/models/conv.py, `conv_im2col`).
 //
 // Layouts (all contiguous, row-major): a (M, K), b (K, N), c (M, N). Types: a
-// and b both f32 or both bf16; c f32 or bf16. bf16 is converted to f32 as it
-// is loaded, so every product and sum is an f32 FMA, as the reference's
-// preferred_element_type=f32. f32 stays IEEE f32: no TF32, no tensor cores.
+// and b both f32 or both bf16; c f32 or bf16. The entry point dispatches by
+// the input type to one of two kernels.
 //
-// Grid. The TPU grid (M/bm, N/bn, K/bk) runs in order on one core and carries
-// the f32 accumulator in VMEM scratch across its k axis; its blocks must
-// divide the dims. On Hopper blocks run in parallel and in no order, so one
-// block owns one 128 x 64 output tile and loops itself over K in 16-deep
-// tiles. Tiles are sized for the im2col shapes, where N (the output channels)
-// is 64: a 256-wide tile would waste three quarters of its work. Blocks along
-// M are consecutive, so the few B tiles stay in L2. Ragged edges: M, N and K
-// need not divide any tile; rows, columns and k past the edge are loaded as
-// zeros in BOTH operands (so no stale shared memory enters a sum) and never
-// stored.
+// Grid (both kernels). The TPU grid (M/bm, N/bn, K/bk) runs in order on one
+// core and carries the f32 accumulator in VMEM scratch across its k axis; its
+// blocks must divide the dims. On Hopper blocks run in parallel and in no
+// order, so one block owns one 128 x 64 output tile and loops itself over K.
+// Tiles are sized for the im2col shapes, where N (the output channels) is 64:
+// one block covers all of N, so each A row is read once, and a 256-wide tile
+// would waste three quarters of its work. Blocks along M are consecutive, so
+// the few B tiles stay in L2. Ragged edges: M, N and K need not divide any
+// tile; rows, columns and k past the edge are loaded as zeros in BOTH
+// operands (so no stale shared memory enters a sum) and never stored.
 //
 // Bound. At the im2col shapes the GEMM does 2 M N K flops on (M K + K N + M
 // N) elements: for f32 on the CUDA cores the floor is the flops over the
 // FP32 peak (67 TFLOP/s); in bf16 over the tensor cores' 989 TFLOP/s it is
-// the bytes.
+// the bytes (A's M K elements, read once).
 //
-// Design for that bound, first version (simple and right; no cp.async, TMA,
-// mma or wgmma yet, so bf16 also runs at the f32 FMA rate): 128 threads as a
-// 16 x 8 grid, each thread owning an 8 x 8 register tile (rows 4ty..+3 and
-// 64+4ty..+3, columns 4tx..+3 and 32+4tx..+3), so each k step reads four
-// float4 from shared memory for 64 FMAs. A is stored k-major (transposed) in
-// shared memory with rows padded by 4 floats, so the float4 reads stay
-// aligned and the transposing stores meet at most two-way bank conflicts;
-// two shared-memory buffers with a register prefetch: the next tile's global
-// loads are in flight while the current tile is multiplied, one barrier a
-// tile.
+// bf16: `matmul_bf16_kernel`, on the tensor cores. Four warps, each owning 32
+// rows x 64 columns of the tile (2 x 8 mma.sync.m16n8k16 accumulators: bf16
+// in, f32 accumulate, 64 f32 registers a thread). A and B tiles 64 deep sit
+// in a 4-stage ring in shared memory, filled with 16-byte cp.async (the
+// zero-fill form past M, N and K): three stages are in flight while one is
+// multiplied (72 KB a block, two blocks an SM), one barrier a tile. 64 deep
+// gives each A row 128 contiguous bytes a stage (32 deep, 64 bytes, moved
+// markedly fewer bytes a second from device memory). A fragments come from
+// ldmatrix, B fragments from ldmatrix.trans (B is row-major, k along rows);
+// rows are padded by 16 bytes (an odd multiple of 16 bytes a row), so the 8
+// rows of every ldmatrix fall on distinct banks. Where K (for A) or N (for B)
+// is not a multiple of 8, or the base is not 16-byte aligned, rows are not
+// 16-byte aligned and that operand takes a masked scalar loader into the same
+// ring. Numerics: products of bf16 values are exact in f32 and sums are f32,
+// as preferred_element_type=f32; the sums run in another order than the f32
+// plain version's.
+//
+// f32: `matmul_kernel`, on the CUDA cores, IEEE f32: no TF32 and no tensor
+// cores, as the reference's f32 accumulator and the survey's §4.3 accuracy
+// comparison need (it equals cuBLAS f32 bit for bit at the im2col shapes).
+// 128 threads as a 16 x 8 grid, each thread owning an 8 x 8 register tile
+// (rows 4ty..+3 and 64+4ty..+3, columns 4tx..+3 and 32+4tx..+3), so each k
+// step reads four float4 from shared memory for 64 FMAs. A is stored k-major
+// (transposed) in shared memory with rows padded by 4 floats, so the float4
+// reads stay aligned and the transposing stores meet at most two-way bank
+// conflicts; two shared-memory buffers with a register prefetch: the next
+// 16-deep tile's global loads are in flight while the current tile is
+// multiplied, one barrier a tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -47,24 +64,22 @@ namespace {
 
 constexpr int kBM = 128;            // output rows per block
 constexpr int kBN = 64;             // output columns per block
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// ------------------------------------------------------------------ f32
 constexpr int kBK = 16;             // k per shared-memory tile
 constexpr int kThreads = 128;       // 16 x 8 threads, 8 x 8 outputs each
 constexpr int kLA = kBM + 4;        // A tile row stride (floats)
 constexpr int kAPer = kBM * kBK / kThreads;   // A elements a thread loads: 16
 constexpr int kBPer = kBK * kBN / kThreads;   // B elements a thread loads: 8
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <typename Tin, typename Tout>
+template <typename Tout>
 __global__ void __launch_bounds__(kThreads)
-matmul_kernel(const Tin* __restrict__ a, const Tin* __restrict__ b,
+matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
               Tout* __restrict__ c, int M, int N, int K) {
   __shared__ __align__(16) float a_s[2][kBK][kLA];   // [k][m]
   __shared__ __align__(16) float b_s[2][kBK][kBN];   // [k][n]
@@ -88,15 +103,13 @@ matmul_kernel(const Tin* __restrict__ a, const Tin* __restrict__ b,
 #pragma unroll
     for (int r = 0; r < kAPer; ++r) {
       const int row = m0 + a_row + 8 * r;
-      ra[r] = row < M && ka < K
-                  ? to_f32(a[static_cast<int64_t>(row) * K + ka]) : 0.f;
+      ra[r] = row < M && ka < K ? a[static_cast<int64_t>(row) * K + ka] : 0.f;
     }
     const int nb = n0 + b_col;
 #pragma unroll
     for (int r = 0; r < kBPer; ++r) {
       const int kb = k0 + b_row + 2 * r;
-      rb[r] = kb < K && nb < N
-                  ? to_f32(b[static_cast<int64_t>(kb) * N + nb]) : 0.f;
+      rb[r] = kb < K && nb < N ? b[static_cast<int64_t>(kb) * N + nb] : 0.f;
     }
   };
   auto stash = [&](int buf) {
@@ -154,22 +167,227 @@ matmul_kernel(const Tin* __restrict__ a, const Tin* __restrict__ b,
   }
 }
 
-template <typename Tin, typename Tout>
-int launch(const void* a, const void* b, void* c, int M, int N, int K,
-           cudaStream_t stream) {
+// ----------------------------------------------------------------- bf16
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcBK = 64;                   // k per stage
+constexpr int kTcStages = 4;
+constexpr int kTcThreads = 128;             // 4 warps, 32 rows each
+constexpr int kTcLA = kTcBK + 8;            // A stage row stride (bf16): 144 B
+constexpr int kTcLB = kBN + 8;              // B stage row stride: 144 B
+constexpr int kTcStage = kBM * kTcLA + kTcBK * kTcLB;   // bf16 a stage
+constexpr int kTcSmem = kTcStages * kTcStage * static_cast<int>(sizeof(bf16));
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; zeros
+// where !full (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16, row-major) . b (16 x 8 bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// a_vec / b_vec: that operand's rows are 16-byte aligned (K, resp. N, a
+// multiple of 8 and the base aligned), so it is loaded with cp.async.
+template <typename Tout>
+__global__ void __launch_bounds__(kTcThreads)
+matmul_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                   Tout* __restrict__ c, int M, int N, int K, int a_vec,
+                   int b_vec) {
+  extern __shared__ uint4 smem_tc[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_tc);   // [stage][A | B]
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;          // the fragment's row (and row + 8)
+  const int tig = lane % 4;        // its column pair
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // stage `st` <- A[m0.., k0..k0+kTcBK-1] and B[k0..k0+kTcBK-1, n0..]
+  auto load = [&](int st, int k0) {
+    bf16* a_s = ring + st * kTcStage;
+    bf16* b_s = a_s + kBM * kTcLA;
+    if (a_vec) {
+#pragma unroll
+      for (int it = 0; it < kBM * kTcBK / 8 / kTcThreads; ++it) {
+        const int i = tid + it * kTcThreads;
+        const int r = i / (kTcBK / 8), cc = (i % (kTcBK / 8)) * 8;
+        const int row = m0 + r, kk = k0 + cc;
+        const bool ok = row < M && kk < K;
+        cp_async16(smem_u32(a_s + r * kTcLA + cc),
+                   ok ? a + static_cast<int64_t>(row) * K + kk : a, ok);
+      }
+    } else {
+      for (int i = tid; i < kBM * kTcBK; i += kTcThreads) {
+        const int r = i / kTcBK, cc = i % kTcBK;
+        const int row = m0 + r, kk = k0 + cc;
+        a_s[r * kTcLA + cc] =
+            row < M && kk < K ? a[static_cast<int64_t>(row) * K + kk] : zero;
+      }
+    }
+    if (b_vec) {
+#pragma unroll
+      for (int it = 0; it < kTcBK * kBN / 8 / kTcThreads; ++it) {
+        const int i = tid + it * kTcThreads;
+        const int r = i / (kBN / 8), cc = (i % (kBN / 8)) * 8;
+        const int kk = k0 + r, col = n0 + cc;
+        const bool ok = kk < K && col < N;
+        cp_async16(smem_u32(b_s + r * kTcLB + cc),
+                   ok ? b + static_cast<int64_t>(kk) * N + col : b, ok);
+      }
+    } else {
+      for (int i = tid; i < kTcBK * kBN; i += kTcThreads) {
+        const int r = i / kBN, cc = i % kBN;
+        const int kk = k0 + r, col = n0 + cc;
+        b_s[r * kTcLB + cc] =
+            kk < K && col < N ? b[static_cast<int64_t>(kk) * N + col] : zero;
+      }
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+
+  // per-lane ldmatrix offsets (bf16) within a stage's A and B tiles
+  const int a_off = (32 * warp + lane % 16) * kTcLA + (lane / 16) * 8;
+  const int b_off = (((lane / 8) % 2) * 8 + lane % 8) * kTcLB + (lane / 16) * 8;
+
+  const int n_k = (K + kTcBK - 1) / kTcBK;
+#pragma unroll
+  for (int st = 0; st < kTcStages - 1; ++st) {
+    if (st < n_k) load(st, st * kTcBK);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_k; ++t) {
+    // tile t has landed, and every warp is done with tile t - 1, whose
+    // stage the next loads overwrite
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();
+    const int nt = t + kTcStages - 1;
+    if (nt < n_k) load(nt % kTcStages, nt * kTcBK);
+    cp_async_commit();
+
+    const bf16* a_s = ring + (t % kTcStages) * kTcStage;
+    const uint32_t a_base = smem_u32(a_s + a_off);
+    const uint32_t b_base = smem_u32(a_s + kBM * kTcLA + b_off);
+#pragma unroll
+    for (int ks = 0; ks < kTcBK / 16; ++ks) {
+      uint32_t af[2][4], bfr[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(af[mi], a_base + (16 * mi * kTcLA + 16 * ks) * 2);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        ldsm_x4_trans(bfr[nj], b_base + (16 * ks * kTcLB + 16 * nj) * 2);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          mma_bf16(acc[mi][2 * nj], af[mi], bfr[nj][0], bfr[nj][1]);
+          mma_bf16(acc[mi][2 * nj + 1], af[mi], bfr[nj][2], bfr[nj][3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator (mi, j): rows 32 warp + 16 mi + g (+ 8), columns 8 j + 2 tig
+  // (+ 1); column pairs are stored together where N is even (aligned)
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 32 * warp + 16 * mi + g + 8 * r;
+      if (row >= M) continue;
+      Tout* c_row = c + static_cast<int64_t>(row) * N;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + 8 * j + 2 * tig;
+        const float x = acc[mi][j][2 * r], y = acc[mi][j][2 * r + 1];
+        if (N % 2 == 0 && col < N) {
+          store2(c_row + col, x, y);
+        } else {
+          if (col < N) store(c_row + col, x);
+          if (col + 1 < N) store(c_row + col + 1, y);
+        }
+      }
+    }
+}
+
+template <typename Tout>
+int launch_f32(const void* a, const void* b, void* c, int M, int N, int K,
+               cudaStream_t stream) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  matmul_kernel<Tin, Tout><<<grid, kThreads, 0, stream>>>(
-      static_cast<const Tin*>(a), static_cast<const Tin*>(b),
+  matmul_kernel<Tout><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<Tout*>(c), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin>
-int dispatch_out(const void* a, const void* b, void* c, int M, int N, int K,
-                 int out_dtype, cudaStream_t s) {
-  if (out_dtype == 0) return launch<Tin, float>(a, b, c, M, N, K, s);
-  if (out_dtype == 1) return launch<Tin, __nv_bfloat16>(a, b, c, M, N, K, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+template <typename Tout>
+int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K,
+                cudaStream_t stream) {
+  auto kern = matmul_bf16_kernel<Tout>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int a_vec =
+      K % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 ? 1 : 0;
+  const int b_vec =
+      N % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0 ? 1 : 0;
+  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
+  kern<<<grid, kTcThreads, kTcSmem, stream>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<Tout*>(c), M, N, K, a_vec, b_vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -183,13 +401,15 @@ extern "C" int matmul_f32acc(const void* a, const void* b, void* c,
                              int in_dtype, int out_dtype, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (M < 0 || N < 0 || K < 0 || M > INT32_MAX || K > INT32_MAX ||
-      (N + kBN - 1) / kBN > 65535)
+      (N + kBN - 1) / kBN > 65535 || (in_dtype != 0 && in_dtype != 1) ||
+      (out_dtype != 0 && out_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = static_cast<int>(M), n = static_cast<int>(N),
             k = static_cast<int>(K);
-  if (in_dtype == 0) return dispatch_out<float>(a, b, c, m, n, k, out_dtype, s);
-  if (in_dtype == 1)
-    return dispatch_out<__nv_bfloat16>(a, b, c, m, n, k, out_dtype, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (in_dtype == 0)
+    return out_dtype == 0 ? launch_f32<float>(a, b, c, m, n, k, s)
+                          : launch_f32<bf16>(a, b, c, m, n, k, s);
+  return out_dtype == 0 ? launch_bf16<float>(a, b, c, m, n, k, s)
+                        : launch_bf16<bf16>(a, b, c, m, n, k, s);
 }

@@ -1,7 +1,9 @@
 """ctypes binding of the hand-written CUDA blocked GEMM (``csrc/matmul.cu``,
 the Hopper port of the TPU body ``matmul_kernel`` in
 ``repro/kernels/matmul/kernel.py``): ``matmul_cuda`` writes a @ b, summed in
-f32, into an output of f32 or bf16.
+f32, into an output of f32 or bf16. bf16 inputs run on the tensor cores
+(``mma.sync`` fed by a ``cp.async`` ring); f32 inputs on the CUDA cores in
+IEEE f32 (no TF32).
 
 The library is built with ``nvcc`` on first use (``kernels.build``), never
 at import, so this module imports on a machine without CUDA.

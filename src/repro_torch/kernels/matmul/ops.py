@@ -46,8 +46,9 @@ def _kernel(a, b, out_dtype):
 
 def matmul(a, b, *, out_dtype=None):
     """a (M, K) @ b (K, N) -> (M, N), summed in f32 and cast to `out_dtype`
-    (default a's dtype). a and b share one dtype, f32 or bf16; f32 stays
-    IEEE f32 on the card (no TF32). Any M, N and K."""
+    (default a's dtype). a and b share one dtype, f32 or bf16; on the card
+    bf16 runs on the tensor cores (exact products, f32 sums) and f32 stays
+    IEEE f32 (no TF32). Any M, N and K."""
     _check(a, b, out_dtype)
     if a.is_cuda:
         return _kernel(a, b, out_dtype)
