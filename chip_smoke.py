@@ -11,19 +11,25 @@ Phases, in order; any failure exits non-zero before the final ok line:
      matmul sources (every kernel of the main paths) with nvcc into build/,
      one compiler per source, started together; print the registers and
      spills of each tensor-core instantiation (B6 bf16 by width, B7 bf16
-     by output type) and require 0 spill stores for B6 bf16 at widths 64,
-     80 and 128 and for B7 bf16.
+     by output type, the bf16 decode B1/B2 by width, pool and mode) and
+     require 0 spill stores for B6 bf16 at widths 64, 80 and 128, for B7
+     bf16 and for the bf16 decode at 64, 80, 128 and 256.
   3. kernel — every kernel against its plain PyTorch version on the card
      (f32 atol 2e-5, bf16 atol 2e-2): B1 over the reference's test sweep
      and the yi-9b decode shape; B2 (ring decode), B4 (verify) and B5 (ring
      verify) over head layouts incl. gemma3's and yi-9b's, k = 2, 4, 8,
      ring positions before, at and far past the first wrap, an inactive
-     slot and poisoned dead/stale keys; each kernel timed beside its plain
-     version, one library call and its byte / operation bound (B1 at the
-     yi-9b decode shape, B2/B4/B5 at gemma3-12b's). Then B3, the same four
-     modes on int8 pools with their scales (dequantized in the kernel),
-     over the same sweeps with poisoned dead keys and NaN scales, each
-     timed likewise and beside the bf16 kernel on the same values. Then
+     slot and poisoned dead/stale keys; one-query decode (B1, B2) also at
+     24 groups (two 16-row tiles) and head dims 72 and 200; each kernel
+     timed beside its plain version, one library call and its byte /
+     operation bound (B1 at the yi-9b decode shape, B2/B4/B5 at
+     gemma3-12b's), by CUDA events and by device time (torch.profiler, the
+     L2 flush left out); a bf16 decode (B1, B2, also on int8 pools) at its
+     timed shape also within 1e-2 of each row's rms (the check that sees a
+     lost key slice or split). Then B3, the same four modes on int8 pools
+     with their scales (dequantized in the kernel), over the same sweeps
+     with poisoned dead keys and NaN scales, each timed likewise and beside
+     the bf16 kernel on the same values. Then
      B6 (flash attention, the training forward; bf16 on the tensor cores,
      f32 on the CUDA cores): causal and windowed (32, 40, 48, 64, 100,
      1024; 40 and 48 cut a key tile mid-way), GQA 1/4/8, hd 8, 16, 64, 80,
@@ -159,7 +165,74 @@ def time_ms(fn, iters=30, warmup=3):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def _device_us(e):
+    """Device time of a profiler key average, in µs (either attribute
+    name, by torch version)."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0) or 0)
+
+
+def device_ms(fn, iters=30, warmup=3):
+    """Mean device time per call from torch.profiler: the summed durations
+    of the device kernels and copies `fn` launches, with the L2 flush before
+    each call (as in time_ms; here a bitwise_not over 128 MB, a kernel no
+    timed call launches) left out by its name. Unlike time_ms it holds no
+    host time. A profile is kept only if it holds exactly one flush a call;
+    None if three profiles in a row do not (the profiler now and then drops
+    device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and _device_us(e) > 0]
+        flushes = sum(e.count for e in dev if "bitwise_not" in e.key)
+        total = sum(_device_us(e) for e in dev if "bitwise_not" not in e.key)
+        if flushes == iters and total > 0:
+            return total / iters / 1e3
+    return None
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+# bf16 decode (B1, B2 and with int8 pools): the largest row error relative
+# to the row's scale, as B6's B6_ROW_TOL. A late row over 2048 keys has rms
+# ~0.03, where the absolute 2e-2 alone could pass a kernel that loses one
+# warp's key slice or one split
+DECODE_ROW_TOL = 1e-2
+
+
+def _row_error(out, ref):
+    """max over rows of rms(out - ref) / rms(ref), rows along the last
+    dim (a row whose ref is all zero counts its rms(out))."""
+    def rms(x):
+        return x.pow(2).mean(-1).sqrt()
+    diff = out.float() - ref.float()
+    return (rms(diff) / rms(ref.float()).clamp_min(1e-30)).max().item()
+
+
 # ----------------------------------------------------------- phase 3: kernel
+# head layouts (H, Hkv, hd) of the B1 sweeps: the reference test sweep
+# (tests/test_paged_attention.py) plus head dims 16/128/256 and 16 groups
+B1_LAYOUTS = [(4, 4, 32), (4, 2, 64), (8, 1, 32), (8, 2, 16), (8, 2, 128),
+              (4, 1, 256), (16, 1, 64)]
+# one-query decode only (B1 and B2): 24 groups (two 16-row tiles, the second
+# partial), head dims between the bf16 kernel's widths (72 runs at 80, 200
+# at 256; int8 rows of 72 bytes start 8-byte aligned)
+DECODE_EXTRA = [(24, 1, 64), (8, 2, 72), (4, 2, 200)]
+
+
 def _paged_case(gen, B, H, Hkv, hd, N, bs, P, dtype, lens):
     import torch
     dev = "cuda"
@@ -189,11 +262,8 @@ def kernel_phase(card):
               f"paged_attention {label} {dt}: max_abs_err {err} > {tol[dt]}")
         return out, err
 
-    # the reference test sweep (tests/test_paged_attention.py), plus the
-    # head dims 16/128/256 and a GQA group count above one pass (16)
     B, N, bs, P = 3, 24, 8, 4
-    for H, Hkv, hd in [(4, 4, 32), (4, 2, 64), (8, 1, 32), (8, 2, 16),
-                       (8, 2, 128), (4, 1, 256), (16, 1, 64)]:
+    for H, Hkv, hd in B1_LAYOUTS + DECODE_EXTRA:
         for dt in (torch.float32, torch.bfloat16):
             case = _paged_case(gen, B, H, Hkv, hd, N, bs, P, dt,
                                [1, bs * P, bs + 3])
@@ -225,9 +295,13 @@ def kernel_phase(card):
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         case = _paged_case(gen, B, H, Hkv, hd, N, bs, P, dt, lens)
-        _, errs[dt] = compare(case, "yi-9b shape")
+        out, errs[dt] = compare(case, "yi-9b shape")
+    row_err = _row_error(out, paged_attention_ref(*case))
+    check(row_err <= DECODE_ROW_TOL, f"paged_attention yi-9b shape bf16: row "
+          f"error {row_err} > {DECODE_ROW_TOL}")
     print(f"kernel yi-9b shape: max_abs_err f32 {errs[torch.float32]:.3e} "
-          f"bf16 {errs[torch.bfloat16]:.3e}")
+          f"bf16 {errs[torch.bfloat16]:.3e}; bf16 row error {row_err:.3e} "
+          f"(limit {DECODE_ROW_TOL})")
 
     q, kp, vp, tables, lens_t = case                    # bf16, as served
     item = q.element_size()
@@ -261,18 +335,23 @@ def kernel_phase(card):
     lib_err = (lib_out.float() - paged_attention_ref(
         q, kp, vp, tables, lens_t).float()).abs().max().item()
     library_ms = time_ms(library)
+    dev_ms = device_ms(lambda: paged_attention(q, kp, vp, tables, lens_t))
+    lib_dev_ms = device_ms(library)
     print(f"B1 paged_attention @ yi-9b decode shape (bf16, sum(len)={n_keys}): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library SDPA on "
-          f"pre-gathered K/V {library_ms:.4f} ms (err vs plain {lib_err:.2e}), "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop) "
-          f"| {card}")
+          f"kernel {ms:.4f} ms (device {_ms(dev_ms)}), plain {plain_ms:.4f} "
+          f"ms, library SDPA on pre-gathered K/V {library_ms:.4f} ms (device "
+          f"{_ms(lib_dev_ms)}; err vs plain {lib_err:.2e}), bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); row "
+          f"error {row_err:.3e} | {card}")
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/"
                       "paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:52",
             "launches": None, "max_abs_err": errs[torch.bfloat16],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+            "row_error": row_err}
 
 
 # ---------------------------------------- phase 3b: ring and verify kernels
@@ -285,6 +364,11 @@ MULTI_KERNELS = {
     "paged_ring_verify": ("paged_ring_verify",
                           "src/repro/kernels/paged_attention/kernel.py:167"),
 }
+
+
+# head layouts of the ring / verify sweeps, incl. gemma3's and yi-9b's
+MULTI_LAYOUTS = [(4, 2, 64), (8, 1, 32), (8, 2, 16), (16, 8, 256),
+                 (32, 4, 128)]
 
 
 def _ring_pages(window, bs, draft=0):
@@ -374,13 +458,13 @@ def multi_kernel_phase(card):
     # first wrap; an inactive slot; then the dead/stale pages poisoned
     bs, window = 4, 10
     n_cases = 0
-    for H, Hkv, hd in [(4, 2, 64), (8, 1, 32), (8, 2, 16), (16, 8, 256),
-                       (32, 4, 128)]:
+    for H, Hkv, hd in MULTI_LAYOUTS + DECODE_EXTRA:
         for dt in (torch.float32, torch.bfloat16):
             for key, n_q in ([("paged_ring", 0)]
                              + [(m, k) for m in ("paged_verify",
                                                  "paged_ring_verify")
-                                for k in (2, 4, 8)]):
+                                for k in (2, 4, 8)
+                                if (H, Hkv, hd) in MULTI_LAYOUTS]):
                 ring_mode = key != "paged_verify"
                 if ring_mode:
                     R = _ring_pages(window, bs, max(n_q - 1, 0))
@@ -412,7 +496,8 @@ def multi_kernel_phase(card):
                       f"{key} {label} {dt}: poisoned dead/stale keys leaked")
                 n_cases += 1
     print(f"kernel B2/B4/B5: {n_cases} cases (5 head layouts x f32/bf16 x "
-          f"ring decode + verify/ring verify at k=2,4,8; ring wraps, an "
+          f"ring decode + verify/ring verify at k=2,4,8, 3 more layouts in "
+          f"ring decode; ring wraps, an "
           f"inactive slot, poisoned dead and stale keys) within f32 2e-5 / "
           f"bf16 2e-2; worst bf16 err " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items()))
@@ -437,9 +522,11 @@ def multi_kernel_phase(card):
 
 
 def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
-    """Kernel, plain version and SDPA on pre-gathered K/V at one shape;
-    byte and operation bounds from these inputs' live keys. n_q == 0 is a
-    one-query decode (B1 or B2), else a K-query verify. With int8 pools
+    """Kernel, plain version and SDPA on pre-gathered K/V at one shape, by
+    CUDA events and by device time; byte and operation bounds from these
+    inputs' live keys. n_q == 0 is a one-query decode (B1 or B2), held
+    also to DECODE_ROW_TOL of each row's rms, else a K-query verify. With
+    int8 pools
     (k_scale / v_scale in `kw`) the bytes count the int8 values plus 4
     bytes of scale per vector, SDPA takes K/V gathered AND dequantized
     beforehand, and the bf16 kernel of the same mode is also timed on the
@@ -511,11 +598,20 @@ def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
                                               enable_gqa=True)
     lib = library()
     lib = lib[:, :, 0] if n_q == 0 else lib.transpose(1, 2)
-    lib_err = (lib.float() - plain().float()).abs().max().item()
+    ref = plain()
+    lib_err = (lib.float() - ref.float()).abs().max().item()
+    row = {}
+    if n_q == 0:                 # the bf16 decode kernel: B1, B2 (+ B3)
+        row_err = _row_error(kern(), ref)
+        check(row_err <= DECODE_ROW_TOL, f"{key} @ {shape} bf16: row error "
+              f"{row_err} > {DECODE_ROW_TOL}")
+        row["row_error"] = row_err
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
-    extra, row = "", {}
+    dev_ms, lib_dev_ms = device_ms(kern), device_ms(library)
+    extra = (f"; row error {row['row_error']:.3e} (limit {DECODE_ROW_TOL})"
+             if n_q == 0 else "")
     if quant:
         # the bf16 kernel of the same mode on the same (dequantized) values
         deq = (q, dequantize_kv(kp, kw["k_scale"]).to(q.dtype),
@@ -523,16 +619,17 @@ def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
         kw16 = {k: v for k, v in kw.items() if not k.endswith("_scale")}
         bf16_ms = time_ms(lambda: kern_fn(*deq, **kw16))
         name, replaces = key, INT8_KERNELS[key][1]
-        row = {"bf16_pool_ms": bf16_ms, "variant_of": INT8_KERNELS[key][0]}
-        extra = (f", bf16 kernel on the dequantized pool {bf16_ms:.4f} ms "
-                 f"({ms / bf16_ms:.2f}x)")
+        row.update(bf16_pool_ms=bf16_ms, variant_of=INT8_KERNELS[key][0])
+        extra += (f", bf16 kernel on the dequantized pool {bf16_ms:.4f} ms "
+                  f"({ms / bf16_ms:.2f}x)")
     else:
         name, replaces = MULTI_KERNELS[key]
     pools = "int8" if quant else "bf16"
     print(f"{name} @ {shape} decode shape (bf16 q, {pools} pools, B={B}, "
-          f"k={K}, {n_keys} live keys): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library SDPA on pre-gathered K/V "
-          f"{library_ms:.4f} ms (err vs plain {lib_err:.2e}){extra}, bound "
+          f"k={K}, {n_keys} live keys): kernel {ms:.4f} ms (device "
+          f"{_ms(dev_ms)}), plain {plain_ms:.4f} ms, library SDPA on "
+          f"pre-gathered K/V {library_ms:.4f} ms (device {_ms(lib_dev_ms)}; "
+          f"err vs plain {lib_err:.2e}){extra}, bound "
           f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
           f"max_abs_err f32 {errs[torch.float32]:.3e} bf16 "
           f"{errs[torch.bfloat16]:.3e} | {card}")
@@ -542,7 +639,8 @@ def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[torch.bfloat16], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, **row}
+            "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms, **row}
 
 
 # ------------------------------------------- phase 3c: int8 pools (B3)
@@ -639,8 +737,7 @@ def int8_kernel_phase(card):
     n_cases = 0
     # B1 + B3: the B1 sweep, an inactive slot, dead pages past seq_len
     B, N, bs, P = 3, 24, 8, 4
-    for H, Hkv, hd in [(4, 4, 32), (4, 2, 64), (8, 1, 32), (8, 2, 16),
-                       (8, 2, 128), (4, 1, 256), (16, 1, 64)]:
+    for H, Hkv, hd in B1_LAYOUTS + DECODE_EXTRA:
         for dt in (torch.float32, torch.bfloat16):
             lens = [1, bs * P, bs + 3]
             args, kw = _quantized(_paged_case(gen, B, H, Hkv, hd, N, bs, P,
@@ -655,13 +752,13 @@ def int8_kernel_phase(card):
     check(bool((out[1] == 0).all()), "int8 inactive slot row is not zeros")
     # B2/B4/B5 + B3: the ring / verify sweep
     bs, window = 4, 10
-    for H, Hkv, hd in [(4, 2, 64), (8, 1, 32), (8, 2, 16), (16, 8, 256),
-                       (32, 4, 128)]:
+    for H, Hkv, hd in MULTI_LAYOUTS + DECODE_EXTRA:
         for dt in (torch.float32, torch.bfloat16):
             for key, n_q in ([("paged_ring_int8", 0)]
                              + [(m, k) for m in ("paged_verify_int8",
                                                  "paged_ring_verify_int8")
-                                for k in (2, 4, 8)]):
+                                for k in (2, 4, 8)
+                                if (H, Hkv, hd) in MULTI_LAYOUTS]):
                 if key != "paged_verify_int8":
                     R = _ring_pages(window, bs, max(n_q - 1, 0))
                     P = R + 2
@@ -1506,13 +1603,8 @@ B6_ROW_TOL = 1e-2
 def _flash_errors(out, lse, ref, ref_lse):
     """B6's forward against its plain version: (max abs error, the
     largest row error relative to the row's scale, max lse error)."""
-    diff = out.float() - ref.float()
-
-    def rms(x):
-        return x.pow(2).mean(-1).sqrt()
-    row = (rms(diff) / rms(ref.float()).clamp_min(1e-30)).max().item()
-    return (diff.abs().max().item(), row,
-            (lse - ref_lse).abs().max().item())
+    return ((out.float() - ref.float()).abs().max().item(),
+            _row_error(out, ref), (lse - ref_lse).abs().max().item())
 
 
 def _admitted_pairs(S, causal, window):
@@ -2170,8 +2262,9 @@ def paper_main_phase(card, rows, plain_ms):
     _release_card()
 
 
-DEVICE_KINDS = ("B1 paged_attention (full decode)", "B2/B5 ring split",
-                "B4 verify split", "B2/B4/B5 merge", "matmul (cuBLAS)",
+DEVICE_KINDS = ("B1 full decode", "B2 ring decode",
+                "B5 ring verify split (and f32 ring decode)",
+                "B4 verify split", "paged merges", "matmul (cuBLAS)",
                 "other kernels and copies")
 
 
@@ -2179,15 +2272,18 @@ def _device_kind(key: str) -> str:
     """Kind of a device kernel by its (demangled or mangled) name; the ring
     instantiations carry the template flag `true` (mangled `Lb1E`)."""
     name = key.lower()
+    ring = "true>" in name or "lb1e" in name
+    if "paged" in name and "merge" in name:
+        return DEVICE_KINDS[4]
+    if "paged_decode_tc" in name:
+        return DEVICE_KINDS[1 if ring else 0]
     if "paged_decode" in name:
         return DEVICE_KINDS[0]
     if "paged_multi_split" in name:
-        return DEVICE_KINDS[1 if ("true>" in name or "lb1e" in name) else 2]
-    if "paged_multi_merge" in name:
-        return DEVICE_KINDS[3]
+        return DEVICE_KINDS[2 if ring else 3]
     if any(p in name for p in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
-        return DEVICE_KINDS[4]
-    return DEVICE_KINDS[5]
+        return DEVICE_KINDS[5]
+    return DEVICE_KINDS[6]
 
 
 def where_time_goes(card, eng, prompts, news, warm=3, window=8,
@@ -2218,9 +2314,7 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8,
     bare_ms = (time.perf_counter() - t0) * 1e3 / window
     eng.drain()
 
-    def device_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
+    device_us = _device_us
     # device-side events, less the engine's own record_function spans
     # ("engine/decode", ...), which the profiler mirrors onto the device
     # timeline as annotations
@@ -2541,14 +2635,20 @@ def conv_phase(card, rows):
 
 
 # tensor-core kernels whose ptxas report must show 0 spill stores: B6 in
-# bf16 at the widths of the configs' head dims 64, 80 and 128, and B7 in
-# bf16 (both output types)
+# bf16 at the widths of the configs' head dims 64, 80 and 128, B7 in bf16
+# (both output types), and the bf16 decode (B1, B2; bf16 and int8 pools)
+# at all its widths, the configs' head dims 64, 80, 128 and 256
 NO_SPILL = {"flash_attention": r"flash_fwd_bf16ILi(64|80|128)E",
-            "matmul": r"matmul_bf16_kernel"}
+            "matmul": r"matmul_bf16_kernel",
+            "paged_attention": r"paged_decode_tcILi(64|80|128|256)E"}
 # their instantiations by mangled template arguments, for the summary
 TC_KERNELS = {"flash_attention": (r"flash_fwd_bf16ILi(\d+)E", "width"),
-              "matmul": (r"matmul_bf16_kernelI(\w+?)E", "out")}
-TC_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16"}
+              "matmul": (r"matmul_bf16_kernelI(\w+?)E", "out"),
+              "paged_attention": (
+                  r"paged_decode_tcILi(\d+)E(a|13__nv_bfloat16)Lb([01])E",
+                  "width, pool, mode")}
+TC_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8", "0": "full",
+            "1": "ring"}
 
 
 def _ptxas_kernels(text):
@@ -2574,8 +2674,8 @@ def build_phase():
     each compiler's per-kernel report goes to build/ptxas-<source>.txt and
     one summary line per source (kernels, most registers, spills) is
     printed, then registers and spills of each tensor-core instantiation
-    (B6 bf16 by width, B7 bf16 by output type); fails if one in NO_SPILL
-    spills."""
+    (B6 bf16 by width, B7 bf16 by output type, the bf16 decode by width,
+    pool and mode); fails if one in NO_SPILL spills."""
     import io
     import re
     from concurrent.futures import ThreadPoolExecutor
@@ -2606,12 +2706,12 @@ def build_phase():
               f"B (report: build/{report.name})")
         if src.stem in TC_KERNELS:
             pattern, what = TC_KERNELS[src.stem]
-            found = [(re.search(pattern, n).group(1), r, sp)
-                     for n, r, sp in _ptxas_kernels(text)
-                     if re.search(pattern, n)]
+            found = [(" ".join(TC_NAMES.get(x, x) for x in m.groups()), r,
+                      sp) for n, r, sp in _ptxas_kernels(text)
+                     if (m := re.search(pattern, n))]
             print(f"build: {src.stem} tensor-core kernels by {what}: " + ", "
-                  .join(f"{TC_NAMES.get(key, key)} {r} registers / {sp} B "
-                        f"spilled" for key, r, sp in found))
+                  .join(f"{key} {r} registers / {sp} B spilled"
+                        for key, r, sp in found))
             gated = [(n, sp) for n, _, sp in _ptxas_kernels(text)
                      if re.search(NO_SPILL[src.stem], n)]
             check(gated and all(sp == 0 for _, sp in gated),

@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,8 +43,13 @@ def _nvcc() -> str:
 
 def library_path(src: Path) -> Path:
     """Where the library built from `src` lives: the name keys on the source
-    bytes and the flags, so a stale build is never loaded."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    bytes, those of the headers it includes by a quoted path (the shared
+    ``kernels/csrc/*.cuh``) and the flags, so a stale build is never
+    loaded."""
+    text = src.read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, re.MULTILINE)
+    text += b"".join((src.parent / h.decode()).read_bytes() for h in headers)
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

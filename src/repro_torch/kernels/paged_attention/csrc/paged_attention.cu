@@ -1,6 +1,15 @@
-// Paged decode attention (full mode) for Hopper, sm_90a.
+// Paged attention for Hopper, sm_90a: one-query decode in full mode (B1)
+// and ring mode (B2), and the K-query verify (B4, B5), each also on int8
+// pools (B3).
 //
-// Replaces the TPU Pallas body `paged_kernel` in
+// Two designs live here. A bf16 query in one-query decode, full or ring
+// mode, runs `paged_decode_tc` (the last section of this file: mma.sync on
+// the tensor cores, keys split across warps, a cp.async ring through the
+// block table). An f32 query (B1 through `paged_decode_split_kernel`, B2
+// through `paged_multi_split_kernel`) and every verify (B4, B5) run the
+// CUDA-core kernels of the first two sections, described next.
+//
+// B1 in f32 replaces the TPU Pallas body `paged_kernel` in
 // src/repro/kernels/paged_attention/kernel.py:52 (reached through
 // `paged_attention_pallas`). It computes the same function: one query token
 // per sequence attends, GQA-grouped, over the KV that the sequence's block
@@ -51,6 +60,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "../../csrc/sm90_mma.cuh"
 
 namespace {
 
@@ -352,21 +363,22 @@ cudaError_t dispatch_hd(const void* q, const void* k_pool, const void* v_pool,
                           scale, stream);
 }
 
-// int8 pools when scale pools are given, else pools of T.
-template <typename T>
-cudaError_t dispatch_pool(const void* q, const void* k_pool,
-                          const void* v_pool, const float* k_scale,
-                          const float* v_scale, const int* tables,
-                          const int* lens, void* out, float* workspace, int B,
-                          int H, int Hkv, int hd, int bs, int P,
-                          int split_tokens, float scale, cudaStream_t stream) {
+// f32 q: int8 pools when scale pools are given, else f32 pools (a bf16
+// query takes paged_decode_tc).
+cudaError_t dispatch_pool_f32(const void* q, const void* k_pool,
+                              const void* v_pool, const float* k_scale,
+                              const float* v_scale, const int* tables,
+                              const int* lens, void* out, float* workspace,
+                              int B, int H, int Hkv, int hd, int bs, int P,
+                              int split_tokens, float scale,
+                              cudaStream_t stream) {
   if (k_scale != nullptr)
-    return dispatch_hd<T, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                                  lens, out, workspace, B, H, Hkv, hd, bs, P,
-                                  split_tokens, scale, stream);
-  return dispatch_hd<T, T>(q, k_pool, v_pool, nullptr, nullptr, tables, lens,
-                           out, workspace, B, H, Hkv, hd, bs, P, split_tokens,
-                           scale, stream);
+    return dispatch_hd<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
+                                      tables, lens, out, workspace, B, H, Hkv,
+                                      hd, bs, P, split_tokens, scale, stream);
+  return dispatch_hd<float, float>(q, k_pool, v_pool, nullptr, nullptr,
+                                   tables, lens, out, workspace, B, H, Hkv, hd,
+                                   bs, P, split_tokens, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -712,15 +724,704 @@ cudaError_t dispatch_multi(const void* q, const void* k_pool,
       n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// B1 and B2 with a bf16 query, on bf16 or int8 pools (B3): paged_decode_tc.
+//
+// Replaces the TPU Pallas bodies `paged_kernel`
+// (src/repro/kernels/paged_attention/kernel.py:52, full mode) and
+// `paged_ring_kernel` (:238, ring mode), each with the int8 load of the
+// helper `_load_kv` (:41) when scale pools are given. It computes the same
+// function as the CUDA-core kernels above: one query token per sequence
+// attends over the keys its block table (full mode) or ring (ring mode,
+// the slot-to-position map of paged_multi_split_kernel) holds; an inactive
+// slot (len == 0) writes zeros.
+//
+// Bound: unchanged, the bytes of the live keys' K and V read once over
+// 3.35 TB/s, plus 4 bytes of scale per int8 vector; 4·H·hd flops per key
+// are far below the card's flop/byte ratio.
+//
+// Design for that bound. The CUDA-core kernels above, which ran B1 and B2
+// in bf16 before this one, took 11x-22x their bound on an H100: one
+// 32-key tile loaded at a time with nothing in flight, q·k a serial dot
+// product per lane, warps given to query rows (6 of 8 idle at gemma3's 2
+// groups), int8 widened to f32 tiles, 256-key splits. Here:
+//   * Grid (b, kv head × 16-row tile, split). All query rows of a kv head
+//     (groups: 8 for yi-9b, 2 for gemma3; more than 16 take more tiles)
+//     form the M side of one mma.sync.m16n8k16 tile; the other rows are
+//     zero. The host picks split_tokens from B, Hkv, the span and the SM
+//     count (kernel.py: about two waves of blocks, a power-of-two number of
+//     64-key stages), never from seq_lens.
+//   * The block loads its split's slice of the block table together with
+//     its length (one round trip), then maps each key to its pool slot in
+//     shared memory, -1 for a
+//     dead key: past len, a never-written ring page, a stale previous-lap
+//     offset or outside the window (the ring's slot-to-position map of
+//     paged_multi_split_kernel). It keeps kDecStages 64-key K/V stages in
+//     a cp.async ring; a dead key's row (and scale) is zero-filled with
+//     source size 0 from the pool's base, never from a table entry.
+//   * Keys across warps: each of the 4 warps takes its own 16 keys of a
+//     stage and keeps its own online softmax (m, l, O) in f32 registers:
+//     S = Q·Kᵀ (two 8-key column blocks, even and odd depth steps in two
+//     accumulators), P rounded to bf16 and reused as the A fragment of
+//     P·V, with the FA2 fragments of flash_attention.cu (the cp.async,
+//     ldmatrix and mma_bf16 of kernels/csrc/sm90_mma.cuh). O and l are
+//     rescaled only when a row's max grew. At the end the warps' states
+//     merge in shared memory (the stage buffers reused) and the block
+//     writes one partial (m, l, acc) per query row; a small kernel merges
+//     the splits, every split's (m, l) loaded at once. A split with no
+//     live key writes l = 0 and no acc.
+//     (Timed on an H100: 2 to 6 stages and 8 warps a block moved the time
+//     by little; larger splits, fewer blocks, by more.)
+//   * Scores carry scale·log2(e) (and the key's scale) before the max, so
+//     any sign of `scale` is right; p = 2^(s - m) on the SFU. Masks act on
+//     the stage that cuts len in full mode; ring mode reads each key's
+//     liveness from the slot map on every stage (4 shared loads a thread),
+//     and a warp whose 16 slots are all dead skips the stage. A masked key
+//     gets p = 0 explicitly.
+//   * int8 pools stay int8 in shared memory (16-byte copies; 8-byte ones
+//     when hd % 16 == 8, whose rows start 8-byte aligned). Each thread
+//     builds its fragments with ld.shared and converts int8 to bf16
+//     exactly (|x| <= 128 < 2^8): byte + 128 into an f32 mantissa under
+//     2^23, minus 2^23 + 128, upper half (no ldmatrix: it moves 16-bit
+//     elements). The key scale multiplies the f32 score after the product;
+//     the value scale is folded into p before p rounds to bf16, and l sums
+//     the unscaled f32 p. A dead key's scale is zero-filled, so it never
+//     enters an operation (the smoke poisons it with NaN). K's fragments
+//     take d in the order 4·tig .. 4·tig + 3 (one 32-bit load; Q's
+//     fragments follow the same order), V's take d pairs 2·g, 2·g + 1
+//     (16-bit loads of 4 keys): O's column blocks then hold d = 16·(j/2) +
+//     2·c + j % 2, undone in the merge. Row strides are odd multiples of
+//     16 bytes, so these loads and ldmatrix's are free of bank conflicts.
+//   * Widths: the kernel is instantiated at kDecWidths, the configs' head
+//     dims; another hd runs at the next width with its columns zero-filled.
+//     With bf16 pools up to width 128 Q's fragments stay in registers; at
+//     256 O's accumulator takes 128 registers a thread and Q is re-read
+//     from shared memory each stage, as it is with int8 pools, whose
+//     conversions need the registers (ptxas otherwise spills).
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kDecWarps = 4;                       // key slices per stage
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecSliceKeys = 16;                  // keys per warp per stage
+constexpr int kDecStageKeys = kDecWarps * kDecSliceKeys;
+constexpr int kDecStages = 3;                      // the cp.async ring
+constexpr int kDecRows = 16;                       // query rows per block
+constexpr int kDecMaxSplit = 2048;                 // keys per block at most
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The widths the kernel is instantiated at, the configs' head dims; hd
+// runs in the first one >= hd.
+constexpr int kDecWidths[] = {64, 80, 128, 256};
+constexpr int kNumDecWidths = sizeof(kDecWidths) / sizeof(kDecWidths[0]);
+
+// Byte I of `biased` (an int8 word XORed with 0x80808080, so each byte is
+// x + 128) as the exact float x: 2^23 + x + 128 built in the mantissa.
+template <int I>
+__device__ __forceinline__ float s8_at(uint32_t biased) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | I)) -
+         8388736.f;
+}
+// Two small integers held exactly in f32 as a bf16 pair (the upper halves:
+// |x| <= 128 has at most 8 significant bits), `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_int_bf16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Bytes of one K or V row in a stage: hd values padded so the stride is
+// an odd multiple of 16 bytes (conflict-free ldmatrix and fragment loads).
+template <int HD, typename KV>
+__host__ __device__ constexpr int dec_row_bytes() {
+  return sizeof(KV) == 2 ? 2 * HD + 16
+                         : ((HD / 16) % 2 == 0 ? HD + 16 : HD + 32);
+}
+
+template <int HD, typename KV>
+__host__ __device__ constexpr int dec_stage_bytes() {
+  return 2 * kDecStageKeys * dec_row_bytes<HD, KV>();        // K, then V
+}
+
+// Shared memory of a block: the stages, Q's tile (16 rows of HD + 8 bf16),
+// the stages' K and V scales, and the split's slot map (split_tokens ints).
+template <int HD, typename KV>
+__host__ __device__ constexpr size_t dec_smem_bytes(int split_tokens) {
+  return static_cast<size_t>(kDecStages) * dec_stage_bytes<HD, KV>() +
+         kDecRows * (HD + 8) * sizeof(bf16) +
+         2 * kDecStages * kDecStageKeys * sizeof(float) +
+         static_cast<size_t>(split_tokens) * sizeof(int);
+}
+
+// Issues the cp.async copies of one 64-key stage: key i of the split at
+// slot_s[i] (-1: dead, zero-filled from the pool's base), K rows then V
+// rows, chunks past hd zero-filled; int8 pools also the keys' scales.
+template <typename KV>
+struct DecStage {
+  unsigned char* tiles;
+  const int* slot_s;
+  float* ks_s;
+  float* vs_s;
+  const KV* k_pool;
+  const KV* v_pool;
+  const float* k_scale;
+  const float* v_scale;
+  int64_t token_bytes;     // one slot's row of all kv heads
+  int64_t head_bytes;      // the kv head's offset in it
+  int row_bytes;           // hd values
+  int n_keys;
+  int Hkv;
+  int kvh;
+
+  // CB bytes per cp.async: 16, or 8 for int8 rows of hd % 16 == 8 (they
+  // start 8-byte aligned)
+  template <int HD, int CB>
+  __device__ __forceinline__ void copy_rows(int st) const {
+    constexpr int SK = kDecStageKeys;
+    constexpr int RB = dec_row_bytes<HD, KV>();
+    constexpr int kChunks = HD * static_cast<int>(sizeof(KV)) / CB;
+    unsigned char* k_t = tiles + (st % kDecStages) * dec_stage_bytes<HD, KV>();
+    unsigned char* v_t = k_t + SK * RB;
+    const unsigned char* k_src = reinterpret_cast<const unsigned char*>(k_pool);
+    const unsigned char* v_src = reinterpret_cast<const unsigned char*>(v_pool);
+    for (int i = threadIdx.x; i < SK * kChunks; i += kDecThreads) {
+      const int r = i / kChunks;
+      const int cb = (i % kChunks) * CB;
+      const int key = st * SK + r;
+      const int slot = key < n_keys ? slot_s[key] : -1;
+      const bool ok = slot >= 0 && cb < row_bytes;
+      const int64_t off = ok ? slot * token_bytes + head_bytes + cb : 0;
+      if constexpr (CB == 16) {
+        cp_async16(smem_u32(k_t + r * RB + cb), k_src + off, ok);
+        cp_async16(smem_u32(v_t + r * RB + cb), v_src + off, ok);
+      } else {
+        cp_async8(smem_u32(k_t + r * RB + cb), k_src + off, ok);
+        cp_async8(smem_u32(v_t + r * RB + cb), v_src + off, ok);
+      }
+    }
+  }
+
+  template <int HD>
+  __device__ __forceinline__ void load(int st) const {
+    constexpr bool kInt8 = sizeof(KV) == 1;
+    constexpr int SK = kDecStageKeys;
+    if (kInt8 && row_bytes % 16 != 0)
+      copy_rows<HD, 8>(st);
+    else
+      copy_rows<HD, 16>(st);
+    if constexpr (kInt8) {
+      if (threadIdx.x < SK) {
+        const int key = st * SK + threadIdx.x;
+        const int slot = key < n_keys ? slot_s[key] : -1;
+        const bool ok = slot >= 0;
+        const int64_t si = ok ? static_cast<int64_t>(slot) * Hkv + kvh : 0;
+        const int at = (st % kDecStages) * SK + threadIdx.x;
+        cp_async4(smem_u32(ks_s + at), k_scale + si, ok);
+        cp_async4(smem_u32(vs_s + at), v_scale + si, ok);
+      }
+    }
+  }
+};
+
+// HD: the instantiated width (>= hd); KV: bf16 or int8_t (scale pools);
+// RING: ring mode. Partial states go to part_* per (b, head) row and split;
+// m is kept in log2 units (scores times scale·log2 e).
+template <int HD, typename KV, bool RING>
+__global__ void __launch_bounds__(kDecThreads)
+paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
+                const KV* __restrict__ v_pool,
+                const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale,
+                const int* __restrict__ tables, const int* __restrict__ lens,
+                const int* __restrict__ positions, float* __restrict__ part_m,
+                float* __restrict__ part_l, float* __restrict__ part_acc,
+                int H, int Hkv, int hd, int bs, int P, int R, int window,
+                int split_tokens, int n_splits, float scale_log2) {
+  constexpr bool kInt8 = sizeof(KV) == 1;
+  constexpr int SK = kDecStageKeys;
+  constexpr int RB = dec_row_bytes<HD, KV>();
+  constexpr int STAGE = dec_stage_bytes<HD, KV>();
+  constexpr int LDQ = HD + 8;          // Q tile row stride (bf16)
+  constexpr int KT = HD / 16;          // q.k depth steps
+  constexpr int DB = HD / 8;           // 8-wide column blocks of O
+  // Q's fragments in registers up to width 128 with bf16 pools; int8
+  // pools read them from shared memory (two 8-byte loads a depth step),
+  // leaving the registers to the conversions
+  constexpr bool kQRegs = HD <= 128 && !kInt8;
+  static_assert(HD % 16 == 0, "mma tiles are 16 deep");
+  static_assert(kDecWarps * kDecRows * (HD + 2) * 4 <= kDecStages * STAGE,
+                "the warps' merge must fit in the stage buffers");
+  static_assert((kDecMaxSplit + 1) * 4 <= STAGE,
+                "a split's table slice must fit the first stage buffer");
+  extern __shared__ uint4 smem_dec[];
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(smem_dec);
+  bf16* q_s = reinterpret_cast<bf16*>(tiles + kDecStages * STAGE);
+  float* ks_s = reinterpret_cast<float*>(q_s + kDecRows * LDQ);  // [stage][SK]
+  float* vs_s = ks_s + kDecStages * SK;
+  int* slot_s = reinterpret_cast<int*>(vs_s + kDecStages * SK);  // [keys]
+
+  const int b = blockIdx.x;
+  const int groups = H / Hkv;
+  const int row_tiles = (groups + kDecRows - 1) / kDecRows;
+  const int kvh = blockIdx.y / row_tiles;
+  const int g0 = (blockIdx.y % row_tiles) * kDecRows;
+  const int ng = min(kDecRows, groups - g0);
+  const int split = blockIdx.z;
+  const int t_begin = split * split_tokens;
+  const int64_t row0 = static_cast<int64_t>(b) * H + kvh * groups + g0;
+
+  // the split's slice of the block table, into the first stage's buffer
+  // (no copy has reached it yet), loaded with lens[b] in one round trip:
+  // its pages up to the span, whatever the length
+  int* tbl_s = reinterpret_cast<int*>(tiles);
+  const int p0 = t_begin / bs;
+  {
+    const int span = RING ? R * bs : P * bs;
+    const int* table = tables + static_cast<int64_t>(b) * P + p0;
+    const int n_pages = (min(span, t_begin + split_tokens) - 1) / bs - p0 + 1;
+    for (int i = threadIdx.x; i < n_pages; i += kDecThreads)
+      tbl_s[i] = table[i];
+  }
+  const int len = lens[b];
+  const int newest = RING ? positions[b] : len - 1;
+  const int t_stop = min(RING ? R * bs : min(len, P * bs),
+                         t_begin + split_tokens);
+
+  if (len <= 0 || t_begin >= t_stop) {          // block-uniform: no key
+    for (int r = threadIdx.x; r < ng; r += kDecThreads) {
+      part_m[(row0 + r) * n_splits + split] = kNegInf;
+      part_l[(row0 + r) * n_splits + split] = 0.f;
+    }
+    return;
+  }
+  const int n_keys = t_stop - t_begin;
+  const int n_stages = (n_keys + SK - 1) / SK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;          // the fragment's row (and row + 8)
+  const int tig = lane % 4;        // its column pair
+
+  // Q's 16-row tile, zeros past the kv head's rows and past hd
+  {
+    constexpr int kQChunks = HD / 8;
+    for (int i = threadIdx.x; i < kDecRows * kQChunks; i += kDecThreads) {
+      const int r = i / kQChunks;
+      const int c = (i % kQChunks) * 8;
+      const bool ok = r < ng && c < hd;
+      cp_async16(smem_u32(q_s + r * LDQ + c),
+                 ok ? q + (row0 + r) * hd + c : q, ok);
+    }
+  }
+  // the slot map: each key's pool slot, -1 for a dead one
+  {
+    const int q_cur = RING ? floor_div(newest, bs) : 0;
+    const int r_cur = RING ? floor_mod(q_cur, R) : 0;
+    __syncthreads();                            // the table slice landed
+    for (int i = threadIdx.x; i < n_keys; i += kDecThreads) {
+      const int t = t_begin + i;
+      bool live = true;
+      if (RING) {
+        const int page = q_cur - floor_mod(r_cur - t / bs, R);
+        const int kp = page * bs + t % bs;
+        live = page >= 0 && kp <= newest && kp > newest - window;
+      }
+      slot_s[i] = live ? tbl_s[t / bs - p0] * bs + t % bs : -1;
+    }
+  }
+  __syncthreads();
+
+  constexpr int kItem = sizeof(KV);
+  const DecStage<KV> stage{tiles, slot_s, ks_s, vs_s, k_pool, v_pool,
+                           k_scale, v_scale,
+                           static_cast<int64_t>(Hkv) * hd * kItem,
+                           static_cast<int64_t>(kvh) * hd * kItem,
+                           hd * kItem, n_keys, Hkv, kvh};
+
+  uint32_t qf[kQRegs ? KT : 1][4];
+  // A fragment kk of Q: bf16 pools in the natural d order (ldmatrix), int8
+  // pools in K's order (d 4·tig .. 4·tig + 3 of each 16)
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
+    if constexpr (kInt8) {
+      const bf16* r = q_s + g * LDQ + 16 * kk + 4 * tig;
+      const uint2 lo = *reinterpret_cast<const uint2*>(r);
+      const uint2 hi = *reinterpret_cast<const uint2*>(r + 8 * LDQ);
+      a[0] = lo.x;
+      a[1] = hi.x;
+      a[2] = lo.y;
+      a[3] = hi.y;
+    } else {
+      ldsm_x4(a, smem_u32(q_s + (lane % 16) * LDQ + (lane / 16) * 8) +
+                     32 * kk);
+    }
+  };
+
+  float o[DB][4];
+#pragma unroll
+  for (int d = 0; d < DB; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};   // rows g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};           // this thread's share of the row sums
+
+  // iterations st < 0 only fill the ring (Q's tile lands with stage 0, in
+  // one commit group); one call site of the loads keeps the code small
+  for (int st = 1 - kDecStages; st < n_stages; ++st) {
+    if (st >= 0) {
+      // stage st has landed, and every warp is done with stage st - 1,
+      // whose buffer the next loads overwrite
+      cp_async_wait<kDecStages - 2>();
+      __syncthreads();
+    }
+    if (st + kDecStages - 1 < n_stages)
+      stage.template load<HD>(st + kDecStages - 1);
+    cp_async_commit();
+    if (st < 0) continue;
+    if constexpr (kQRegs) {
+      if (st == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) q_frag(kk, qf[kk]);
+      }
+    }
+    const int key0 = st * SK + warp * kDecSliceKeys;   // the warp's slice
+    if (key0 >= n_keys) continue;                      // warp-uniform
+    if (RING) {                         // a slice of dead ring slots only
+      const int key = key0 + lane % kDecSliceKeys;
+      if (!__any_sync(kFull, key < n_keys && slot_s[key] >= 0)) continue;
+    }
+    const int buf = st % kDecStages;
+    const unsigned char* k_t = tiles + buf * STAGE + warp * kDecSliceKeys * RB;
+    const unsigned char* v_t = k_t + SK * RB;
+
+    // S = Q K^T over the warp's 16 keys: column block j holds keys 8j..8j+7;
+    // even and odd depth steps go to two accumulators (two mma chains)
+    float s[2][4], s2[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      float (&acc)[2][4] = kk % 2 ? s2 : s;
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+      } else {
+        q_frag(kk, a);
+      }
+      if constexpr (kInt8) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(
+                                 k_t + (8 * j + g) * RB + 16 * kk + 4 * tig) ^
+                             0x80808080u;
+          mma_bf16(acc[j], a, pack_int_bf16(s8_at<0>(w), s8_at<1>(w)),
+                   pack_int_bf16(s8_at<2>(w), s8_at<3>(w)));
+        }
+      } else {
+        uint32_t bk[4];
+        ldsm_x4(bk, smem_u32(k_t + ((lane / 16) * 8 + lane % 8) * RB +
+                             ((lane / 8) % 2) * 16 + 32 * kk));
+        mma_bf16(acc[0], a, bk[0], bk[1]);
+        mma_bf16(acc[1], a, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += s2[j][e];
+
+    // element (j, e) is key 8j + 2·tig + e % 2 of the slice, row g + 8(e/2)
+    float kc[2][2], vc[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int at = buf * SK + warp * kDecSliceKeys + 8 * j + 2 * tig + c;
+        kc[j][c] = kInt8 ? ks_s[at] * scale_log2 : scale_log2;
+        vc[j][c] = kInt8 ? vs_s[at] : 1.f;
+      }
+    const bool edge = RING || key0 + kDecSliceKeys > n_keys;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * kc[j][e % 2];
+        if (edge) {
+          const int key = key0 + 8 * j + 2 * tig + (e % 2);
+          if (key >= n_keys || slot_s[key] < 0) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    }
+    // O and l are rescaled only when some row's max grew (warp-uniform)
+    if (__any_sync(kFull, mx[0] > m[0] || mx[1] > m[1])) {
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        corr[r] = fast_exp2(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int d = 0; d < DB; ++d) {
+        o[d][0] *= corr[0];
+        o[d][1] *= corr[0];
+        o[d][2] *= corr[1];
+        o[d][3] *= corr[1];
+      }
+    }
+    // P: f32 p into l, p (times the value's scale) rounded to bf16 as the
+    // A fragment of P·V
+    float p[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float pe = edge && x == kNegInf ? 0.f
+                                              : fast_exp2(x - m[e / 2]);
+        l[e / 2] += pe;
+        p[j][e] = pe * vc[j][e % 2];
+      }
+    const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]),
+                           pack_bf16(p[0][2], p[0][3]),
+                           pack_bf16(p[1][0], p[1][1]),
+                           pack_bf16(p[1][2], p[1][3])};
+
+    // O += P V over the slice's 16 keys
+    if constexpr (kInt8) {
+      // column blocks 2i and 2i + 1 take d = 16i + 2g and 16i + 2g + 1 of
+      // keys 2·tig, 2·tig + 1 (b0) and 2·tig + 8, 2·tig + 9 (b1)
+      const unsigned char* vb = v_t + 2 * tig * RB + 2 * g;
+#pragma unroll
+      for (int i = 0; i < DB / 2; ++i) {
+        const uint32_t w0 = *reinterpret_cast<const uint16_t*>(vb + 16 * i);
+        const uint32_t w1 =
+            *reinterpret_cast<const uint16_t*>(vb + RB + 16 * i);
+        const uint32_t w8 =
+            *reinterpret_cast<const uint16_t*>(vb + 8 * RB + 16 * i);
+        const uint32_t w9 =
+            *reinterpret_cast<const uint16_t*>(vb + 9 * RB + 16 * i);
+        const uint32_t x01 = __byte_perm(w0, w1, 0x5410) ^ 0x80808080u;
+        const uint32_t x89 = __byte_perm(w8, w9, 0x5410) ^ 0x80808080u;
+        mma_bf16(o[2 * i], a, pack_int_bf16(s8_at<0>(x01), s8_at<2>(x01)),
+                 pack_int_bf16(s8_at<0>(x89), s8_at<2>(x89)));
+        mma_bf16(o[2 * i + 1], a,
+                 pack_int_bf16(s8_at<1>(x01), s8_at<3>(x01)),
+                 pack_int_bf16(s8_at<1>(x89), s8_at<3>(x89)));
+      }
+    } else {
+      const uint32_t v_frag = smem_u32(
+          v_t + (((lane / 8) % 2) * 8 + lane % 8) * RB + (lane / 16) * 16);
+#pragma unroll
+      for (int d = 0; d < DB; d += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, v_frag + 16 * d);
+        mma_bf16(o[d], a, bv[0], bv[1]);
+        mma_bf16(o[d + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // merge the warps' states in shared memory (the stage buffers reused)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red_o = reinterpret_cast<float*>(tiles);        // [warp][row][HD]
+  float* red_m = red_o + kDecWarps * kDecRows * HD;      // [warp][row]
+  float* red_l = red_m + kDecWarps * kDecRows;           // [warp][row]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    if (tig == 0) {
+      red_m[warp * kDecRows + g + 8 * r] = m[r];
+      red_l[warp * kDecRows + g + 8 * r] = l[r];
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < DB; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 2 * tig + (e % 2);
+      const int col = kInt8 ? 16 * (d / 2) + 2 * c + d % 2 : 8 * d + c;
+      red_o[(warp * kDecRows + g + 8 * (e / 2)) * HD + col] = o[d][e];
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ng * hd; i += kDecThreads) {
+    const int r = i / hd;
+    const int d = i % hd;
+    float m_all = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      m_all = fmaxf(m_all, red_m[w * kDecRows + r]);
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      acc += red_o[(w * kDecRows + r) * HD + d] *
+             exp2f(red_m[w * kDecRows + r] - m_all);
+    const int64_t prow = (row0 + r) * n_splits + split;
+    part_acc[prow * hd + d] = acc;
+    if (d == 0) {
+      float l_all = 0.f;
+#pragma unroll
+      for (int w = 0; w < kDecWarps; ++w)
+        l_all += red_l[w * kDecRows + r] *
+                 exp2f(red_m[w * kDecRows + r] - m_all);
+      part_m[prow] = m_all;
+      part_l[prow] = l_all;
+    }
+  }
+}
+
+// One block per (b, head): merge the splits that saw a live key (l > 0);
+// m in log2 units. The splits' weights are computed once, into shared
+// memory (n_splits floats), with every split's (m, l) loaded at once.
+__global__ void paged_decode_tc_merge(const float* __restrict__ part_m,
+                                      const float* __restrict__ part_l,
+                                      const float* __restrict__ part_acc,
+                                      bf16* __restrict__ out, int hd,
+                                      int n_splits) {
+  extern __shared__ float w_s[];                 // [n_splits] weights
+  __shared__ float red[32];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * n_splits;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;
+  float mx = kNegInf;
+  for (int s = threadIdx.x; s < n_splits; s += blockDim.x) {
+    const float m = part_m[r0 + s];
+    const float l = part_l[r0 + s];
+    w_s[s] = l > 0.f ? m : kNegInf;
+    mx = fmaxf(mx, w_s[s]);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  float m_all = kNegInf;
+  for (int w = 0; w < n_warps; ++w) m_all = fmaxf(m_all, red[w]);
+  float l_part = 0.f;
+  for (int s = threadIdx.x; s < n_splits; s += blockDim.x) {
+    const float m = w_s[s];
+    const float wgt = m == kNegInf ? 0.f : exp2f(m - m_all);
+    w_s[s] = wgt;
+    l_part += wgt * part_l[r0 + s];
+  }
+  l_part = warp_sum(l_part);
+  __syncthreads();                               // red[] read, w_s written
+  if (lane == 0) red[warp] = l_part;
+  __syncthreads();
+  float l_all = 0.f;
+  for (int w = 0; w < n_warps; ++w) l_all += red[w];
+  const float denom = fmaxf(l_all, 1e-30f);
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float a_all = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_splits; ++s) {
+      const float wgt = w_s[s];          // 0: no live key, acc unwritten
+      if (wgt != 0.f) a_all += part_acc[(r0 + s) * hd + d] * wgt;
+    }
+    out[static_cast<int64_t>(blockIdx.x) * hd + d] =
+        __float2bfloat16(a_all / denom);
+  }
+}
+
+template <int HD, typename KV, bool RING>
+cudaError_t launch_dec(const void* q, const void* k_pool, const void* v_pool,
+                       const float* k_scale, const float* v_scale,
+                       const int* tables, const int* lens,
+                       const int* positions, void* out, float* workspace,
+                       int B, int H, int Hkv, int hd, int bs, int P, int R,
+                       int window, int split_tokens, float scale,
+                       cudaStream_t stream) {
+  const int span = (RING ? R : P) * bs;
+  const int n_splits = (span + split_tokens - 1) / split_tokens;
+  const int64_t rows = static_cast<int64_t>(B) * H * n_splits;
+  float* part_m = workspace;
+  float* part_l = part_m + rows;
+  float* part_acc = part_l + rows;
+  const size_t smem = dec_smem_bytes<HD, KV>(split_tokens);
+  auto kern = paged_decode_tc<HD, KV, RING>;
+  // the attribute is set once per device and size, not on every call
+  static size_t configured[16] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 16 || smem > configured[dev]) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    if (dev < 16) configured[dev] = smem;
+  }
+  const int groups = H / Hkv;
+  const int row_tiles = (groups + kDecRows - 1) / kDecRows;
+  kern<<<dim3(B, Hkv * row_tiles, n_splits), kDecThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), k_scale, v_scale, tables, lens,
+      positions, part_m, part_l, part_acc, H, Hkv, hd, bs, P, R, window,
+      split_tokens, n_splits, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int merge_threads = ((hd + 31) / 32) * 32;
+  paged_decode_tc_merge<<<static_cast<unsigned>(B * H), merge_threads,
+                          n_splits * sizeof(float), stream>>>(
+      part_m, part_l, part_acc, static_cast<bf16*>(out), hd, n_splits);
+  return cudaGetLastError();
+}
+
+// hd runs at kDecWidths[I] if it fits there, else at a wider one.
+template <int I, typename KV, bool RING>
+cudaError_t dispatch_dec(const void* q, const void* k_pool, const void* v_pool,
+                         const float* k_scale, const float* v_scale,
+                         const int* tables, const int* lens,
+                         const int* positions, void* out, float* ws, int B,
+                         int H, int Hkv, int hd, int bs, int P, int R,
+                         int window, int split_tokens, float scale,
+                         cudaStream_t s) {
+  constexpr int W = kDecWidths[I];
+  if constexpr (I + 1 < kNumDecWidths) {
+    if (hd > W)
+      return dispatch_dec<I + 1, KV, RING>(
+          q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out,
+          ws, B, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
+  }
+  return launch_dec<W, KV, RING>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                                 lens, positions, out, ws, B, H, Hkv, hd, bs,
+                                 P, R, window, split_tokens, scale, s);
+}
+
+template <typename KV>
+cudaError_t dispatch_dec_mode(const void* q, const void* k_pool,
+                              const void* v_pool, const float* k_scale,
+                              const float* v_scale, const int* tables,
+                              const int* lens, const int* positions,
+                              void* out, float* ws, int B, int H, int Hkv,
+                              int hd, int bs, int P, int R, int window,
+                              int split_tokens, float scale, cudaStream_t s) {
+  if (R > 0)
+    return dispatch_dec<0, KV, true>(q, k_pool, v_pool, k_scale, v_scale,
+                                     tables, lens, positions, out, ws, B, H,
+                                     Hkv, hd, bs, P, R, window, split_tokens,
+                                     scale, s);
+  return dispatch_dec<0, KV, false>(q, k_pool, v_pool, k_scale, v_scale,
+                                    tables, lens, positions, out, ws, B, H,
+                                    Hkv, hd, bs, P, R, window, split_tokens,
+                                    scale, s);
+}
+
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16. The pools are of that
-// type, or int8 when k_scale / v_scale (N, bs, Hkv) f32 are given (both non-
-// null; null for pools of q's type). The Python wrapper has checked shapes,
-// types, contiguity, 16-byte alignment, 8 <= hd <= 256 with hd % 8 == 0 and
-// split_tokens % 32 == 0, and allocated `workspace`: B · H · n_splits ·
-// (hd + 2) floats, n_splits = ceil(P · bs / split_tokens). Returns the
-// launches' cudaError_t (0 on success).
+// Full-mode decode with an f32 q (B1 and B1 + B3 in f32): dtype must be 0
+// (float32); a bf16 q runs paged_decode_bf16. The pools are f32, or int8
+// when k_scale / v_scale (N, bs, Hkv) f32 are given (both non-null; null
+// for f32 pools). The Python wrapper has checked shapes, types, contiguity,
+// 16-byte alignment, 8 <= hd <= 256 with hd % 8 == 0 and split_tokens % 32
+// == 0, and allocated `workspace`: B · H · n_splits · (hd + 2) floats,
+// n_splits = ceil(P · bs / split_tokens). Returns the launches'
+// cudaError_t (0 on success).
 extern "C" int paged_attention_decode(const void* q, const void* k_pool,
                                       const void* v_pool, const void* k_scale,
                                       const void* v_scale, const void* tables,
@@ -731,27 +1432,23 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pool,
   if (B == 0) return 0;
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
-  if ((ks == nullptr) != (vs == nullptr))
+  if ((ks == nullptr) != (vs == nullptr) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int* tbl = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lens);
-  float* ws = static_cast<float*>(workspace);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_pool<float>(q, k_pool, v_pool, ks, vs, tbl, ln, out, ws, B,
-                                H, Hkv, hd, bs, P, split_tokens, scale, s);
-  if (dtype == 1)
-    return dispatch_pool<__nv_bfloat16>(q, k_pool, v_pool, ks, vs, tbl, ln,
-                                        out, ws, B, H, Hkv, hd, bs, P,
-                                        split_tokens, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_pool_f32(q, k_pool, v_pool, ks, vs,
+                           static_cast<const int*>(tables),
+                           static_cast<const int*>(lens), out,
+                           static_cast<float*>(workspace), B, H, Hkv, hd, bs,
+                           P, split_tokens, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
-// Ring decode (B2: ring_pages > 0, n_q == 1), verify (B4: ring_pages == 0)
-// and ring verify (B5: ring_pages > 0, n_q > 1). q and out are (B, n_q, H,
-// hd); `positions` (B,) int32 is read in ring mode only (the newest query's
+// Ring decode with an f32 q (B2: ring_pages > 0, n_q == 1, dtype 0; a bf16
+// q runs paged_decode_bf16), verify (B4: ring_pages == 0) and ring verify
+// (B5: ring_pages > 0, n_q > 1). q and out are (B, n_q, H, hd);
+// `positions` (B,) int32 is read in ring mode only (the newest query's
 // absolute position; the caller passes any int32 buffer in full mode).
-// dtype and k_scale / v_scale as in paged_attention_decode. The Python
+// dtype: 0 = float32, 1 = bfloat16 (pools of that type, or int8 with
+// k_scale / v_scale as in paged_attention_decode). The Python
 // wrapper has checked shapes, types, contiguity, alignment, ring_pages <= P,
 // the shared-memory size and allocated `workspace`: B · n_q · H · n_splits ·
 // (hd + 2) floats, n_splits = ceil((ring_pages or P) · bs / split_tokens).
@@ -768,7 +1465,7 @@ extern "C" int paged_attention_multi(const void* q, const void* k_pool,
   if (B == 0) return 0;
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
-  if ((ks == nullptr) != (vs == nullptr))
+  if ((ks == nullptr) != (vs == nullptr) || (dtype == 1 && n_q == 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* tbl = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
@@ -785,4 +1482,46 @@ extern "C" int paged_attention_multi(const void* q, const void* k_pool,
                                          P, ring_pages, window, split_tokens,
                                          scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One-query decode with a bf16 q and out (B, H, hd) on the tensor cores
+// (B1: ring_pages == 0; B2: ring_pages > 0, keys in (positions[b] - window,
+// positions[b]] through the first ring_pages table entries). Pools bf16, or
+// int8 with f32 k_scale / v_scale (N, bs, Hkv) (both non-null; null for
+// bf16 pools). `positions` (B,) int32 is read in ring mode only. The Python
+// wrapper has checked shapes, types, contiguity, 16-byte alignment, 8 <= hd
+// <= 256 with hd % 8 == 0, ring_pages <= P and window >= 1 in ring mode,
+// chosen split_tokens (a multiple of the 64-key stage, at most 2048) and
+// allocated `workspace`: B · H · n_splits · (hd + 2) floats, n_splits =
+// ceil((ring_pages or P) · bs / split_tokens). Returns the launches'
+// cudaError_t (0 on success).
+extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
+                                 const void* v_pool, const void* k_scale,
+                                 const void* v_scale, const void* tables,
+                                 const void* lens, const void* positions,
+                                 void* out, void* workspace, int B, int H,
+                                 int Hkv, int hd, int bs, int P,
+                                 int ring_pages, int window, int split_tokens,
+                                 float scale, void* stream) {
+  if (B == 0) return 0;
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if ((ks == nullptr) != (vs == nullptr) || Hkv <= 0 || H % Hkv != 0 ||
+      hd % 8 != 0 || hd < 8 || hd > 256 || ring_pages < 0 ||
+      split_tokens <= 0 || split_tokens % kDecStageKeys != 0 ||
+      split_tokens > kDecMaxSplit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* tbl = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lens);
+  const int* pos = static_cast<const int*>(positions);
+  float* ws = static_cast<float*>(workspace);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ks != nullptr)
+    return dispatch_dec_mode<int8_t>(q, k_pool, v_pool, ks, vs, tbl, ln, pos,
+                                     out, ws, B, H, Hkv, hd, bs, P,
+                                     ring_pages, window, split_tokens, scale,
+                                     s);
+  return dispatch_dec_mode<bf16>(q, k_pool, v_pool, nullptr, nullptr, tbl,
+                                 ln, pos, out, ws, B, H, Hkv, hd, bs, P,
+                                 ring_pages, window, split_tokens, scale, s);
 }

@@ -1,11 +1,14 @@
 """ctypes binding of the hand-written CUDA paged-attention kernels
 (``csrc/paged_attention.cu``, the Hopper ports of the TPU bodies in
-``repro/kernels/paged_attention/kernel.py``): ``paged_attention_decode``
-replaces ``paged_kernel`` (full-mode decode), and ``paged_attention_multi``
-replaces ``paged_ring_kernel``, ``paged_verify_kernel`` and
-``paged_ring_verify_kernel`` (ring decode, verify, ring verify). Both take
-int8 pools with their f32 scale pools, dequantized inside the kernel (the
-TPU helper ``_load_kv``'s ``quant=True`` path).
+``repro/kernels/paged_attention/kernel.py``): with a bf16 query,
+``paged_decode_bf16`` replaces ``paged_kernel`` and ``paged_ring_kernel``
+(one-query decode, full and ring mode) on the tensor cores; with an f32
+query ``paged_attention_decode`` replaces ``paged_kernel`` and
+``paged_attention_multi`` ``paged_ring_kernel``; ``paged_attention_multi``
+also replaces ``paged_verify_kernel`` and ``paged_ring_verify_kernel``
+(verify, ring verify) in both types. All take int8 pools with their f32
+scale pools, read inside the kernel (the TPU helper ``_load_kv``'s
+``quant=True`` path).
 
 The library is built with ``nvcc`` on first use (``kernels.build``), never
 at import, so this module imports on a machine without CUDA.
@@ -24,10 +27,28 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# keys per thread block (split-K); a multiple of the kernels' 32-key tile
+# keys per thread block (split-K) of the f32-query and verify kernels; a
+# multiple of their 32-key tile
 SPLIT_TOKENS = 256
 # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
+
+# The bf16 decode kernel (paged_decode_tc; the source's kDec* constants):
+# keys per cp.async stage (16 a warp, 4 warps), stages in the ring, query
+# rows per block (one mma tile), the most keys one block takes, and the
+# widths it is instantiated at (another hd runs at the next one).
+DECODE_STAGE_KEYS = 64
+DECODE_STAGES = 3
+DECODE_ROWS = 16
+DECODE_MAX_SPLIT = 2048
+DECODE_WIDTHS = (64, 80, 128, 256)
+# the blocks the split choice aims for, in waves of the card's SMs: two,
+# since a block's fixed costs (the table's round trip, the merge of its
+# partial) outweigh a deeper fill of the card; splits of 64 to 1024 keys
+# timed on an H100 at the smoke's decode shapes were fastest at 256 and
+# 512 and slower between them, so a split is a power-of-two number of
+# stages
+DECODE_WAVES = 2
 
 
 @functools.cache
@@ -42,7 +63,56 @@ def _library() -> ctypes.CDLL:
     multi.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                       I, ctypes.c_float, I, P]
     multi.restype = I
+    dec = lib.paged_decode_bf16
+    dec.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                    ctypes.c_float, P]
+    dec.restype = I
     return lib
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def decode_width(hd: int) -> int:
+    """The width the bf16 decode kernel runs head dim `hd` at."""
+    return next(w for w in DECODE_WIDTHS if w >= hd)
+
+
+def decode_smem_bytes(pool_dtype, hd: int, split_tokens: int) -> int:
+    """Shared memory of a bf16 decode block (``dec_smem_bytes`` in the
+    source): the K/V stages (int8 pools stay int8; rows padded to an odd
+    multiple of 16 bytes), Q's 16-row tile, the stages' scales and the
+    split's slot map."""
+    w = decode_width(hd)
+    if pool_dtype == torch.int8:
+        row = w + 16 if (w // 16) % 2 == 0 else w + 32
+    else:
+        row = 2 * w + 16
+    return (DECODE_STAGES * 2 * DECODE_STAGE_KEYS * row
+            + DECODE_ROWS * (w + 8) * 2
+            + 2 * DECODE_STAGES * DECODE_STAGE_KEYS * 4 + split_tokens * 4)
+
+
+def decode_split_tokens(B: int, Hkv: int, groups: int, span: int,
+                        sm_count: int) -> int:
+    """Keys per block of the bf16 decode kernel: the span (P·bs, or R·bs in
+    ring mode) cut so that all blocks, B · Hkv · row tiles · splits, make
+    about DECODE_WAVES waves on `sm_count` SMs if every key were live; a
+    power-of-two number of stages, at most DECODE_MAX_SPLIT. Reads nothing
+    on the device (seq_lens stays there)."""
+    blocks = B * Hkv * -(-groups // DECODE_ROWS)
+    splits = max(1, -(-DECODE_WAVES * sm_count // blocks))
+    stages = -(-span // (splits * DECODE_STAGE_KEYS))
+    split = DECODE_STAGE_KEYS << max(0, stages - 1).bit_length()
+    return min(split, DECODE_MAX_SPLIT)
+
+
+def decode_workspace_floats(B: int, H: int, hd: int, span: int,
+                            split_tokens: int) -> int:
+    """f32 partials (m, l, acc) of every (b, head) row and split."""
+    return B * H * -(-span // split_tokens) * (hd + 2)
 
 
 def tile_dtype(pool_dtype):
@@ -65,11 +135,38 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def paged_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens, positions,
+                      out, scale: float, window: int, ring_pages: int,
+                      k_scale=None, v_scale=None) -> None:
+    """Launch the bf16 decode pair (tensor-core split pass + merge) on the
+    current stream: q and out (B, H, hd) bf16; ``ring_pages == 0`` selects
+    full mode, where `positions` is not read; k_scale/v_scale (both or
+    neither) mark int8 pools. The caller has validated every argument
+    (``ops``). Raises if a launch fails."""
+    B, H, hd = q.shape
+    _, bs, Hkv, _ = k_pool.shape
+    span = (ring_pages or block_tables.shape[1]) * bs
+    split = decode_split_tokens(B, Hkv, H // Hkv, span,
+                                _sm_count(q.device.index or 0))
+    workspace = torch.empty(decode_workspace_floats(B, H, hd, span, split),
+                            dtype=torch.float32, device=q.device)
+    rc = _library().paged_decode_bf16(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), block_tables.data_ptr(), seq_lens.data_ptr(),
+        positions.data_ptr(), out.data_ptr(), workspace.data_ptr(), B, H, Hkv,
+        hd, bs, block_tables.shape[1], ring_pages, window, split,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_bf16 launch failed: CUDA error "
+                           f"{rc}")
+
+
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, out,
                          scale: float, k_scale=None, v_scale=None) -> None:
-    """Launch the kernel pair (split-K pass + merge) on the current stream;
-    the caller has validated every argument (``ops.paged_attention``).
-    k_scale/v_scale (both or neither) mark int8 pools.
+    """Launch the f32 kernel pair (split-K pass + merge) on the current
+    stream; the caller has validated every argument
+    (``ops.paged_attention``). k_scale/v_scale (both or neither) mark int8
+    pools.
     The f32 workspace for the splits' partial (m, l, acc) is allocated
     here, on PyTorch's caching allocator. Raises if a launch fails."""
     B, H, hd = q.shape

@@ -2,7 +2,10 @@
 ring mode — dispatched by device.
 
 A CPU tensor takes the plain version (``ref``); a CUDA tensor launches the
-hand-written kernel or raises — there is no fallback. Each mode counts its
+hand-written kernel or raises — there is no fallback. A bf16 query in
+one-query decode, full or ring mode, launches the tensor-core decode kernel
+(``kernel.paged_decode_cuda``); an f32 query and every verify launch the
+CUDA-core kernels. Each mode counts its
 launches under its own key of ``repro_torch.kernels.launch_counts``:
 ``paged_attention`` (full decode), ``paged_ring`` (ring decode),
 ``paged_verify`` and ``paged_ring_verify``; with int8 pools (``k_scale`` /
@@ -15,7 +18,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.paged_attention.kernel import (
     MAX_SMEM_BYTES, multi_smem_bytes, paged_attention_cuda,
-    paged_attention_multi_cuda, tile_dtype)
+    paged_attention_multi_cuda, paged_decode_cuda, tile_dtype)
 from repro_torch.kernels.paged_attention.ref import (check_scales,
                                                      paged_attention_ref,
                                                      paged_attention_verify_ref)
@@ -71,20 +74,26 @@ def _check(q, k_pool, v_pool, block_tables, seq_lens, k_scale=None,
                          "loads K/V rows in 16- or 8-byte vectors)")
 
 
+def _check_ring(q, block_tables, window, positions, ring_pages):
+    """Ring arguments (ring_pages None: full mode, nothing to check)."""
+    if ring_pages is None:
+        return
+    B = q.shape[0]
+    if not 1 <= ring_pages <= block_tables.shape[1]:
+        raise ValueError(f"ring_pages {ring_pages} outside [1, table "
+                         f"width {block_tables.shape[1]}]")
+    if window < 1:
+        raise ValueError(f"window {window} must be positive")
+    if (tuple(positions.shape) != (B,) or positions.dtype != torch.int32
+            or positions.device != q.device or not positions.is_contiguous()):
+        raise ValueError(f"positions must be contiguous int32 ({B},) on "
+                         f"{q.device}")
+
+
 def _check_multi(q, k_pool, block_tables, window, positions, ring_pages):
     """Ring arguments and the ring/verify kernel's shared-memory need."""
+    _check_ring(q, block_tables, window, positions, ring_pages)
     B, n_q, H, hd = q.shape
-    if ring_pages is not None:
-        if not 1 <= ring_pages <= block_tables.shape[1]:
-            raise ValueError(f"ring_pages {ring_pages} outside [1, table "
-                             f"width {block_tables.shape[1]}]")
-        if window < 1:
-            raise ValueError(f"window {window} must be positive")
-        if (tuple(positions.shape) != (B,) or positions.dtype != torch.int32
-                or positions.device != q.device
-                or not positions.is_contiguous()):
-            raise ValueError(f"positions must be contiguous int32 ({B},) on "
-                             f"{q.device}")
     rows = n_q * (H // k_pool.shape[2])
     smem = multi_smem_bytes(tile_dtype(k_pool.dtype), hd, rows)
     if smem > MAX_SMEM_BYTES:
@@ -146,19 +155,27 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *, scale=None,
                                    scale=scale, window=window,
                                    positions=positions, ring_pages=ring_pages,
                                    **scales)
-    if ring:
-        if q.dim() != 3:
-            raise ValueError(f"want q (B, H, hd), got {tuple(q.shape)}")
-        return _launch_multi(q[:, None], k_pool, v_pool, block_tables,
-                             seq_lens, scale, window, positions, ring_pages,
-                             k_scale, v_scale, "paged_ring")[:, 0]
-    _check(q, k_pool, v_pool, block_tables, seq_lens, **scales)
     if q.dim() != 3:
         raise ValueError(f"want q (B, H, hd), got {tuple(q.shape)}")
+    mode = "paged_ring" if ring else "paged_attention"
+    if q.dtype == torch.bfloat16:
+        _check(q, k_pool, v_pool, block_tables, seq_lens, **scales)
+        _check_ring(q, block_tables, window, positions, ring_pages)
+        out = torch.empty_like(q)
+        paged_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens,
+                          positions if ring else seq_lens, out, scale,
+                          window or 0, ring_pages or 0, **scales)
+        kernels.launch_counts[_key(mode, k_scale)] += 1
+        return out
+    if ring:
+        return _launch_multi(q[:, None], k_pool, v_pool, block_tables,
+                             seq_lens, scale, window, positions, ring_pages,
+                             k_scale, v_scale, mode)[:, 0]
+    _check(q, k_pool, v_pool, block_tables, seq_lens, **scales)
     out = torch.empty_like(q)
     paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, out, scale,
                          **scales)
-    kernels.launch_counts[_key("paged_attention", k_scale)] += 1
+    kernels.launch_counts[_key(mode, k_scale)] += 1
     return out
 
 
