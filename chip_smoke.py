@@ -10,23 +10,27 @@ Phases, in order; any failure exits non-zero before the final ok line:
   2. build  — compile the paged-attention, flash-attention, quantize and
      matmul sources (every kernel of the main paths) with nvcc into build/,
      one compiler per source, started together; print the registers and
-     spills of each tensor-core instantiation (B6 bf16 by width, B7 bf16
-     by output type, the bf16 decode B1/B2 by width, pool and mode) and
-     require 0 spill stores for B6 bf16 at widths 64, 80 and 128, for B7
-     bf16 and for the bf16 decode at 64, 80, 128 and 256.
+     spills of each redesigned kernel's instantiations (B6 bf16 by width,
+     B7 by input and output type, the bf16 decode and verify B1/B2/B4/B5
+     by width, pool and mode) and require 0 spill stores for B6 bf16 at
+     widths 64, 80 and 128, for B7 in f32 and bf16 and for the bf16 decode
+     and verify at 64, 80, 128 and 256.
   3. kernel — every kernel against its plain PyTorch version on the card
      (f32 atol 2e-5, bf16 atol 2e-2): B1 over the reference's test sweep
      and the yi-9b decode shape; B2 (ring decode), B4 (verify) and B5 (ring
      verify) over head layouts incl. gemma3's and yi-9b's, k = 2, 4, 8,
      ring positions before, at and far past the first wrap, an inactive
-     slot and poisoned dead/stale keys; one-query decode (B1, B2) also at
+     slot and poisoned dead/stale keys, and the CUDA-core entry refusing
+     a bf16 query (which runs on the tensor cores in every mode);
+     one-query decode (B1, B2) also at
      24 groups (two 16-row tiles) and head dims 72 and 200; each kernel
      timed beside its plain version, one library call and its byte /
      operation bound (B1 at the yi-9b decode shape, B2/B4/B5 at
      gemma3-12b's), by CUDA events and by device time (torch.profiler, the
-     L2 flush left out); a bf16 decode (B1, B2, also on int8 pools) at its
-     timed shape also within 1e-2 of each row's rms (the check that sees a
-     lost key slice or split). Then B3, the same four modes on int8 pools
+     L2 flush left out); every bf16 case of B2, B4 and B5 (also on int8
+     pools) in the sweeps and every timed bf16 row (B1 too) also within
+     1e-2 of each row's rms (the check that sees a lost key slice or
+     split). Then B3, the same four modes on int8 pools
      with their scales (dequantized in the kernel), over the same sweeps
      with poisoned dead keys and NaN scales, each timed likewise and beside
      the bf16 kernel on the same values. Then
@@ -41,21 +45,23 @@ Phases, in order; any failure exits non-zero before the final ok line:
      divides); at the training shapes (yi-9b, batch 2 x 4096; stablelm-3b,
      hd 80, 1 x 2048) checked by the same three measures and timed beside
      its plain version, SDPA(is_causal) and its operation bound, each with
-     TFLOP/s.
+     TFLOP/s, the kernel and SDPA also by device time.
      Then B9 and B8 (the block quantizers, stochastic and nearest): bits 8
      and 4, n = 256, 1000, 4096, 65537 and a case with an
      all-zero row and a ragged tail, q and scales EQUAL to the plain
      version; the int8 KV quantizer equal on cuda and cpu; each mode timed
      at the largest yi-9b training leaf and over a training step's 12
      leaves beside its plain version and byte bound (no library call
-     computes the function). Then B7 (the blocked GEMM; bf16 on the tensor
-     cores, f32 on the CUDA cores) in f32 and bf16 over the reference's
+     computes the function), the kernel also by device time. Then B7 (the
+     blocked GEMM; bf16 on the tensor cores, f32 on the CUDA cores, each
+     fed by a cp.async ring) in f32 and bf16 over the reference's
      sweep, ragged shapes (K = 577 and N = 65 take the bf16 kernel's masked
      scalar loader, N = 200 a partial tile) and the five im2col shapes of
      the survey's Table 6 layer, against its plain version (f32 within
-     min(2e-6 K, 1e-5 max|ref|), bf16 within 2e-2 max|ref|), timed at the
-     K=3 and K=13 shapes beside its plain version, cuBLAS and its bound,
-     each with TFLOP/s and GB/s.
+     min(2e-6 K, 1e-5 max|ref|), bf16 within 2e-2 max|ref|; f32 equality
+     with cuBLAS f32 printed), timed at the K=3 and K=13 shapes beside its
+     plain version, cuBLAS and its bound, each with TFLOP/s and GB/s, the
+     kernel and cuBLAS also by device time.
   4. parity — tiny f32 models served on cuda and on cpu from the same
      weights: a full-attention one (staggered requests, a mid-flight
      defragment, a prefix-cache copy-on-write replay), reduced gemma3 and a
@@ -434,6 +440,7 @@ def multi_kernel_phase(card):
     gen.manual_seed(1)
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     worst = {key: 0.0 for key in MULTI_KERNELS}
+    worst_row = dict(worst)
 
     def run(key, n_q, args, kw):
         if key == "paged_ring":
@@ -451,6 +458,10 @@ def multi_kernel_phase(card):
               f"{key} {label} {dt}: max_abs_err {err} > {tol[dt]}")
         if dt == torch.bfloat16:
             worst[key] = max(worst[key], err)
+            row_err = _row_error(out, ref)
+            check(row_err <= DECODE_ROW_TOL, f"{key} {label} bf16: row error "
+                  f"{row_err} > {DECODE_ROW_TOL}")
+            worst_row[key] = max(worst_row[key], row_err)
         return out, err
 
     # sweep: head layouts incl. gemma3's (16, 8, 256) and yi-9b's (32, 4,
@@ -495,12 +506,30 @@ def multi_kernel_phase(card):
                 check(torch.equal(out, out2),
                       f"{key} {label} {dt}: poisoned dead/stale keys leaked")
                 n_cases += 1
+    # a bf16 query has one route, the tensor-core kernel: the CUDA-core
+    # entry refuses it before launching anything
+    from repro_torch.kernels.paged_attention import kernel as PK
+    q, kp, vp, tables, lens_t = args
+    q = q.to(torch.bfloat16)
+    if q.dim() == 3:
+        q = q[:, None].contiguous()
+    rc = PK._library().paged_attention_multi(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None,
+        tables.data_ptr(), lens_t.data_ptr(), lens_t.data_ptr(),
+        torch.empty_like(q).data_ptr(), None, q.shape[0], q.shape[1],
+        q.shape[2], kp.shape[2], q.shape[3], kp.shape[1], tables.shape[1],
+        0, 0, PK.SPLIT_TOKENS, 1.0, 1,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc != 0, "paged_attention_multi accepted a bf16 query")
+    print(f"kernel B4/B5: the CUDA-core entry refuses a bf16 query (CUDA "
+          f"error {rc}); bf16 runs paged_decode_tc")
     print(f"kernel B2/B4/B5: {n_cases} cases (5 head layouts x f32/bf16 x "
           f"ring decode + verify/ring verify at k=2,4,8, 3 more layouts in "
           f"ring decode; ring wraps, an "
           f"inactive slot, poisoned dead and stale keys) within f32 2e-5 / "
-          f"bf16 2e-2; worst bf16 err " + ", ".join(
-              f"{k} {v:.3e}" for k, v in worst.items()))
+          f"bf16 2e-2 and bf16 row error {DECODE_ROW_TOL}; worst bf16 err "
+          + ", ".join(f"{k} {v:.3e} (row error {worst_row[k]:.3e})"
+                      for k, v in worst.items()))
 
     # gemma3-12b decode shape: B=8, 16 heads over 8 kv heads, hd 256, block
     # 16, 128-page tables, lengths spread over 4..2048, bf16, k=4
@@ -524,9 +553,9 @@ def multi_kernel_phase(card):
 def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
     """Kernel, plain version and SDPA on pre-gathered K/V at one shape, by
     CUDA events and by device time; byte and operation bounds from these
-    inputs' live keys. n_q == 0 is a one-query decode (B1 or B2), held
-    also to DECODE_ROW_TOL of each row's rms, else a K-query verify. With
-    int8 pools
+    inputs' live keys; the bf16 output also held to DECODE_ROW_TOL of each
+    row's rms. n_q == 0 is a one-query decode (B1 or B2), else a K-query
+    verify (B4 or B5). With int8 pools
     (k_scale / v_scale in `kw`) the bytes count the int8 values plus 4
     bytes of scale per vector, SDPA takes K/V gathered AND dequantized
     beforehand, and the bf16 kernel of the same mode is also timed on the
@@ -600,18 +629,15 @@ def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
     lib = lib[:, :, 0] if n_q == 0 else lib.transpose(1, 2)
     ref = plain()
     lib_err = (lib.float() - ref.float()).abs().max().item()
-    row = {}
-    if n_q == 0:                 # the bf16 decode kernel: B1, B2 (+ B3)
-        row_err = _row_error(kern(), ref)
-        check(row_err <= DECODE_ROW_TOL, f"{key} @ {shape} bf16: row error "
-              f"{row_err} > {DECODE_ROW_TOL}")
-        row["row_error"] = row_err
+    row_err = _row_error(kern(), ref)
+    check(row_err <= DECODE_ROW_TOL, f"{key} @ {shape} bf16: row error "
+          f"{row_err} > {DECODE_ROW_TOL}")
+    row = {"row_error": row_err}
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
     dev_ms, lib_dev_ms = device_ms(kern), device_ms(library)
-    extra = (f"; row error {row['row_error']:.3e} (limit {DECODE_ROW_TOL})"
-             if n_q == 0 else "")
+    extra = f"; row error {row_err:.3e} (limit {DECODE_ROW_TOL})"
     if quant:
         # the bf16 kernel of the same mode on the same (dequantized) values
         deq = (q, dequantize_kv(kp, kw["k_scale"]).to(q.dtype),
@@ -687,6 +713,7 @@ def int8_kernel_phase(card):
     gen.manual_seed(2)
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     worst = dict.fromkeys(INT8_KERNELS, 0.0)
+    worst_row = dict(worst)
 
     def fns(n_q):
         return ((paged_attention, paged_attention_ref) if n_q == 0
@@ -709,6 +736,10 @@ def int8_kernel_phase(card):
               f"{key} {label} {dt}: max_abs_err {err} > {tol[dt]}")
         if dt == torch.bfloat16:
             worst[key] = max(worst[key], err)
+            row_err = _row_error(out, ref)
+            check(row_err <= DECODE_ROW_TOL, f"{key} {label} bf16: row error "
+                  f"{row_err} > {DECODE_ROW_TOL}")
+            worst_row[key] = max(worst_row[key], row_err)
         return out, err
 
     def poisoned(key, n_q, args, kw, lens, bs, P, label):
@@ -779,10 +810,12 @@ def int8_kernel_phase(card):
                 poisoned(key, n_q, args, kw, lens, bs, P, label)
                 n_cases += 1
     print(f"kernel B3 (int8 pools in B1/B2/B4/B5): {n_cases} cases + an "
-          f"inactive slot within f32 2e-5 / bf16 2e-2, ref with scales == "
+          f"inactive slot within f32 2e-5 / bf16 2e-2 and bf16 row error "
+          f"{DECODE_ROW_TOL}, ref with scales == "
           f"ref on the dequantized pool bit for bit, poisoned dead keys and "
           f"NaN scales read nowhere; worst bf16 err " + ", ".join(
-              f"{k} {v:.3e}" for k, v in worst.items()))
+              f"{k} {v:.3e} (row error {worst_row[k]:.3e})"
+              for k, v in worst.items()))
 
     rows = []
     # B1 + B3 at the yi-9b decode shape (as kernel_phase times B1)
@@ -1731,6 +1764,8 @@ def _flash_timed(card, gen, shape, name, where):
         lib_err = (library().transpose(1, 2).float()
                    - out.float()).abs().max().item()
         library_ms = time_ms(library, iters=10)
+        dev_ms = device_ms(lambda: flash_attention(q, k, v), iters=10)
+        lib_dev_ms = device_ms(library, iters=10)
         dout = torch.randn_like(q)
         bwd_ms = time_ms(lambda: attention_backward(
             q, k, v, out, lse, dout, scale=hd ** -0.5, causal=causal,
@@ -1741,7 +1776,8 @@ def _flash_timed(card, gen, shape, name, where):
           f"bf16, causal): kernel {ms:.4f} ms ({_tflops(flops, ms)}), plain "
           f"{plain_ms:.4f} ms ({_tflops(flops, plain_ms)}), library "
           f"SDPA(is_causal) {library_ms:.4f} ms "
-          f"({_tflops(flops, library_ms)}; err vs kernel {lib_err:.2e}), "
+          f"({_tflops(flops, library_ms)}; err vs kernel {lib_err:.2e}); "
+          f"device ms kernel {_ms(dev_ms)}, SDPA {_ms(lib_dev_ms)}; "
           f"bound {bound_ms:.4f} ms by "
           f"{bound_by} ({_tflops(flops, bound_ms)}; {nbytes} B, {flops} "
           f"flop); PyTorch backward {bwd_ms:.4f} ms | {card}")
@@ -1751,7 +1787,8 @@ def _flash_timed(card, gen, shape, name, where):
             "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
             "launches": None, "max_abs_err": main_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
 
 
 # ------------------------------------------------ phase 4d: training parity
@@ -2041,6 +2078,7 @@ def quantize_kernel_phase(card):
               f"B8/B9 {mode} at the largest leaf: differs from plain")
         del q, s, qp, sp
         ms = time_ms(lambda: ops._kernel(x, u, 8, 256, mode), iters=20)
+        dev_ms = device_ms(lambda: ops._kernel(x, u, 8, 256, mode), iters=20)
         plain_ms = time_ms(lambda: ops._plain(x, u, 8, 256, mode), iters=5,
                            warmup=1)
         step_ms = time_ms(lambda: [ops._kernel(a, b, 8, 256, mode)
@@ -2055,7 +2093,8 @@ def quantize_kernel_phase(card):
         tag = "B9" if stoch else "B8"
         print(f"{tag} {name} @ the largest yi-9b training leaf ({n} values, "
               f"{-(-n // 256)} rows, bits 8): kernel {ms:.4f} ms "
-              f"({nbytes / ms / 1e9:.2f} TB/s), plain {plain_ms:.4f} ms, "
+              f"({nbytes / ms / 1e9:.2f} TB/s; device {_ms(dev_ms)}), plain "
+              f"{plain_ms:.4f} ms, "
               f"library none, bound {bound_ms:.4f} ms by bytes ({nbytes} B); "
               f"over the step's {len(sizes)} leaves ({sum(sizes)} values): "
               f"kernel {step_ms:.4f} ms, plain {step_plain_ms:.4f} ms, bound "
@@ -2065,7 +2104,7 @@ def quantize_kernel_phase(card):
             "replaces": f"src/repro/kernels/quantize/kernel.py:{line}",
             "launches": None, "max_abs_err": worst[mode], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None})
+            "library_ms": None, "device_ms": dev_ms})
         del xs, us, x, u
         _release_card()
     return rows_out
@@ -2262,9 +2301,10 @@ def paper_main_phase(card, rows, plain_ms):
     _release_card()
 
 
-DEVICE_KINDS = ("B1 full decode", "B2 ring decode",
-                "B5 ring verify split (and f32 ring decode)",
-                "B4 verify split", "paged merges", "matmul (cuBLAS)",
+DEVICE_KINDS = ("B1 full decode (bf16 q: and B4 verify)",
+                "B2 ring decode (bf16 q: and B5 ring verify)",
+                "f32 B5 ring verify split (and f32 ring decode)",
+                "f32 B4 verify split", "paged merges", "matmul (cuBLAS)",
                 "other kernels and copies")
 
 
@@ -2419,7 +2459,9 @@ def matmul_kernel_phase(card):
             check(out.dtype == dt and math.isfinite(err) and err <= tol,
                   f"B7 M={M} K={K} N={N} {dt}: max_abs_err {err} > {tol}")
             errs.append(f"{dt}: {err:.3e} (tol {tol:.3e}, max|ref| "
-                        f"{scale:.1f})")
+                        f"{scale:.1f}" + (f"; equal to cuBLAS f32 bit for "
+                                          f"bit: {torch.equal(out, ref)})"
+                                          if dt == f32 else ")"))
             del a, b, out, ref
         print(f"kernel B7 M={M} K={K} N={N}: " + ", ".join(errs))
         del a32, b32
@@ -2452,6 +2494,8 @@ def matmul_kernel_phase(card):
             ms = time_ms(lambda: _kernel(a, b, None), iters=iters)
             plain_ms = time_ms(lambda: matmul_ref(a, b), iters=iters)
             library_ms = time_ms(lambda: torch.matmul(a, b), iters=iters)
+            dev_ms = device_ms(lambda: _kernel(a, b, None), iters=iters)
+            lib_dev_ms = device_ms(lambda: torch.matmul(a, b), iters=iters)
             item = a.element_size()
             nbytes = (M * K + K * N + M * N) * item
             flops = 2 * M * N * K
@@ -2465,10 +2509,12 @@ def matmul_kernel_phase(card):
                 return (f"{_tflops(flops, t)}, "
                         f"{nbytes / t / 1e6:.1f} GB/s")
             print(f"B7 matmul @ Table 6 im2col GEMM, kernel {k}x{k} (M={M}, "
-                  f"K={K}, N={N}, {dt}): kernel {ms:.4f} ms ({rates(ms)}), "
+                  f"K={K}, N={N}, {dt}): kernel {ms:.4f} ms ({rates(ms)}; "
+                  f"device {_ms(dev_ms)}), "
                   f"plain (f32 cuBLAS) {plain_ms:.4f} ms ({rates(plain_ms)}), "
                   f"library torch.matmul {library_ms:.4f} ms "
-                  f"({rates(library_ms)}), bound {bound_ms:.4f} ms by "
+                  f"({rates(library_ms)}; device {_ms(lib_dev_ms)}), bound "
+                  f"{bound_ms:.4f} ms by "
                   f"{bound_by} ({rates(bound_ms)}; {nbytes} B, {flops} flop; "
                   f"peak {peak / 1e12:.0f} TFLOP/s) | {card}")
             if k == 3:
@@ -2478,7 +2524,8 @@ def matmul_kernel_phase(card):
                     "replaces": "src/repro/kernels/matmul/kernel.py:21",
                     "launches": None, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library_ms})
+                    "bound_by": bound_by, "library_ms": library_ms,
+                    "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
             del a, b
         del a32, b32
         _release_card()
@@ -2634,21 +2681,22 @@ def conv_phase(card, rows):
     _release_card()
 
 
-# tensor-core kernels whose ptxas report must show 0 spill stores: B6 in
-# bf16 at the widths of the configs' head dims 64, 80 and 128, B7 in bf16
-# (both output types), and the bf16 decode (B1, B2; bf16 and int8 pools)
-# at all its widths, the configs' head dims 64, 80, 128 and 256
+# redesigned kernels whose ptxas report must show 0 spill stores: B6 in
+# bf16 at the widths of the configs' head dims 64, 80 and 128, B7 in f32
+# and bf16 (both output types), and the bf16 decode and verify (B1, B2, B4,
+# B5; bf16 and int8 pools) at all its widths, the configs' head dims 64,
+# 80, 128 and 256
 NO_SPILL = {"flash_attention": r"flash_fwd_bf16ILi(64|80|128)E",
-            "matmul": r"matmul_bf16_kernel",
+            "matmul": r"matmul_(bf16_)?kernel",
             "paged_attention": r"paged_decode_tcILi(64|80|128|256)E"}
 # their instantiations by mangled template arguments, for the summary
 TC_KERNELS = {"flash_attention": (r"flash_fwd_bf16ILi(\d+)E", "width"),
-              "matmul": (r"matmul_bf16_kernelI(\w+?)E", "out"),
+              "matmul": (r"matmul_(bf16_|)kernelI(\w+?)E", "input, output"),
               "paged_attention": (
                   r"paged_decode_tcILi(\d+)E(a|13__nv_bfloat16)Lb([01])E",
                   "width, pool, mode")}
 TC_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8", "0": "full",
-            "1": "ring"}
+            "1": "ring", "bf16_": "bf16", "": "f32"}
 
 
 def _ptxas_kernels(text):
@@ -2709,13 +2757,13 @@ def build_phase():
             found = [(" ".join(TC_NAMES.get(x, x) for x in m.groups()), r,
                       sp) for n, r, sp in _ptxas_kernels(text)
                      if (m := re.search(pattern, n))]
-            print(f"build: {src.stem} tensor-core kernels by {what}: " + ", "
+            print(f"build: {src.stem} redesigned kernels by {what}: " + ", "
                   .join(f"{key} {r} registers / {sp} B spilled"
                         for key, r, sp in found))
             gated = [(n, sp) for n, _, sp in _ptxas_kernels(text)
                      if re.search(NO_SPILL[src.stem], n)]
             check(gated and all(sp == 0 for _, sp in gated),
-                  f"{src.name}: tensor-core kernels spill: {gated}")
+                  f"{src.name}: redesigned kernels spill: {gated}")
     print(f"build: all sources in {time.perf_counter() - t0:.1f} s")
 
 

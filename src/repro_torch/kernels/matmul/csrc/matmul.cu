@@ -46,15 +46,36 @@
 //
 // f32: `matmul_kernel`, on the CUDA cores, IEEE f32: no TF32 and no tensor
 // cores, as the reference's f32 accumulator and the survey's §4.3 accuracy
-// comparison need (it equals cuBLAS f32 bit for bit at the im2col shapes).
-// 128 threads as a 16 x 8 grid, each thread owning an 8 x 8 register tile
-// (rows 4ty..+3 and 64+4ty..+3, columns 4tx..+3 and 32+4tx..+3), so each k
-// step reads four float4 from shared memory for 64 FMAs. A is stored k-major
-// (transposed) in shared memory with rows padded by 4 floats, so the float4
-// reads stay aligned and the transposing stores meet at most two-way bank
-// conflicts; two shared-memory buffers with a register prefetch: the next
-// 16-deep tile's global loads are in flight while the current tile is
-// multiplied, one barrier a tile.
+// comparison need. 128 threads as a 16 x 8 grid (tx = tid % 8, ty = tid /
+// 8), each thread owning an 8 x 8 register tile: rows 4ty..4ty+3 and
+// 64+4ty..64+4ty+3, columns 4tx..4tx+3 and 32+4tx..32+4tx+3. A and B tiles
+// 32 deep sit in a 4-stage ring in shared memory, filled with 16-byte
+// cp.async (the zero-fill form past M, N and K): three stages are in
+// flight while one is multiplied, one barrier a tile; no register staging,
+// no transposing stores. Both tiles stay row-major: A (128 rows of 32
+// floats, k fastest), B (32 rows of 64 floats). For each 4 k a thread
+// reads its 8 A rows as one float4 each (A[row][k..k+3]) and the 4 B rows
+// as two float4 each: 16 LDS.128 for 256 FMAs. Bank argument: a 128-bit
+// shared load is served a quarter-warp (8 lanes) at a time, and the 8
+// lanes of a quarter-warp share ty and run tx = 0..7. On A they read one
+// address (the same row and k): a broadcast. On B they read 8 consecutive
+// float4 of one row (columns 4tx, or 32 + 4tx): 128 contiguous bytes on 32
+// distinct banks. So neither tile needs padding, and the cp.async stores,
+// 8 consecutive 16-byte chunks a quarter-warp (one 128-byte A row, half a
+// 256-byte B row), are conflict-free too. 96 KB of stages a block: two
+// blocks an SM (ptxas gives 165 registers, room for three), so Table 6's
+// 3x3 im2col GEMM (1458 tiles of 128 rows) runs in 5.5 waves on 132 SMs
+// and its 13x13 one (968 tiles) in 3.7. (Timed on an H100: 16-deep stages,
+// 3 or 6 stages, and a layout that pads A's rows and interleaves each
+// thread's rows so a warp's four A rows fall on distinct banks were each
+// as fast or slower at both shapes.) Where K (for A) or N (for B) is not a
+// multiple of 4, or the base is not 16-byte aligned, rows are not 16-byte
+// aligned and that operand takes a masked scalar loader into the same ring
+// (the bf16 kernel's a_vec / b_vec). The sum keeps its order: each output
+// is fmaf over k = 0, 1, ..., K - 1 ascending (plus fmaf(0, 0, acc) past
+// K, which adds nothing), exactly as the register-staged kernel it
+// replaced summed, so its output is the same bit for bit. The epilogue
+// stores 4 columns at once where N % 4 == 0 and c is aligned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -73,52 +94,84 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 // ------------------------------------------------------------------ f32
-constexpr int kBK = 16;             // k per shared-memory tile
+constexpr int kBK = 32;             // k per stage
+constexpr int kStages = 4;          // the cp.async ring
 constexpr int kThreads = 128;       // 16 x 8 threads, 8 x 8 outputs each
-constexpr int kLA = kBM + 4;        // A tile row stride (floats)
-constexpr int kAPer = kBM * kBK / kThreads;   // A elements a thread loads: 16
-constexpr int kBPer = kBK * kBN / kThreads;   // B elements a thread loads: 8
+constexpr int kStage = kBM * kBK + kBK * kBN;     // floats a stage: A | B
+constexpr int kSmem = kStages * kStage * static_cast<int>(sizeof(float));
 
+// four consecutive columns of a row, `p` aligned to four elements
+__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// a_vec / b_vec: that operand's rows are 16-byte aligned (K, resp. N, a
+// multiple of 4 and the base aligned), so it is loaded with cp.async; c_vec:
+// N % 4 == 0 and c aligned to four elements.
 template <typename Tout>
 __global__ void __launch_bounds__(kThreads)
 matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
-              Tout* __restrict__ c, int M, int N, int K) {
-  __shared__ __align__(16) float a_s[2][kBK][kLA];   // [k][m]
-  __shared__ __align__(16) float b_s[2][kBK][kBN];   // [k][n]
-
+              Tout* __restrict__ c, int M, int N, int K, int a_vec, int b_vec,
+              int c_vec) {
+  extern __shared__ uint4 smem_f32[];
+  float* ring = reinterpret_cast<float*>(smem_f32);   // [stage][A | B]
   const int tid = threadIdx.x;
   const int tx = tid % 8;
   const int ty = tid / 8;
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
 
-  // global loads, k fastest for A and n fastest for B (coalesced): A element
-  // (a_row + 8r, a_col) and B element (b_row + 2r, b_col) of the tile
-  const int a_col = tid % kBK;
-  const int a_row = tid / kBK;
-  const int b_col = tid % kBN;
-  const int b_row = tid / kBN;
-  float ra[kAPer], rb[kBPer];
-
-  auto fetch = [&](int k0) {
-    const int ka = k0 + a_col;
+  // stage `st` <- A[m0.., k0..k0+kBK-1] and B[k0..k0+kBK-1, n0..]
+  auto load = [&](int st, int k0) {
+    float* a_s = ring + st * kStage;
+    float* b_s = a_s + kBM * kBK;
+    if (a_vec) {
 #pragma unroll
-    for (int r = 0; r < kAPer; ++r) {
-      const int row = m0 + a_row + 8 * r;
-      ra[r] = row < M && ka < K ? a[static_cast<int64_t>(row) * K + ka] : 0.f;
+      for (int it = 0; it < kBM * kBK / 4 / kThreads; ++it) {
+        const int i = tid + it * kThreads;
+        const int r = i / (kBK / 4), cc = (i % (kBK / 4)) * 4;
+        const int row = m0 + r, kk = k0 + cc;
+        const bool ok = row < M && kk < K;
+        cp_async16(smem_u32(a_s + r * kBK + cc),
+                   ok ? a + static_cast<int64_t>(row) * K + kk : a, ok);
+      }
+    } else {
+      for (int i = tid; i < kBM * kBK; i += kThreads) {
+        const int r = i / kBK, cc = i % kBK;
+        const int row = m0 + r, kk = k0 + cc;
+        a_s[r * kBK + cc] =
+            row < M && kk < K ? a[static_cast<int64_t>(row) * K + kk] : 0.f;
+      }
     }
-    const int nb = n0 + b_col;
+    if (b_vec) {
 #pragma unroll
-    for (int r = 0; r < kBPer; ++r) {
-      const int kb = k0 + b_row + 2 * r;
-      rb[r] = kb < K && nb < N ? b[static_cast<int64_t>(kb) * N + nb] : 0.f;
+      for (int it = 0; it < kBK * kBN / 4 / kThreads; ++it) {
+        const int i = tid + it * kThreads;
+        const int r = i / (kBN / 4), cc = (i % (kBN / 4)) * 4;
+        const int kk = k0 + r, col = n0 + cc;
+        const bool ok = kk < K && col < N;
+        cp_async16(smem_u32(b_s + r * kBN + cc),
+                   ok ? b + static_cast<int64_t>(kk) * N + col : b, ok);
+      }
+    } else {
+      for (int i = tid; i < kBK * kBN; i += kThreads) {
+        const int r = i / kBN, cc = i % kBN;
+        const int kk = k0 + r, col = n0 + cc;
+        b_s[r * kBN + cc] =
+            kk < K && col < N ? b[static_cast<int64_t>(kk) * N + col] : 0.f;
+      }
     }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < kAPer; ++r) a_s[buf][a_col][a_row + 8 * r] = ra[r];
-#pragma unroll
-    for (int r = 0; r < kBPer; ++r) b_s[buf][b_row + 2 * r][b_col] = rb[r];
   };
 
   float acc[8][8];
@@ -127,44 +180,66 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
+  // the thread's A rows in the tile: 4ty.. and 64 + 4ty..
+  const int a_off = 4 * ty * kBK;
   const int n_k = (K + kBK - 1) / kBK;
-  if (n_k > 0) {
-    fetch(0);
-    stash(0);
-  }
-  __syncthreads();
-  for (int t = 0; t < n_k; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_k) fetch((t + 1) * kBK);     // in flight during the FMAs
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&a_s[buf][k][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&a_s[buf][k][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[buf][k][4 * tx]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&b_s[buf][k][32 + 4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_k) load(st, st * kBK);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_k; ++t) {
+    // tile t has landed, and every thread is done with tile t - 1, whose
+    // stage the next loads overwrite
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nt = t + kStages - 1;
+    if (nt < n_k) load(nt % kStages, nt * kBK);
+    cp_async_commit();
+
+    const float* a_s = ring + (t % kStages) * kStage + a_off;
+    const float* b_s = ring + (t % kStages) * kStage + kBM * kBK + 4 * tx;
+#pragma unroll
+    for (int k4 = 0; k4 < kBK; k4 += 4) {
+      float4 av[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
+        av[i] = *reinterpret_cast<const float4*>(
+            a_s + ((i / 4) * 64 + i % 4) * kBK + k4);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* b_row = b_s + (k4 + kk) * kBN;
+        const float4 b0 = *reinterpret_cast<const float4*>(b_row);
+        const float4 b1 = *reinterpret_cast<const float4*>(b_row + 32);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float ai = lane_of(av[i], kk);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+        }
+      }
     }
-    // the other buffer's last readers passed the previous barrier
-    if (t + 1 < n_k) stash(buf ^ 1);
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    const int row = m0 + (i / 4) * 64 + 4 * ty + i % 4;
     if (row >= M) continue;
     Tout* c_row = c + static_cast<int64_t>(row) * N;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? 4 * tx + j : 32 + 4 * tx + j - 4);
-      if (col < N) store(c_row + col, acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 32 * h + 4 * tx;
+      const float x[4] = {acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      if (c_vec) {
+        if (col < N) store4(c_row + col, x);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < N) store(c_row + col + j, x[j]);
+      }
     }
   }
 }
@@ -322,10 +397,21 @@ matmul_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
 template <typename Tout>
 int launch_f32(const void* a, const void* b, void* c, int M, int N, int K,
                cudaStream_t stream) {
+  auto kern = matmul_kernel<Tout>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int a_vec =
+      K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 ? 1 : 0;
+  const int b_vec =
+      N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0 ? 1 : 0;
+  const int c_vec =
+      N % 4 == 0 && reinterpret_cast<uintptr_t>(c) % (4 * sizeof(Tout)) == 0
+          ? 1 : 0;
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  matmul_kernel<Tout><<<grid, kThreads, 0, stream>>>(
+  kern<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<Tout*>(c), M, N, K);
+      static_cast<Tout*>(c), M, N, K, a_vec, b_vec, c_vec);
   return static_cast<int>(cudaGetLastError());
 }
 

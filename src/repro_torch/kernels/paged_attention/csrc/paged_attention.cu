@@ -2,12 +2,19 @@
 // and ring mode (B2), and the K-query verify (B4, B5), each also on int8
 // pools (B3).
 //
-// Two designs live here. A bf16 query in one-query decode, full or ring
-// mode, runs `paged_decode_tc` (the last section of this file: mma.sync on
-// the tensor cores, keys split across warps, a cp.async ring through the
-// block table). An f32 query (B1 through `paged_decode_split_kernel`, B2
-// through `paged_multi_split_kernel`) and every verify (B4, B5) run the
-// CUDA-core kernels of the first two sections, described next.
+// Two designs live here, chosen by the query's type:
+//
+//   query | B1 full decode | B2 ring decode | B4 verify | B5 ring verify
+//   bf16  | paged_decode_tc, bf16 or int8 pools (n_q = 1, or K)
+//   f32   | paged_decode_  | paged_multi_split_kernel, f32 or int8 pools
+//         | split_kernel   |
+//
+// A bf16 query runs `paged_decode_tc` (the last section of this file:
+// mma.sync on the tensor cores, keys split across warps, a cp.async ring
+// through the block table) in all four modes, one-query decode and K-query
+// verify alike. An f32 query runs the CUDA-core kernels of the first two
+// sections, described next; they keep IEEE f32 for the 2e-5 parity that
+// the f32 engine checks (cuda == cpu tokens, spec == plain) rest on.
 //
 // B1 in f32 replaces the TPU Pallas body `paged_kernel` in
 // src/repro/kernels/paged_attention/kernel.py:52 (reached through
@@ -71,28 +78,14 @@ constexpr int kTile = 32;           // keys per shared-memory tile, one per lane
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Row padding in elements: makes the row stride an odd number of 4-byte
-// words, so lane j reading row j spreads over all 32 banks.
-template <typename T>
-__host__ __device__ constexpr int row_pad() { return sizeof(T) == 2 ? 2 : 1; }
+// Row padding of the f32 tiles, in elements: makes the row stride (hd is a
+// multiple of 8) an odd number of 4-byte words, so lane j reading row j
+// spreads over all 32 banks.
+constexpr int kRowPad = 1;
 
 // Copies one vector of a K or V row from the pool into a shared-memory tile
-// row, or zero-fills it. S is the tile's element type: the pool's own for
-// f32 and bf16 pools (16-byte vectors, copied as they are), f32 for int8
+// row, or zero-fills it. S is the tile's element type, f32: the pool's own
+// for f32 pools (16-byte vectors, copied as they are), widened for int8
 // pools (8-byte vectors, dequantized by the row's scale on the way in).
 template <typename KV>
 struct TileLoad {
@@ -145,31 +138,19 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Dot product of an f32 row (shared memory, broadcast) with a row of T.
+// Dot product of two f32 rows in shared memory (q broadcast).
 __device__ __forceinline__ float dot_row(const float* q, const float* k,
                                          int hd) {
   float s = 0.f;
   for (int d = 0; d < hd; ++d) s += q[d] * k[d];
   return s;
 }
-__device__ __forceinline__ float dot_row(const float* q,
-                                         const __nv_bfloat16* k, int hd) {
-  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(k);
-  const float2* q2 = reinterpret_cast<const float2*>(q);
-  float s = 0.f;
-  for (int d = 0; d < hd / 2; ++d) {
-    const float2 kf = __bfloat1622float2(k2[d]);
-    const float2 qf = q2[d];
-    s += qf.x * kf.x + qf.y * kf.y;
-  }
-  return s;
-}
 
 // DPL: head dims per lane in p·V, ceil(hd / 32) rounded up to 1, 2, 4 or 8.
 // KV: the pools' element type (T, or int8_t with scale pools).
-template <typename T, typename KV, int DPL>
+template <typename KV, int DPL>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_split_kernel(const T* __restrict__ q,
+paged_decode_split_kernel(const float* __restrict__ q,
                           const KV* __restrict__ k_pool,
                           const KV* __restrict__ v_pool,
                           const float* __restrict__ k_scale,
@@ -184,7 +165,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
   using Load = TileLoad<KV>;
   using S = typename Load::S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = hd + row_pad<S>();
+  const int ld = hd + kRowPad;
   S* k_s = reinterpret_cast<S*>(smem_raw);            // [kTile][ld]
   S* v_s = k_s + kTile * ld;                          // [kTile][ld]
   float* q_s = reinterpret_cast<float*>(v_s + kTile * ld);  // [kWarps][hd]
@@ -208,7 +189,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
     const int ng = min(kWarps, groups - g0);
     const int64_t q_row0 = static_cast<int64_t>(b) * H + kvh * groups + g0;
     for (int i = threadIdx.x; i < ng * hd; i += kThreads)
-      q_s[i] = to_f32(q[q_row0 * hd + i]);
+      q_s[i] = q[q_row0 * hd + i];
     const bool active = warp < ng;            // warp-uniform
 
     float m = kNegInf;
@@ -258,7 +239,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
 #pragma unroll
           for (int i = 0; i < DPL; ++i) {
             const int d = lane + 32 * i;
-            if (d < hd) acc[i] += pj * to_f32(vr[d]);
+            if (d < hd) acc[i] += pj * vr[d];
           }
         }
         m = m_new;
@@ -282,12 +263,12 @@ paged_decode_split_kernel(const T* __restrict__ q,
 }
 
 // One block per (b, h): merge the live splits' partial softmax states.
-template <typename T>
 __global__ void paged_decode_merge_kernel(const float* __restrict__ part_m,
                                           const float* __restrict__ part_l,
                                           const float* __restrict__ part_acc,
                                           const int* __restrict__ lens,
-                                          T* __restrict__ out, int H, int hd,
+                                          float* __restrict__ out, int H,
+                                          int hd,
                                           int split_tokens, int n_splits) {
   const int64_t bh = blockIdx.x;
   const int len = lens[bh / H];
@@ -303,11 +284,11 @@ __global__ void paged_decode_merge_kernel(const float* __restrict__ part_m,
       l_all += part_l[row0 + s] * c;
       a_all += part_acc[(row0 + s) * hd + d] * c;
     }
-    out[bh * hd + d] = from_f32<T>(a_all / fmaxf(l_all, 1e-30f));
+    out[bh * hd + d] = a_all / fmaxf(l_all, 1e-30f);
   }
 }
 
-template <typename T, typename KV, int DPL>
+template <typename KV, int DPL>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const float* k_scale, const float* v_scale,
                    const int* tables, const int* lens, void* out,
@@ -319,27 +300,27 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   float* part_m = workspace;
   float* part_l = part_m + rows;
   float* part_acc = part_l + rows;
-  const size_t smem = 2 * sizeof(S) * kTile * (hd + row_pad<S>()) +
+  const size_t smem = 2 * sizeof(S) * kTile * (hd + kRowPad) +
                       sizeof(float) * kWarps * hd;
-  auto split_kernel = paged_decode_split_kernel<T, KV, DPL>;
+  auto split_kernel = paged_decode_split_kernel<KV, DPL>;
   cudaError_t err = cudaFuncSetAttribute(
       split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   split_kernel<<<dim3(B, Hkv, n_splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const float*>(q), static_cast<const KV*>(k_pool),
       static_cast<const KV*>(v_pool), k_scale, v_scale, tables, lens, part_m,
       part_l, part_acc, H, Hkv, hd, bs, P, split_tokens, n_splits, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_threads = ((hd + 31) / 32) * 32;
-  paged_decode_merge_kernel<T><<<B * H, merge_threads, 0, stream>>>(
-      part_m, part_l, part_acc, lens, static_cast<T*>(out), H, hd,
+  paged_decode_merge_kernel<<<B * H, merge_threads, 0, stream>>>(
+      part_m, part_l, part_acc, lens, static_cast<float*>(out), H, hd,
       split_tokens, n_splits);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV>
+template <typename KV>
 cudaError_t dispatch_hd(const void* q, const void* k_pool, const void* v_pool,
                         const float* k_scale, const float* v_scale,
                         const int* tables, const int* lens, void* out,
@@ -347,18 +328,18 @@ cudaError_t dispatch_hd(const void* q, const void* k_pool, const void* v_pool,
                         int bs, int P, int split_tokens, float scale,
                         cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, KV, 1>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
+    return launch<KV, 1>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
                             out, workspace, B, H, Hkv, hd, bs, P,
                             split_tokens, scale, stream);
   if (hd <= 64)
-    return launch<T, KV, 2>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
+    return launch<KV, 2>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
                             out, workspace, B, H, Hkv, hd, bs, P,
                             split_tokens, scale, stream);
   if (hd <= 128)
-    return launch<T, KV, 4>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
+    return launch<KV, 4>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
                             out, workspace, B, H, Hkv, hd, bs, P,
                             split_tokens, scale, stream);
-  return launch<T, KV, 8>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
+  return launch<KV, 8>(q, k_pool, v_pool, k_scale, v_scale, tables, lens,
                           out, workspace, B, H, Hkv, hd, bs, P, split_tokens,
                           scale, stream);
 }
@@ -373,22 +354,23 @@ cudaError_t dispatch_pool_f32(const void* q, const void* k_pool,
                               int split_tokens, float scale,
                               cudaStream_t stream) {
   if (k_scale != nullptr)
-    return dispatch_hd<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
+    return dispatch_hd<int8_t>(q, k_pool, v_pool, k_scale, v_scale,
                                       tables, lens, out, workspace, B, H, Hkv,
                                       hd, bs, P, split_tokens, scale, stream);
-  return dispatch_hd<float, float>(q, k_pool, v_pool, nullptr, nullptr,
+  return dispatch_hd<float>(q, k_pool, v_pool, nullptr, nullptr,
                                    tables, lens, out, workspace, B, H, Hkv, hd,
                                    bs, P, split_tokens, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
-// Ring decode (B2), verify (B4) and ring verify (B5).
+// Ring decode (B2), verify (B4) and ring verify (B5) with an f32 query.
 //
 // Replace the TPU Pallas bodies `paged_ring_kernel` (kernel.py:238),
-// `paged_verify_kernel` (:101) and `paged_ring_verify_kernel` (:167). One
-// template covers the three: RING selects the ring layout at compile time,
-// and n_q (1 for decode, K for verify) sets the query rows per kv head,
-// rows = n_q · groups, row = j · groups + g as in the Pallas bodies.
+// `paged_verify_kernel` (:101) and `paged_ring_verify_kernel` (:167) for an
+// f32 query (a bf16 query runs paged_decode_tc). One template covers the
+// three: RING selects the ring layout at compile time, and n_q (1 for
+// decode, K for verify) sets the query rows per kv head, rows = n_q ·
+// groups, row = j · groups + g as in the Pallas bodies.
 //
 //   * query row j sits at qpos_j = newest - (n_q - 1) + j, where newest is
 //     positions[b] in ring mode and lens[b] - 1 in full mode; a key at
@@ -430,14 +412,14 @@ __device__ __forceinline__ int floor_mod(int a, int b) {
 // is the tile's element type (f32 for int8 pools).
 template <typename S>
 __host__ __device__ constexpr size_t multi_smem_bytes(int hd, int rows) {
-  return 2 * sizeof(S) * kTile * (hd + row_pad<S>()) +
+  return 2 * sizeof(S) * kTile * (hd + kRowPad) +
          sizeof(float) * (2 * static_cast<size_t>(rows) * hd + 2 * rows) +
          sizeof(int) * kTile;
 }
 
-template <typename T, typename KV, int DPL, bool RING>
+template <typename KV, int DPL, bool RING>
 __global__ void __launch_bounds__(kThreads)
-paged_multi_split_kernel(const T* __restrict__ q,
+paged_multi_split_kernel(const float* __restrict__ q,
                          const KV* __restrict__ k_pool,
                          const KV* __restrict__ v_pool,
                          const float* __restrict__ k_scale,
@@ -453,7 +435,7 @@ paged_multi_split_kernel(const T* __restrict__ q,
   using Load = TileLoad<KV>;
   using S = typename Load::S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = hd + row_pad<S>();
+  const int ld = hd + kRowPad;
   const int groups = H / Hkv;
   const int rows = n_q * groups;
   S* k_s = reinterpret_cast<S*>(smem_raw);                   // [kTile][ld]
@@ -479,8 +461,8 @@ paged_multi_split_kernel(const T* __restrict__ q,
   for (int i = threadIdx.x; i < rows * hd; i += kThreads) {
     const int row = i / hd;
     const int head = kvh * groups + row % groups;
-    q_s[i] = to_f32(q[(q_b + static_cast<int64_t>(row / groups) * H + head) *
-                          hd + i % hd]);
+    q_s[i] = q[(q_b + static_cast<int64_t>(row / groups) * H + head) * hd +
+               i % hd];
     acc_s[i] = 0.f;
   }
   for (int i = threadIdx.x; i < rows; i += kThreads) {
@@ -566,7 +548,7 @@ paged_multi_split_kernel(const T* __restrict__ q,
 #pragma unroll
           for (int i = 0; i < DPL; ++i) {
             const int d = lane + 32 * i;
-            if (d < hd) acc[i] += pj * to_f32(vr[d]);
+            if (d < hd) acc[i] += pj * vr[d];
           }
         }
 #pragma unroll
@@ -596,11 +578,10 @@ paged_multi_split_kernel(const T* __restrict__ q,
 
 // One block per (b, kv head, row): merge all splits' partial softmax states
 // and write query j, head kvh · groups + g of out (B, n_q, H, hd).
-template <typename T>
 __global__ void paged_multi_merge_kernel(const float* __restrict__ part_m,
                                          const float* __restrict__ part_l,
                                          const float* __restrict__ part_acc,
-                                         T* __restrict__ out, int n_q, int H,
+                                         float* __restrict__ out, int n_q, int H,
                                          int Hkv, int hd, int n_splits) {
   const int groups = H / Hkv;
   const int rows = n_q * groups;
@@ -622,11 +603,11 @@ __global__ void paged_multi_merge_kernel(const float* __restrict__ part_m,
       l_all += part_l[r0 + s] * c;
       a_all += part_acc[(r0 + s) * hd + d] * c;
     }
-    out[orow * hd + d] = from_f32<T>(a_all / fmaxf(l_all, 1e-30f));
+    out[orow * hd + d] = a_all / fmaxf(l_all, 1e-30f);
   }
 }
 
-template <typename T, typename KV, int DPL, bool RING>
+template <typename KV, int DPL, bool RING>
 cudaError_t launch_multi(const void* q, const void* k_pool, const void* v_pool,
                          const float* k_scale, const float* v_scale,
                          const int* tables, const int* lens,
@@ -642,27 +623,27 @@ cudaError_t launch_multi(const void* q, const void* k_pool, const void* v_pool,
   float* part_l = part_m + parts;
   float* part_acc = part_l + parts;
   const size_t smem = multi_smem_bytes<typename TileLoad<KV>::S>(hd, rows);
-  auto split_kernel = paged_multi_split_kernel<T, KV, DPL, RING>;
+  auto split_kernel = paged_multi_split_kernel<KV, DPL, RING>;
   cudaError_t err = cudaFuncSetAttribute(
       split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   split_kernel<<<dim3(B, Hkv, n_splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const float*>(q), static_cast<const KV*>(k_pool),
       static_cast<const KV*>(v_pool), k_scale, v_scale, tables, lens,
       positions, part_m, part_l, part_acc, n_q, H, Hkv, hd, bs, P, R, window,
       split_tokens, n_splits, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_threads = ((hd + 31) / 32) * 32;
-  paged_multi_merge_kernel<T>
-      <<<static_cast<unsigned>(B * Hkv * rows), merge_threads, 0, stream>>>(
-          part_m, part_l, part_acc, static_cast<T*>(out), n_q, H, Hkv, hd,
-          n_splits);
+  paged_multi_merge_kernel<<<static_cast<unsigned>(B * Hkv * rows),
+                             merge_threads, 0, stream>>>(
+      part_m, part_l, part_acc, static_cast<float*>(out), n_q, H, Hkv, hd,
+      n_splits);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV, bool RING>
+template <typename KV, bool RING>
 cudaError_t dispatch_multi_hd(const void* q, const void* k_pool,
                               const void* v_pool, const float* k_scale,
                               const float* v_scale, const int* tables,
@@ -672,23 +653,23 @@ cudaError_t dispatch_multi_hd(const void* q, const void* k_pool,
                               int split_tokens, float scale,
                               cudaStream_t s) {
   if (hd <= 32)
-    return launch_multi<T, KV, 1, RING>(
+    return launch_multi<KV, 1, RING>(
         q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
         B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
   if (hd <= 64)
-    return launch_multi<T, KV, 2, RING>(
+    return launch_multi<KV, 2, RING>(
         q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
         B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
   if (hd <= 128)
-    return launch_multi<T, KV, 4, RING>(
+    return launch_multi<KV, 4, RING>(
         q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
         B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
-  return launch_multi<T, KV, 8, RING>(
+  return launch_multi<KV, 8, RING>(
       q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
       B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
 }
 
-template <typename T, typename KV>
+template <typename KV>
 cudaError_t dispatch_multi_ring(const void* q, const void* k_pool,
                                 const void* v_pool, const float* k_scale,
                                 const float* v_scale, const int* tables,
@@ -698,16 +679,15 @@ cudaError_t dispatch_multi_ring(const void* q, const void* k_pool,
                                 int window, int split_tokens, float scale,
                                 cudaStream_t s) {
   if (R > 0)
-    return dispatch_multi_hd<T, KV, true>(
+    return dispatch_multi_hd<KV, true>(
         q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
         B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
-  return dispatch_multi_hd<T, KV, false>(
+  return dispatch_multi_hd<KV, false>(
       q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws, B,
       n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
 }
 
-// int8 pools when scale pools are given, else pools of T.
-template <typename T>
+// int8 pools when scale pools are given, else f32 pools.
 cudaError_t dispatch_multi(const void* q, const void* k_pool,
                            const void* v_pool, const float* k_scale,
                            const float* v_scale, const int* tables,
@@ -716,49 +696,62 @@ cudaError_t dispatch_multi(const void* q, const void* k_pool,
                            int bs, int P, int R, int window, int split_tokens,
                            float scale, cudaStream_t s) {
   if (k_scale != nullptr)
-    return dispatch_multi_ring<T, int8_t>(
+    return dispatch_multi_ring<int8_t>(
         q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out, ws,
         B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
-  return dispatch_multi_ring<T, T>(
+  return dispatch_multi_ring<float>(
       q, k_pool, v_pool, nullptr, nullptr, tables, lens, positions, out, ws, B,
       n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
 }
 
 // ---------------------------------------------------------------------------
-// B1 and B2 with a bf16 query, on bf16 or int8 pools (B3): paged_decode_tc.
+// B1, B2, B4 and B5 with a bf16 query, on bf16 or int8 pools (B3):
+// paged_decode_tc.
 //
 // Replaces the TPU Pallas bodies `paged_kernel`
 // (src/repro/kernels/paged_attention/kernel.py:52, full mode) and
-// `paged_ring_kernel` (:238, ring mode), each with the int8 load of the
-// helper `_load_kv` (:41) when scale pools are given. It computes the same
-// function as the CUDA-core kernels above: one query token per sequence
-// attends over the keys its block table (full mode) or ring (ring mode,
-// the slot-to-position map of paged_multi_split_kernel) holds; an inactive
-// slot (len == 0) writes zeros.
+// `paged_ring_kernel` (:238, ring mode) with n_q = 1, and
+// `paged_verify_kernel` (:101, full mode) and `paged_ring_verify_kernel`
+// (:167, ring mode) with n_q = K, each with the int8 load of the helper
+// `_load_kv` (:41) when scale pools are given. It computes the same
+// function as the CUDA-core kernels above: n_q query tokens per sequence,
+// query j at oldest + j with oldest = newest - (n_q - 1) (newest =
+// positions[b] in ring mode, lens[b] - 1 in full mode), attend over the
+// keys their block table (full mode) or ring (ring mode, the
+// slot-to-position map of paged_multi_split_kernel) holds, each up to its
+// own position and, in ring mode, within its own window; an inactive slot
+// (len == 0) writes zeros.
 //
 // Bound: unchanged, the bytes of the live keys' K and V read once over
 // 3.35 TB/s, plus 4 bytes of scale per int8 vector; 4·H·hd flops per key
 // are far below the card's flop/byte ratio.
 //
-// Design for that bound. The CUDA-core kernels above, which ran B1 and B2
-// in bf16 before this one, took 11x-22x their bound on an H100: one
-// 32-key tile loaded at a time with nothing in flight, q·k a serial dot
-// product per lane, warps given to query rows (6 of 8 idle at gemma3's 2
-// groups), int8 widened to f32 tiles, 256-key splits. Here:
-//   * Grid (b, kv head × 16-row tile, split). All query rows of a kv head
-//     (groups: 8 for yi-9b, 2 for gemma3; more than 16 take more tiles)
-//     form the M side of one mma.sync.m16n8k16 tile; the other rows are
-//     zero. The host picks split_tokens from B, Hkv, the span and the SM
-//     count (kernel.py: about two waves of blocks, a power-of-two number of
-//     64-key stages), never from seq_lens.
+// Design for that bound. The CUDA-core kernels above, which ran B1, B2,
+// B4 and B5 in bf16 before this one, took 8x-22x their bound on an H100:
+// one 32-key tile loaded at a time with nothing in flight, q·k a serial
+// dot product per lane, warps given to query rows (6 of 8 idle at gemma3's
+// 2 groups), int8 widened to f32 tiles, 256-key splits. Here:
+//   * Grid (b, kv head × 16-row tile, split). All rows = n_q · groups
+//     query rows of a kv head (row j · groups + g, the Pallas bodies'
+//     order; groups 8 for yi-9b, 2 for gemma3, so a gemma3 verify of up to
+//     8 queries fills one tile) form the M side of mma.sync.m16n8k16
+//     tiles; rows past `rows` are zero. Each K/V stage read from device
+//     memory serves every row of its tile: reading K/V once for K drafts
+//     is the point of verify (more than 16 rows take more tiles on the
+//     grid, which read the same stages again, mostly from L2). The host
+//     picks split_tokens from B, Hkv, the row tiles, the span and the SM
+//     count (kernel.py: about two waves of blocks, a power-of-two number
+//     of 64-key stages), never from seq_lens.
 //   * The block loads its split's slice of the block table together with
 //     its length (one round trip), then maps each key to its pool slot in
-//     shared memory, -1 for a
-//     dead key: past len, a never-written ring page, a stale previous-lap
-//     offset or outside the window (the ring's slot-to-position map of
-//     paged_multi_split_kernel). It keeps kDecStages 64-key K/V stages in
-//     a cp.async ring; a dead key's row (and scale) is zero-filled with
-//     source size 0 from the pool's base, never from a table entry.
+//     shared memory, -1 for a key no row sees: past len, a never-written
+//     ring page, a stale previous-lap offset or outside the union of the
+//     rows' windows, (oldest - window, newest] (the ring's
+//     slot-to-position map of paged_multi_split_kernel); a ring verify
+//     also keeps each key's absolute position beside its slot. It keeps
+//     kDecStages 64-key K/V stages in a cp.async ring; a dead key's row
+//     (and scale) is zero-filled with source size 0 from the pool's base,
+//     never from a table entry.
 //   * Keys across warps: each of the 4 warps takes its own 16 keys of a
 //     stage and keeps its own online softmax (m, l, O) in f32 registers:
 //     S = Q·Kᵀ (two 8-key column blocks, even and odd depth steps in two
@@ -776,8 +769,15 @@ cudaError_t dispatch_multi(const void* q, const void* k_pool,
 //     any sign of `scale` is right; p = 2^(s - m) on the SFU. Masks act on
 //     the stage that cuts len in full mode; ring mode reads each key's
 //     liveness from the slot map on every stage (4 shared loads a thread),
-//     and a warp whose 16 slots are all dead skips the stage. A masked key
-//     gets p = 0 explicitly.
+//     and a warp whose 16 slots are all dead skips the stage. A key counts
+//     for row j iff its position is <= qpos_j and, in ring mode, >
+//     qpos_j - window: that per-row test runs only on a warp slice that
+//     may hold a key some row must not see (full mode: a position past
+//     the oldest query's, so only the last slices; ring verify: a live
+//     key outside (newest - window, oldest], found by a vote over the
+//     slice's positions), with each row's position read from its Q row's
+//     padding. A masked key gets p = 0 explicitly, so a row with no live
+//     key in a split writes the neutral partial (m = -1e30, l = 0).
 //   * int8 pools stay int8 in shared memory (16-byte copies; 8-byte ones
 //     when hd % 16 == 8, whose rows start 8-byte aligned). Each thread
 //     builds its fragments with ld.shared and converts int8 to bf16
@@ -842,13 +842,15 @@ __host__ __device__ constexpr int dec_stage_bytes() {
 }
 
 // Shared memory of a block: the stages, Q's tile (16 rows of HD + 8 bf16),
-// the stages' K and V scales, and the split's slot map (split_tokens ints).
+// the stages' K and V scales, and the split's slot map (split_tokens ints);
+// a ring verify (kpos) also each key's absolute position (split_tokens ints).
 template <int HD, typename KV>
-__host__ __device__ constexpr size_t dec_smem_bytes(int split_tokens) {
+__host__ __device__ constexpr size_t dec_smem_bytes(int split_tokens,
+                                                    bool kpos) {
   return static_cast<size_t>(kDecStages) * dec_stage_bytes<HD, KV>() +
          kDecRows * (HD + 8) * sizeof(bf16) +
          2 * kDecStages * kDecStageKeys * sizeof(float) +
-         static_cast<size_t>(split_tokens) * sizeof(int);
+         static_cast<size_t>(split_tokens) * sizeof(int) * (kpos ? 2 : 1);
 }
 
 // Issues the cp.async copies of one 64-key stage: key i of the split at
@@ -922,8 +924,9 @@ struct DecStage {
 };
 
 // HD: the instantiated width (>= hd); KV: bf16 or int8_t (scale pools);
-// RING: ring mode. Partial states go to part_* per (b, head) row and split;
-// m is kept in log2 units (scores times scale·log2 e).
+// RING: ring mode. n_q query tokens per sequence (1: decode, K: verify).
+// Partial states go to part_* per output row ((b · n_q + j) · H + head) and
+// split; m is kept in log2 units (scores times scale·log2 e).
 template <int HD, typename KV, bool RING>
 __global__ void __launch_bounds__(kDecThreads)
 paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
@@ -933,8 +936,8 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
                 const int* __restrict__ tables, const int* __restrict__ lens,
                 const int* __restrict__ positions, float* __restrict__ part_m,
                 float* __restrict__ part_l, float* __restrict__ part_acc,
-                int H, int Hkv, int hd, int bs, int P, int R, int window,
-                int split_tokens, int n_splits, float scale_log2) {
+                int n_q, int H, int Hkv, int hd, int bs, int P, int R,
+                int window, int split_tokens, int n_splits, float scale_log2) {
   constexpr bool kInt8 = sizeof(KV) == 1;
   constexpr int SK = kDecStageKeys;
   constexpr int RB = dec_row_bytes<HD, KV>();
@@ -957,16 +960,25 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
   float* ks_s = reinterpret_cast<float*>(q_s + kDecRows * LDQ);  // [stage][SK]
   float* vs_s = ks_s + kDecStages * SK;
   int* slot_s = reinterpret_cast<int*>(vs_s + kDecStages * SK);  // [keys]
+  int* kpos_s = slot_s + split_tokens;           // [keys], ring verify only
+  const bool kpos_map = RING && n_q > 1;
 
   const int b = blockIdx.x;
   const int groups = H / Hkv;
-  const int row_tiles = (groups + kDecRows - 1) / kDecRows;
+  const int rows = n_q * groups;                 // the kv head's query rows
+  const int row_tiles = (rows + kDecRows - 1) / kDecRows;
   const int kvh = blockIdx.y / row_tiles;
-  const int g0 = (blockIdx.y % row_tiles) * kDecRows;
-  const int ng = min(kDecRows, groups - g0);
+  const int r0 = (blockIdx.y % row_tiles) * kDecRows;
+  const int nr = min(kDecRows, rows - r0);       // the tile's rows
   const int split = blockIdx.z;
   const int t_begin = split * split_tokens;
-  const int64_t row0 = static_cast<int64_t>(b) * H + kvh * groups + g0;
+  // row r of the tile is kv-head row r0 + r = j · groups + g: query j,
+  // head kvh · groups + g, output row (b · n_q + j) · H + head
+  auto out_row = [&](int r) {
+    const int rr = r0 + r;
+    return (static_cast<int64_t>(b) * n_q + rr / groups) * H + kvh * groups +
+           rr % groups;
+  };
 
   // the split's slice of the block table, into the first stage's buffer
   // (no copy has reached it yet), loaded with lens[b] in one round trip:
@@ -982,13 +994,14 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
   }
   const int len = lens[b];
   const int newest = RING ? positions[b] : len - 1;
+  const int oldest = newest - (n_q - 1);         // query j at oldest + j
   const int t_stop = min(RING ? R * bs : min(len, P * bs),
                          t_begin + split_tokens);
 
   if (len <= 0 || t_begin >= t_stop) {          // block-uniform: no key
-    for (int r = threadIdx.x; r < ng; r += kDecThreads) {
-      part_m[(row0 + r) * n_splits + split] = kNegInf;
-      part_l[(row0 + r) * n_splits + split] = 0.f;
+    for (int r = threadIdx.x; r < nr; r += kDecThreads) {
+      part_m[out_row(r) * n_splits + split] = kNegInf;
+      part_l[out_row(r) * n_splits + split] = 0.f;
     }
     return;
   }
@@ -999,18 +1012,28 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
   const int g = lane / 4;          // the fragment's row (and row + 8)
   const int tig = lane % 4;        // its column pair
 
-  // Q's 16-row tile, zeros past the kv head's rows and past hd
+  // Q's 16-row tile, zeros past the kv head's rows and past hd. Each row's
+  // 16 bytes of padding (past HD, read by no fragment load) keep two ints:
+  // the row's query position and its output row, read where they are
+  // needed instead of held in registers across the key loop
   {
     constexpr int kQChunks = HD / 8;
     for (int i = threadIdx.x; i < kDecRows * kQChunks; i += kDecThreads) {
       const int r = i / kQChunks;
       const int c = (i % kQChunks) * 8;
-      const bool ok = r < ng && c < hd;
+      const bool ok = r < nr && c < hd;
       cp_async16(smem_u32(q_s + r * LDQ + c),
-                 ok ? q + (row0 + r) * hd + c : q, ok);
+                 ok ? q + out_row(r) * hd + c : q, ok);
+    }
+    if (threadIdx.x < kDecRows) {
+      int* pad = reinterpret_cast<int*>(q_s + threadIdx.x * LDQ + HD);
+      pad[0] = oldest + (r0 + threadIdx.x) / groups;   // past nr: unread
+      pad[1] = threadIdx.x < nr ? static_cast<int>(out_row(threadIdx.x)) : 0;
     }
   }
-  // the slot map: each key's pool slot, -1 for a dead one
+  // the slot map: each key's pool slot, -1 for a key no row sees (outside
+  // the union of the rows' windows); a ring verify also keeps each key's
+  // absolute position for the per-row test
   {
     const int q_cur = RING ? floor_div(newest, bs) : 0;
     const int r_cur = RING ? floor_mod(q_cur, R) : 0;
@@ -1021,7 +1044,8 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
       if (RING) {
         const int page = q_cur - floor_mod(r_cur - t / bs, R);
         const int kp = page * bs + t % bs;
-        live = page >= 0 && kp <= newest && kp > newest - window;
+        live = page >= 0 && kp <= newest && kp > oldest - window;
+        if (kpos_map) kpos_s[i] = kp;
       }
       slot_s[i] = live ? tbl_s[t / bs - p0] * bs + t % bs : -1;
     }
@@ -1080,9 +1104,19 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
     }
     const int key0 = st * SK + warp * kDecSliceKeys;   // the warp's slice
     if (key0 >= n_keys) continue;                      // warp-uniform
+    // per_row: the slice may hold a key that some row must not see (full
+    // mode: a position past the oldest query's; ring verify: a key outside
+    // some row's window); the rows' masks are then applied one by one
+    bool per_row = !RING && t_begin + key0 + kDecSliceKeys - 1 > oldest;
     if (RING) {                         // a slice of dead ring slots only
       const int key = key0 + lane % kDecSliceKeys;
-      if (!__any_sync(kFull, key < n_keys && slot_s[key] >= 0)) continue;
+      const bool live = key < n_keys && slot_s[key] >= 0;
+      if (!__any_sync(kFull, live)) continue;
+      if (kpos_map) {
+        const int kp = live ? kpos_s[key] : 0;
+        per_row = __any_sync(
+            kFull, live && (kp > oldest || kp <= newest - window));
+      }
     }
     const int buf = st % kDecStages;
     const unsigned char* k_t = tiles + buf * STAGE + warp * kDecSliceKeys * RB;
@@ -1137,7 +1171,7 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
         kc[j][c] = kInt8 ? ks_s[at] * scale_log2 : scale_log2;
         vc[j][c] = kInt8 ? vs_s[at] : 1.f;
       }
-    const bool edge = RING || key0 + kDecSliceKeys > n_keys;
+    const bool edge = RING || per_row || key0 + kDecSliceKeys > n_keys;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -1146,7 +1180,14 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
         float x = s[j][e] * kc[j][e % 2];
         if (edge) {
           const int key = key0 + 8 * j + 2 * tig + (e % 2);
-          if (key >= n_keys || slot_s[key] < 0) x = kNegInf;
+          bool ok = key < n_keys && slot_s[key] >= 0;
+          if (per_row && ok) {
+            const int kp = RING ? kpos_s[key] : t_begin + key;
+            const int qp = *reinterpret_cast<const int*>(
+                q_s + (g + 8 * (e / 2)) * LDQ + HD);
+            ok = kp <= qp && (!RING || kp > qp - window);
+          }
+          if (!ok) x = kNegInf;
         }
         s[j][e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -1250,7 +1291,7 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
       red_o[(warp * kDecRows + g + 8 * (e / 2)) * HD + col] = o[d][e];
     }
   __syncthreads();
-  for (int i = threadIdx.x; i < ng * hd; i += kDecThreads) {
+  for (int i = threadIdx.x; i < nr * hd; i += kDecThreads) {
     const int r = i / hd;
     const int d = i % hd;
     float m_all = kNegInf;
@@ -1262,7 +1303,11 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
     for (int w = 0; w < kDecWarps; ++w)
       acc += red_o[(w * kDecRows + r) * HD + d] *
              exp2f(red_m[w * kDecRows + r] - m_all);
-    const int64_t prow = (row0 + r) * n_splits + split;
+    const int64_t prow =
+        static_cast<int64_t>(
+            reinterpret_cast<const int*>(q_s + r * LDQ + HD)[1]) *
+            n_splits +
+        split;
     part_acc[prow * hd + d] = acc;
     if (d == 0) {
       float l_all = 0.f;
@@ -1276,7 +1321,8 @@ paged_decode_tc(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
   }
 }
 
-// One block per (b, head): merge the splits that saw a live key (l > 0);
+// One block per output row (b, query, head): merge the splits that saw a
+// live key (l > 0);
 // m in log2 units. The splits' weights are computed once, into shared
 // memory (n_splits floats), with every split's (m, l) loaded at once.
 __global__ void paged_decode_tc_merge(const float* __restrict__ part_m,
@@ -1333,16 +1379,17 @@ cudaError_t launch_dec(const void* q, const void* k_pool, const void* v_pool,
                        const float* k_scale, const float* v_scale,
                        const int* tables, const int* lens,
                        const int* positions, void* out, float* workspace,
-                       int B, int H, int Hkv, int hd, int bs, int P, int R,
-                       int window, int split_tokens, float scale,
+                       int B, int n_q, int H, int Hkv, int hd, int bs, int P,
+                       int R, int window, int split_tokens, float scale,
                        cudaStream_t stream) {
   const int span = (RING ? R : P) * bs;
   const int n_splits = (span + split_tokens - 1) / split_tokens;
-  const int64_t rows = static_cast<int64_t>(B) * H * n_splits;
+  const int64_t out_rows = static_cast<int64_t>(B) * n_q * H;
+  const int64_t parts = out_rows * n_splits;
   float* part_m = workspace;
-  float* part_l = part_m + rows;
-  float* part_acc = part_l + rows;
-  const size_t smem = dec_smem_bytes<HD, KV>(split_tokens);
+  float* part_l = part_m + parts;
+  float* part_acc = part_l + parts;
+  const size_t smem = dec_smem_bytes<HD, KV>(split_tokens, RING && n_q > 1);
   auto kern = paged_decode_tc<HD, KV, RING>;
   // the attribute is set once per device and size, not on every call
   static size_t configured[16] = {};
@@ -1356,17 +1403,16 @@ cudaError_t launch_dec(const void* q, const void* k_pool, const void* v_pool,
     if (err != cudaSuccess) return err;
     if (dev < 16) configured[dev] = smem;
   }
-  const int groups = H / Hkv;
-  const int row_tiles = (groups + kDecRows - 1) / kDecRows;
+  const int row_tiles = (n_q * (H / Hkv) + kDecRows - 1) / kDecRows;
   kern<<<dim3(B, Hkv * row_tiles, n_splits), kDecThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const KV*>(k_pool),
       static_cast<const KV*>(v_pool), k_scale, v_scale, tables, lens,
-      positions, part_m, part_l, part_acc, H, Hkv, hd, bs, P, R, window,
+      positions, part_m, part_l, part_acc, n_q, H, Hkv, hd, bs, P, R, window,
       split_tokens, n_splits, scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_threads = ((hd + 31) / 32) * 32;
-  paged_decode_tc_merge<<<static_cast<unsigned>(B * H), merge_threads,
+  paged_decode_tc_merge<<<static_cast<unsigned>(out_rows), merge_threads,
                           n_splits * sizeof(float), stream>>>(
       part_m, part_l, part_acc, static_cast<bf16*>(out), hd, n_splits);
   return cudaGetLastError();
@@ -1378,7 +1424,7 @@ cudaError_t dispatch_dec(const void* q, const void* k_pool, const void* v_pool,
                          const float* k_scale, const float* v_scale,
                          const int* tables, const int* lens,
                          const int* positions, void* out, float* ws, int B,
-                         int H, int Hkv, int hd, int bs, int P, int R,
+                         int n_q, int H, int Hkv, int hd, int bs, int P, int R,
                          int window, int split_tokens, float scale,
                          cudaStream_t s) {
   constexpr int W = kDecWidths[I];
@@ -1386,11 +1432,11 @@ cudaError_t dispatch_dec(const void* q, const void* k_pool, const void* v_pool,
     if (hd > W)
       return dispatch_dec<I + 1, KV, RING>(
           q, k_pool, v_pool, k_scale, v_scale, tables, lens, positions, out,
-          ws, B, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
+          ws, B, n_q, H, Hkv, hd, bs, P, R, window, split_tokens, scale, s);
   }
   return launch_dec<W, KV, RING>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                                 lens, positions, out, ws, B, H, Hkv, hd, bs,
-                                 P, R, window, split_tokens, scale, s);
+                                 lens, positions, out, ws, B, n_q, H, Hkv, hd,
+                                 bs, P, R, window, split_tokens, scale, s);
 }
 
 template <typename KV>
@@ -1398,18 +1444,19 @@ cudaError_t dispatch_dec_mode(const void* q, const void* k_pool,
                               const void* v_pool, const float* k_scale,
                               const float* v_scale, const int* tables,
                               const int* lens, const int* positions,
-                              void* out, float* ws, int B, int H, int Hkv,
-                              int hd, int bs, int P, int R, int window,
-                              int split_tokens, float scale, cudaStream_t s) {
+                              void* out, float* ws, int B, int n_q, int H,
+                              int Hkv, int hd, int bs, int P, int R,
+                              int window, int split_tokens, float scale,
+                              cudaStream_t s) {
   if (R > 0)
     return dispatch_dec<0, KV, true>(q, k_pool, v_pool, k_scale, v_scale,
-                                     tables, lens, positions, out, ws, B, H,
-                                     Hkv, hd, bs, P, R, window, split_tokens,
-                                     scale, s);
+                                     tables, lens, positions, out, ws, B, n_q,
+                                     H, Hkv, hd, bs, P, R, window,
+                                     split_tokens, scale, s);
   return dispatch_dec<0, KV, false>(q, k_pool, v_pool, k_scale, v_scale,
-                                    tables, lens, positions, out, ws, B, H,
-                                    Hkv, hd, bs, P, R, window, split_tokens,
-                                    scale, s);
+                                    tables, lens, positions, out, ws, B, n_q,
+                                    H, Hkv, hd, bs, P, R, window,
+                                    split_tokens, scale, s);
 }
 
 }  // namespace
@@ -1442,17 +1489,17 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pool,
                            static_cast<cudaStream_t>(stream));
 }
 
-// Ring decode with an f32 q (B2: ring_pages > 0, n_q == 1, dtype 0; a bf16
-// q runs paged_decode_bf16), verify (B4: ring_pages == 0) and ring verify
-// (B5: ring_pages > 0, n_q > 1). q and out are (B, n_q, H, hd);
-// `positions` (B,) int32 is read in ring mode only (the newest query's
-// absolute position; the caller passes any int32 buffer in full mode).
-// dtype: 0 = float32, 1 = bfloat16 (pools of that type, or int8 with
-// k_scale / v_scale as in paged_attention_decode). The Python
-// wrapper has checked shapes, types, contiguity, alignment, ring_pages <= P,
-// the shared-memory size and allocated `workspace`: B · n_q · H · n_splits ·
-// (hd + 2) floats, n_splits = ceil((ring_pages or P) · bs / split_tokens).
-// Returns the launches' cudaError_t (0 on success).
+// Ring decode (B2: ring_pages > 0, n_q == 1), verify (B4: ring_pages == 0)
+// and ring verify (B5: ring_pages > 0, n_q > 1) with an f32 q; dtype must be
+// 0 (float32): a bf16 q runs paged_decode_bf16. q and out are (B, n_q, H,
+// hd); `positions` (B,) int32 is read in ring mode only (the newest query's
+// absolute position; the caller passes any int32 buffer in full mode). The
+// pools are f32, or int8 with k_scale / v_scale as in
+// paged_attention_decode. The Python wrapper has checked shapes, types,
+// contiguity, alignment, ring_pages <= P, the shared-memory size and
+// allocated `workspace`: B · n_q · H · n_splits · (hd + 2) floats, n_splits
+// = ceil((ring_pages or P) · bs / split_tokens). Returns the launches'
+// cudaError_t (0 on success).
 extern "C" int paged_attention_multi(const void* q, const void* k_pool,
                                      const void* v_pool, const void* k_scale,
                                      const void* v_scale, const void* tables,
@@ -1465,49 +1512,44 @@ extern "C" int paged_attention_multi(const void* q, const void* k_pool,
   if (B == 0) return 0;
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
-  if ((ks == nullptr) != (vs == nullptr) || (dtype == 1 && n_q == 1))
+  if ((ks == nullptr) != (vs == nullptr) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int* tbl = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lens);
-  const int* pos = static_cast<const int*>(positions);
-  float* ws = static_cast<float*>(workspace);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_multi<float>(q, k_pool, v_pool, ks, vs, tbl, ln, pos, out,
-                                 ws, B, n_q, H, Hkv, hd, bs, P, ring_pages,
-                                 window, split_tokens, scale, s);
-  if (dtype == 1)
-    return dispatch_multi<__nv_bfloat16>(q, k_pool, v_pool, ks, vs, tbl, ln,
-                                         pos, out, ws, B, n_q, H, Hkv, hd, bs,
-                                         P, ring_pages, window, split_tokens,
-                                         scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_multi(q, k_pool, v_pool, ks, vs,
+                        static_cast<const int*>(tables),
+                        static_cast<const int*>(lens),
+                        static_cast<const int*>(positions), out,
+                        static_cast<float*>(workspace), B, n_q, H, Hkv, hd,
+                        bs, P, ring_pages, window, split_tokens, scale,
+                        static_cast<cudaStream_t>(stream));
 }
 
-// One-query decode with a bf16 q and out (B, H, hd) on the tensor cores
-// (B1: ring_pages == 0; B2: ring_pages > 0, keys in (positions[b] - window,
-// positions[b]] through the first ring_pages table entries). Pools bf16, or
+// Decode and verify with a bf16 q and out (B, n_q, H, hd) on the tensor
+// cores: n_q == 1 is the one-query decode (B1: ring_pages == 0; B2:
+// ring_pages > 0, keys in (positions[b] - window, positions[b]] through the
+// first ring_pages table entries), n_q > 1 the verify (B4: ring_pages == 0,
+// query j at lens[b] - n_q + j; B5: ring_pages > 0, query j at
+// positions[b] - (n_q - 1) + j, each in its own window). Pools bf16, or
 // int8 with f32 k_scale / v_scale (N, bs, Hkv) (both non-null; null for
 // bf16 pools). `positions` (B,) int32 is read in ring mode only. The Python
 // wrapper has checked shapes, types, contiguity, 16-byte alignment, 8 <= hd
 // <= 256 with hd % 8 == 0, ring_pages <= P and window >= 1 in ring mode,
 // chosen split_tokens (a multiple of the 64-key stage, at most 2048) and
-// allocated `workspace`: B · H · n_splits · (hd + 2) floats, n_splits =
-// ceil((ring_pages or P) · bs / split_tokens). Returns the launches'
+// allocated `workspace`: B · n_q · H · n_splits · (hd + 2) floats, n_splits
+// = ceil((ring_pages or P) · bs / split_tokens). Returns the launches'
 // cudaError_t (0 on success).
 extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
                                  const void* v_pool, const void* k_scale,
                                  const void* v_scale, const void* tables,
                                  const void* lens, const void* positions,
-                                 void* out, void* workspace, int B, int H,
-                                 int Hkv, int hd, int bs, int P,
+                                 void* out, void* workspace, int B, int n_q,
+                                 int H, int Hkv, int hd, int bs, int P,
                                  int ring_pages, int window, int split_tokens,
                                  float scale, void* stream) {
   if (B == 0) return 0;
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
-  if ((ks == nullptr) != (vs == nullptr) || Hkv <= 0 || H % Hkv != 0 ||
-      hd % 8 != 0 || hd < 8 || hd > 256 || ring_pages < 0 ||
+  if ((ks == nullptr) != (vs == nullptr) || n_q < 1 || Hkv <= 0 ||
+      H % Hkv != 0 || hd % 8 != 0 || hd < 8 || hd > 256 || ring_pages < 0 ||
       split_tokens <= 0 || split_tokens % kDecStageKeys != 0 ||
       split_tokens > kDecMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1518,10 +1560,10 @@ extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ks != nullptr)
     return dispatch_dec_mode<int8_t>(q, k_pool, v_pool, ks, vs, tbl, ln, pos,
-                                     out, ws, B, H, Hkv, hd, bs, P,
+                                     out, ws, B, n_q, H, Hkv, hd, bs, P,
                                      ring_pages, window, split_tokens, scale,
                                      s);
   return dispatch_dec_mode<bf16>(q, k_pool, v_pool, nullptr, nullptr, tbl,
-                                 ln, pos, out, ws, B, H, Hkv, hd, bs, P,
+                                 ln, pos, out, ws, B, n_q, H, Hkv, hd, bs, P,
                                  ring_pages, window, split_tokens, scale, s);
 }

@@ -2,10 +2,10 @@
 ring mode — dispatched by device.
 
 A CPU tensor takes the plain version (``ref``); a CUDA tensor launches the
-hand-written kernel or raises — there is no fallback. A bf16 query in
-one-query decode, full or ring mode, launches the tensor-core decode kernel
-(``kernel.paged_decode_cuda``); an f32 query and every verify launch the
-CUDA-core kernels. Each mode counts its
+hand-written kernel or raises — there is no fallback. A bf16 query, in
+one-query decode or K-query verify, full or ring mode, launches the
+tensor-core kernel (``kernel.paged_decode_cuda``); an f32 query launches
+the CUDA-core kernels. Each mode counts its
 launches under its own key of ``repro_torch.kernels.launch_counts``:
 ``paged_attention`` (full decode), ``paged_ring`` (ring decode),
 ``paged_verify`` and ``paged_ring_verify``; with int8 pools (``k_scale`` /
@@ -117,8 +117,8 @@ def _key(mode, k_scale):
 
 def _launch_multi(q, k_pool, v_pool, block_tables, seq_lens, scale, window,
                   positions, ring_pages, k_scale, v_scale, mode):
-    """q (B, n_q, H, hd) on CUDA: validate, launch, count under `mode`'s
-    key."""
+    """f32 q (B, n_q, H, hd) on CUDA: validate, launch the CUDA-core kernel,
+    count under `mode`'s key."""
     _check(q, k_pool, v_pool, block_tables, seq_lens, k_scale, v_scale)
     _check_multi(q, k_pool, block_tables, window, positions, ring_pages)
     out = torch.empty_like(q)
@@ -126,6 +126,21 @@ def _launch_multi(q, k_pool, v_pool, block_tables, seq_lens, scale, window,
         q, k_pool, v_pool, block_tables, seq_lens,
         seq_lens if positions is None else positions, out, scale,
         window or 0, ring_pages or 0, k_scale, v_scale)
+    kernels.launch_counts[_key(mode, k_scale)] += 1
+    return out
+
+
+def _launch_tc(q, k_pool, v_pool, block_tables, seq_lens, scale, window,
+               positions, ring_pages, k_scale, v_scale, mode):
+    """bf16 q (B, H, hd) or (B, n_q, H, hd) on CUDA: validate, launch the
+    tensor-core kernel, count under `mode`'s key."""
+    _check(q, k_pool, v_pool, block_tables, seq_lens, k_scale, v_scale)
+    _check_ring(q, block_tables, window, positions, ring_pages)
+    out = torch.empty_like(q)
+    ring = ring_pages is not None
+    paged_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens,
+                      positions if ring else seq_lens, out, scale,
+                      window or 0, ring_pages or 0, k_scale, v_scale)
     kernels.launch_counts[_key(mode, k_scale)] += 1
     return out
 
@@ -159,14 +174,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *, scale=None,
         raise ValueError(f"want q (B, H, hd), got {tuple(q.shape)}")
     mode = "paged_ring" if ring else "paged_attention"
     if q.dtype == torch.bfloat16:
-        _check(q, k_pool, v_pool, block_tables, seq_lens, **scales)
-        _check_ring(q, block_tables, window, positions, ring_pages)
-        out = torch.empty_like(q)
-        paged_decode_cuda(q, k_pool, v_pool, block_tables, seq_lens,
-                          positions if ring else seq_lens, out, scale,
-                          window or 0, ring_pages or 0, **scales)
-        kernels.launch_counts[_key(mode, k_scale)] += 1
-        return out
+        return _launch_tc(q, k_pool, v_pool, block_tables, seq_lens, scale,
+                          window, positions, ring_pages, k_scale, v_scale,
+                          mode)
     if ring:
         return _launch_multi(q[:, None], k_pool, v_pool, block_tables,
                              seq_lens, scale, window, positions, ring_pages,
@@ -198,6 +208,7 @@ def paged_attention_verify(q, k_pool, v_pool, block_tables, seq_lens, *,
             k_scale=k_scale, v_scale=v_scale)
     if q.dim() != 4:
         raise ValueError(f"want q (B, K, H, hd), got {tuple(q.shape)}")
-    return _launch_multi(q, k_pool, v_pool, block_tables, seq_lens, scale,
-                         window, positions, ring_pages, k_scale, v_scale,
-                         "paged_ring_verify" if ring else "paged_verify")
+    launch = _launch_tc if q.dtype == torch.bfloat16 else _launch_multi
+    return launch(q, k_pool, v_pool, block_tables, seq_lens, scale, window,
+                  positions, ring_pages, k_scale, v_scale,
+                  "paged_ring_verify" if ring else "paged_verify")
