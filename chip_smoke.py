@@ -105,6 +105,33 @@ Phases, in order; any failure exits non-zero before the final ok line:
      per conv_im2col call, also once in bf16), each timed beside its
      Work-Depth W, and the survey's Winograd accuracy claim measured.
 
+  6. serving beyond greedy attention decoders. Kernels: B1 and B4
+     at zamba2-2.7b's shared-attention layout (32/32 heads, hd 80), bf16
+     and int8 pools, against the plain version and timed beside SDPA and
+     the bound (bf16 rows join the kernels line). Parity (reduced f32,
+     TF32 off): serve.generate cuda == cpu == the cuda engine, f32 and
+     int8 caches; a sampled request (temperature 0.8, seeded generator):
+     cuda engine == cpu engine == cpu generate == forcibly preempted after
+     3 decode steps == under SpecConfig(k=4), run unspeculated; rwkv6-7b
+     and zamba2-2.7b: cuda engine == cpu engine == cpu generate, n-gram
+     spec == plain, every request preempted once == plain (rwkv6: snapshot
+     resume, one token prefilled after it). Full width: yi-9b's
+     serve.generate (2 x 512-token prompts, 32 new, no kernel launch), 4
+     sampled + 4 greedy requests plainly, with a forced preemption and
+     under speculation, and a draft-model drafter (2-layer yi-9b width,
+     seed 1) with its acceptance; yi-9b in f32 cut to 2 layers, where the
+     sampled request's tokens with and without preemption and under
+     speculation, and draft-model speculation against plain greedy, are
+     gated equal. Then rwkv6-7b (32 layers) and zamba2-2.7b (54 layers, hd
+     80) at full depth, bf16: 8 requests (prompts 32-128, 32 new) plainly,
+     with n-gram spec k = 4 and under oversubscription with one forced
+     preemption (rwkv6 resumes from its snapshot, zamba2 re-prefills):
+     finite logits, no leaked block, zamba2's B1 == decode steps x 9 and
+     B4 == verify steps x 9; tokens/s, TTFT, TPOT, per-step host and
+     device ms, peak memory and a profile of the decode window. bf16 token
+     agreement between paths is reported, not gated (bf16 prefill, decode
+     and K-row verify round differently; the f32 runs gate it).
+
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -550,7 +577,8 @@ def multi_kernel_phase(card):
     return rows
 
 
-def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
+def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b",
+                row_name=None, row_replaces=None):
     """Kernel, plain version and SDPA on pre-gathered K/V at one shape, by
     CUDA events and by device time; byte and operation bounds from these
     inputs' live keys; the bf16 output also held to DECODE_ROW_TOL of each
@@ -559,7 +587,9 @@ def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
     (k_scale / v_scale in `kw`) the bytes count the int8 values plus 4
     bytes of scale per vector, SDPA takes K/V gathered AND dequantized
     beforehand, and the bf16 kernel of the same mode is also timed on the
-    pools' dequantized contents (the dequant's cost)."""
+    pools' dequantized contents (the dequant's cost). `row_name` /
+    `row_replaces` override the row's name and TPU body (a kernel timed at
+    another model's shape)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (
@@ -649,7 +679,8 @@ def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
         extra += (f", bf16 kernel on the dequantized pool {bf16_ms:.4f} ms "
                   f"({ms / bf16_ms:.2f}x)")
     else:
-        name, replaces = MULTI_KERNELS[key]
+        name, replaces = MULTI_KERNELS.get(key, (key, None))
+    replaces = row_replaces or replaces
     pools = "int8" if quant else "bf16"
     print(f"{name} @ {shape} decode shape (bf16 q, {pools} pools, B={B}, "
           f"k={K}, {n_keys} live keys): kernel {ms:.4f} ms (device "
@@ -659,7 +690,7 @@ def _time_multi(card, key, n_q, args, kw, errs, window, shape="gemma3-12b"):
           f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
           f"max_abs_err f32 {errs[torch.float32]:.3e} bf16 "
           f"{errs[torch.bfloat16]:.3e} | {card}")
-    return {"name": name, "route": "cuda",
+    return {"name": row_name or name, "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/"
                       "paged_attention.cu",
             "replaces": replaces, "launches": None,
@@ -1197,7 +1228,7 @@ def main_path_phase(card, kernel_row):
     return params, ecfg, prompts, news, [outs[r].tolist() for r in rids]
 
 
-def _timed_run(card, eng, label, waves):
+def _timed_run(card, eng, label, waves, hook=None):
     """Serve request waves through `eng` with every device call checked for
     finite logits: wave 0 is submitted at once, each later wave after one
     more engine step; then drain. Checks that every request finished with
@@ -1205,7 +1236,8 @@ def _timed_run(card, eng, label, waves):
     tokens/s, TTFT / TPOT p50 and p99 (step_timing engines), per-step host
     and device medians, peak resident sequences, preemptions, resumes,
     block appends, the pools' bytes and peak device memory. `waves`: lists
-    of (prompt, max_new, priority)."""
+    of (prompt, max_new, priority); `hook(eng)`, if given, runs after every
+    step (a forced preemption)."""
     import torch
     from repro_torch import kernels
     bad = []
@@ -1236,6 +1268,8 @@ def _timed_run(card, eng, label, waves):
     while eng.scheduler.has_work:
         eng.step()
         resident = max(resident, len(eng.scheduler.running))
+        if hook is not None:
+            hook(eng)
     got = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1276,21 +1310,23 @@ def _timed_run(card, eng, label, waves):
     return {"outs": [got[r].tolist() for r in rids],
             "launches": dict(kernels.launch_counts),
             "steps": st["decode_steps"], "resident": resident,
-            "preemptions": st["preemptions"], "tok_s": generated / wall,
-            "step_ms": np.median(dev) * 1e3}
+            "preemptions": st["preemptions"], "resumes": st["resumes"],
+            "tok_s": generated / wall, "step_ms": np.median(dev) * 1e3}
 
 
-def _match_share(label, base, other):
-    """Requests whose tokens equal the bf16-pool run's, reported (int8 is a
-    different result, so this is not gated; the f32 parity phases are)."""
+def _match_share(label, base, other, against="the bf16-pool run",
+                 why=None):
+    """Requests whose tokens equal `base`'s (by default the bf16-pool run's:
+    int8 is a different result), reported, not gated; the f32 parity phases
+    gate token equality."""
     same, first = 0, []
     for a, b in zip(base, other):
         diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
         same += not diff
         first.append(diff[0] if diff else None)
-    print(f"{label}: {same}/{len(first)} requests match the bf16-pool run end "
+    print(f"{label}: {same}/{len(first)} requests match {against} end "
           f"to end; first divergent position per request {first} (reported, "
-          f"not gated)")
+          f"not gated{': ' + why if why else ''})")
 
 
 def yi9b_int8_phase(card, rows, params, ecfg, prompts, news, bf16_outs):
@@ -1578,6 +1614,593 @@ def gemma3_main_phase(card, rows):
           f"{generated} tokens in {wall:.3f} s = {generated / wall:.2f} "
           f"tok/s | {card}")
     where_time_goes(card, fast, prompts[:8], news[:8])
+
+
+# ------------------------------- phase 3g: B1 and B4 at zamba2's layout
+ZAMBA2_LAYOUT = (32, 32, 80)        # zamba2-2.7b's shared attention
+
+
+def zamba2_kernel_phase(card):
+    """B1 (one-query decode) and B4 (k = 4 verify) at zamba2-2.7b's shared
+    attention layout (32/32 heads, hd 80: the first model path that runs
+    the tensor-core decode at width 80), bf16 and int8 pools, against the
+    plain version, then timed beside SDPA and the bound (as B1 at yi-9b's
+    shape: B = 8 slots, block 16, 128-page tables, lengths over 4..2048).
+    Returns the bf16 rows, for the kernels line (the int8 rows are
+    printed)."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_ref, paged_attention_verify,
+        paged_attention_verify_ref)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    H, Hkv, hd = ZAMBA2_LAYOUT
+    B, bs, P, K = 8, 16, 128, 4
+    lens = [int(x) for x in np.linspace(K, bs * P, B)]
+    rows = []
+    for key, n_q, replaces in (
+            ("paged_attention", 0,
+             "src/repro/kernels/paged_attention/kernel.py:52"),
+            ("paged_verify", K,
+             "src/repro/kernels/paged_attention/kernel.py:101")):
+        kern, plain = ((paged_attention, paged_attention_ref) if n_q == 0
+                       else (paged_attention_verify,
+                             paged_attention_verify_ref))
+        for quant in (False, True):
+            errs = {}
+            for dt in (torch.float32, torch.bfloat16):
+                args, kw = _multi_inputs(gen, B, n_q, H, Hkv, hd, B * P + 1,
+                                         bs, P, dt, lens, None)
+                if quant:
+                    args, kw = _quantized(args, kw)
+                out, ref = kern(*args, **kw), plain(*args, **kw)
+                torch.cuda.synchronize()
+                errs[dt] = (out.float() - ref.float()).abs().max().item()
+                check(math.isfinite(errs[dt]) and errs[dt] <= tol[dt],
+                      f"{key} @ zamba2-2.7b {dt} int8={quant}: max_abs_err "
+                      f"{errs[dt]} > {tol[dt]}")
+            k = key + "_int8" if quant else key
+            row = _time_multi(card, k, n_q, args, kw, errs, None,
+                              shape="zamba2-2.7b",
+                              row_name=f"{k} @ zamba2-2.7b",
+                              row_replaces=None if quant else replaces)
+            if not quant:
+                rows.append(row)
+    return rows
+
+
+# ------------------------------------------- phase 4f: serving parity (A7, A9)
+def _no_launches(label):
+    from repro_torch import kernels
+    check(not any(kernels.launch_counts.values()),
+          f"{label}: the dense path launched kernels "
+          f"{dict(kernels.launch_counts)}")
+
+
+def serve_parity_phase(card):
+    """Reduced f32 configs, TF32 off, cuda against cpu from the same
+    weights. yi-9b: cuda generate == cpu generate (batched prefill, also on
+    int8 caches) == the cuda engine (int8 pools for the int8 caches); a
+    sampled request == on the cpu engine, == generate with the same seed,
+    and == itself forcibly preempted after 3 decode steps and under
+    SpecConfig(k=4) (run unspeculated: no drafted token). rwkv6-7b and
+    zamba2-2.7b: cuda engine tokens == cpu engine tokens == cpu generate,
+    cuda n-gram speculation == plain, every request forcibly preempted once
+    == plain (snapshot resume for rwkv6: after the resume the prefill covers
+    the pending token only; zamba2 re-prefills)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import state_providers as SP
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import serve
+    from repro_torch.serving.engine import (Engine, EngineConfig,
+                                            KVQuantConfig, OversubConfig,
+                                            SpecConfig)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ek = dict(block_size=4, num_blocks=64, max_blocks_per_seq=12,
+              max_slots=3, prefill_chunk=16)
+    slo_off = OversubConfig(ttft_slo_s=1e9, tpot_slo_s=1e9)
+    rng = np.random.default_rng(21)
+
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")), dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    dev_params = {"cpu": params, "cuda": _tree_to(params, "cuda")}
+    batch = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    for kvq in (None, KVQuantConfig()):
+        got = {}
+        for dev in ("cpu", "cuda"):
+            kernels.reset_launch_counts()
+            got[dev] = serve.generate(cfg, dev_params[dev], batch, 16,
+                                      kv_quant=kvq).cpu().tolist()
+            _no_launches(f"generate {dev}")
+        eng_out = serve.engine_generate(
+            cfg, dev_params["cuda"], list(batch), [16, 16],
+            engine_cfg=EngineConfig(**ek, kv_quant=kvq), device="cuda")
+        check(got["cuda"] == got["cpu"] == [o.tolist() for o in eng_out],
+              f"generate kv_quant={kvq}: cuda {got['cuda']} / cpu "
+              f"{got['cpu']} / cuda engine {eng_out}")
+    print(f"parity generate (reduced f32 yi-9b, 2 x 24-token prompts, 16 "
+          f"new): cuda == cpu == cuda engine_generate, f32 and int8 caches "
+          f"(tf32 off); no kernel launch on the dense path | {card}")
+
+    # sampling: host Gumbel-max from the request's generator
+    prompt = rng.integers(0, cfg.vocab_size, 13).astype(np.int32)
+    greedy_p = rng.integers(0, cfg.vocab_size, 9).astype(np.int32)
+
+    def sampled(dev, preempt=False, spec=None):
+        eng = Engine(cfg, dev_params[dev], EngineConfig(
+            **ek, oversub=slo_off, spec=spec), device=dev)
+        rid = eng.add_request(prompt, 12, temperature=0.8,
+                              generator=torch.Generator().manual_seed(42))
+        other = eng.add_request(greedy_p, 12)
+        steps = 0
+        while eng.scheduler.has_work:
+            eng.step()
+            if eng.requests[rid].state == "decoding":
+                steps += 1
+                if preempt and steps == 3:     # after 3 decode steps
+                    check(eng.preempt_request(rid), "preempt refused")
+        got = eng.drain()
+        check(eng.stats["resumes"] == int(preempt),
+              f"sampled: resumes {eng.stats['resumes']}")
+        drafted = eng.telemetry.request_timeline(rid)["draft_tokens"]
+        check(drafted == 0, f"sampled request drafted {drafted} tokens")
+        return got[rid].tolist(), got[other].tolist()
+    base = sampled("cuda")
+    want = serve.generate(cfg, dev_params["cpu"], prompt[None], 12,
+                          temperature=0.8,
+                          generator=torch.Generator().manual_seed(42))
+    for label, out in (("cpu engine", sampled("cpu")),
+                       ("forced preemption", sampled("cuda", preempt=True)),
+                       ("spec k=4", sampled("cuda", spec=SpecConfig(k=4)))):
+        check(out == base, f"sampled {label}: {out} != {base}")
+    check(base[0] == want[0].tolist(),
+          f"sampled engine {base[0]} != cpu generate {want[0].tolist()}")
+    print(f"parity temperature 0.8 (reduced f32 yi-9b): the cuda engine's "
+          f"sampled tokens == the cpu engine's == cpu generate's (same "
+          f"seed) == forcibly preempted after 3 decode steps == under "
+          f"SpecConfig(k=4) (0 drafted tokens) | {card}")
+
+    for arch in ("rwkv6-7b", "zamba2-2.7b"):
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+        params = T.init_params(cfg, seed=0, device="cpu")
+        dp = {"cpu": params, "cuda": _tree_to(params, "cuda")}
+        lens, news = (5, 23, 9, 17), (8, 6, 10, 7)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        n_sb, _ = SP.superblock_layout(cfg)
+        n_attn = n_sb * SP.state_kinds(cfg).count("full")
+        outs = {}
+        for dev, mode in (("cpu", "plain"), ("cuda", "plain"),
+                          ("cuda", "spec"), ("cuda", "preempt")):
+            eng = Engine(cfg, dp[dev], EngineConfig(
+                **ek, spec=SpecConfig(k=4) if mode == "spec" else None,
+                oversub=slo_off if mode == "preempt" else None), device=dev)
+            kernels.reset_launch_counts()
+            rids = [eng.add_request(p, m) for p, m in zip(prompts, news)]
+            pending = set(rids) if mode == "preempt" else set()
+            while eng.scheduler.has_work:
+                eng.step()
+                for r in sorted(pending):
+                    req = eng.requests[r]
+                    if req.state == "decoding" and len(req.out_tokens) >= 2:
+                        check(eng.preempt_request(r), f"preempt {r} refused")
+                        pending.discard(r)
+            got = eng.drain()
+            outs[dev, mode] = [got[r].tolist() for r in rids]
+            check(eng.block_pool.num_free == ek["num_blocks"],
+                  f"{arch} {dev} {mode}: blocks leaked")
+            if mode == "preempt":
+                check(not pending and eng.stats["resumes"] == len(rids),
+                      f"{arch}: not every request preempted and resumed")
+                for r in rids:
+                    after = _prefill_after_resume(eng, r)
+                    check((after == 1) == (arch == "rwkv6-7b"),
+                          f"{arch} request {r}: {after} tokens prefilled "
+                          f"after its resume")
+            steps = eng.stats["decode_steps"] if dev == "cuda" else 0
+            key = "paged_verify" if mode == "spec" else "paged_attention"
+            want = _launch_want(**{key: n_attn * steps})
+            check(kernels.launch_counts == want,
+                  f"{arch} {dev} {mode}: launches {kernels.launch_counts} "
+                  f"!= {want}")
+        ref = [serve.generate(cfg, params, p[None], m)[0].tolist()
+               for p, m in zip(prompts, news)]
+        check(all(outs[k] == ref for k in outs),
+              f"{arch}: tokens differ: {outs} vs cpu generate {ref}")
+        print(f"parity {arch} (reduced f32): cuda engine == cpu engine == "
+              f"cpu generate, cuda n-gram spec k=4 == plain, every request "
+              f"preempted once == plain ("
+              f"{'snapshot resume' if arch == 'rwkv6-7b' else 're-prefill'}"
+              f"); B1/B4 once per attention layer a step | {card}")
+
+
+def _prefill_after_resume(eng, rid):
+    """Prompt tokens a request prefilled after its (last) resume event."""
+    n = None
+    for ev in eng.telemetry.request_timeline(rid)["events"]:
+        if ev.name == "resume":
+            n = 0
+        elif ev.name == "prefill_chunk" and n is not None:
+            n += ev.data["tokens"]
+    return n
+
+
+# --------------------------- phase 5f: generate, temperature, draft model
+def _watch_dense_logits(flags):
+    """Wrap the dense steps so every logits tensor is checked for NaN (no
+    host read until the end); returns the restore function."""
+    import torch
+    from repro_torch.models import transformer as T
+    saved = T.prefill_step, T.decode_step
+
+    def wrap(fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            flags.append(torch.isnan(out[0]).any())
+            return out
+        return run
+    T.prefill_step, T.decode_step = map(wrap, saved)
+
+    def restore():
+        T.prefill_step, T.decode_step = saved
+    return restore
+
+
+def yi9b_serve_phase(card, params, ecfg, prompts, news):
+    """yi-9b at full width (48 layers, bf16) beyond greedy engine serving:
+    serve.generate on two 512-token prompts (32 new tokens, batched prefill,
+    the dense cache: no kernel launch), its tokens beside the engine's;
+    then 4 requests at temperature 0.8 (each its own seeded generator) and
+    4 greedy ones through the engine, again with the first sampled request
+    forcibly preempted after 3 decode steps, and under SpecConfig(k=4)
+    (sampled requests draft nothing); then SpecConfig(k=4) with a
+    draft-model drafter (yi-9b's width, 2 layers, seed 1) on 2 requests of
+    16 new tokens, its acceptance. The bf16 runs' tokens are compared
+    with each other and reported (bf16 prefill, decode and K-row verify
+    round differently); token equality is gated in f32 (serve_parity_phase,
+    f32_width_phase)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import serve
+    from repro_torch.serving.engine import (DraftModelDrafter, Engine,
+                                            OversubConfig, SpecConfig)
+    _release_card()
+    cfg = get_config("yi-9b")
+    rng = np.random.default_rng(31)
+    long = rng.integers(0, cfg.vocab_size, (2, 512)).astype(np.int32)
+    flags = []
+    restore = _watch_dense_logits(flags)
+    try:
+        serve.generate(cfg, params, long[:, :16], 2)           # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = serve.generate(cfg, params, long, 32, prefill_mode="batched")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    _no_launches("yi-9b generate")
+    check(not bool(torch.stack(flags).any()), "yi-9b generate: NaN logits")
+    toks = toks.cpu().numpy()
+    check(toks.shape == (2, 32) and ((0 <= toks) & (toks < cfg.vocab_size))
+          .all(), "yi-9b generate: tokens out of the vocabulary")
+    t_pre = time.perf_counter()
+    serve.generate(cfg, params, long, 1, prefill_mode="batched")
+    torch.cuda.synchronize()
+    pre = time.perf_counter() - t_pre
+    eng = Engine(cfg, params, ecfg)
+    rids = [eng.add_request(p, 32) for p in long]
+    got = eng.drain()
+    print(f"yi-9b generate: 2 x 512-token prompts, 32 new tokens each, "
+          f"batched prefill: {wall:.3f} s = {64 / wall:.2f} tok/s; prefill + "
+          f"1 token {pre * 1e3:.1f} ms, per decode step (both rows) "
+          f"{(wall - pre) / 31 * 1e3:.2f} ms; no kernel launch (dense "
+          f"cache) | {card}")
+    _match_share("yi-9b generate vs the engine", toks.tolist(),
+                 [got[r].tolist() for r in rids], against="the engine's",
+                 why="the dense and paged bf16 paths round differently")
+    del eng
+    _release_card()
+
+    # temperature: 4 sampled + 4 greedy requests
+    reqs = list(zip(prompts[:8], [min(m, 16) for m in news[:8]]))
+
+    def run(label, preempt=False, spec=None):
+        eng = Engine(cfg, params, dataclasses.replace(
+            ecfg, spec=spec, oversub=OversubConfig(
+                ttft_slo_s=1e9, tpot_slo_s=1e9) if preempt else None))
+        rids = [eng.add_request(p, m, temperature=0.8 if i < 4 else 0.0,
+                                generator=torch.Generator().manual_seed(i)
+                                if i < 4 else None)
+                for i, (p, m) in enumerate(reqs)]
+        t0, steps = time.perf_counter(), 0
+        while eng.scheduler.has_work:
+            eng.step()
+            if eng.requests[rids[0]].state == "decoding":
+                steps += 1
+                if preempt and steps == 3:
+                    check(eng.preempt_request(rids[0]), "preempt refused")
+        got = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(len(got[r]) == m for r, (_, m) in zip(rids, reqs)),
+              f"yi-9b temperature {label}: a request fell short of its "
+              f"budget")
+        check(all(0 <= t < cfg.vocab_size for r in rids for t in got[r]),
+              f"yi-9b temperature {label}: token out of the vocabulary")
+        check(eng.block_pool.num_free == ecfg.num_blocks,
+              f"yi-9b temperature {label}: blocks leaked")
+        check(eng.stats["resumes"] == int(preempt),
+              f"yi-9b temperature {label}: resumes {eng.stats['resumes']}")
+        drafted = [eng.telemetry.request_timeline(r)["draft_tokens"]
+                   for r in rids]
+        check(not any(drafted[:4]),
+              f"yi-9b temperature {label}: sampled requests drafted "
+              f"{drafted[:4]}")
+        n = sum(m for _, m in reqs)
+        print(f"yi-9b temperature {label}: 4 sampled (T 0.8) + 4 greedy "
+              f"requests, {n} tokens in {wall:.3f} s = {n / wall:.2f} tok/s; "
+              f"decode steps {eng.stats['decode_steps']}; drafted per request "
+              f"{drafted} | {card}")
+        out = [got[r].tolist() for r in rids]
+        del eng
+        _release_card()
+        return out
+    base = run("plain")
+    distinct = len({tuple(o) for o in base[:4]})
+    why = "bf16 prefill, decode and verify round differently"
+    _match_share("yi-9b temperature forced preemption vs plain", base,
+                 run("preempted", preempt=True), against="the plain run's",
+                 why=why)
+    _match_share("yi-9b temperature spec k=4 vs plain", base,
+                 run("spec k=4", spec=SpecConfig(k=4)),
+                 against="the plain run's", why=why)
+    print(f"yi-9b temperature: {distinct} distinct sampled streams of 4")
+
+    # draft-model speculation
+    dcfg = dataclasses.replace(cfg, num_layers=2)
+    dparams = T.init_params(dcfg, seed=1, device="cuda")
+    two = [(p, 16) for p in prompts[:2]]
+    outs = {}
+    for label, spec in (("plain", None), ("draft model", SpecConfig(
+            k=4, drafter=DraftModelDrafter(dcfg, dparams)))):
+        eng = Engine(cfg, params, dataclasses.replace(ecfg, spec=spec))
+        r = _timed_run(card, eng, f"yi-9b {label}", [[(p, m, 0)
+                                                       for p, m in two]])
+        outs[label] = r["outs"]
+        if spec is None:
+            want = _launch_want(paged_attention=r["steps"] * cfg.num_layers)
+            check(r["launches"] == want,
+                  f"yi-9b plain: launches {r['launches']} != {want}")
+        else:
+            reg = eng.telemetry.registry
+            drafted = reg.get("engine_draft_tokens_total").value
+            accepted = reg.get("engine_accepted_tokens_total").value
+            want = _launch_want(paged_verify=r["steps"] * cfg.num_layers)
+            check(r["launches"] == want,
+                  f"yi-9b draft model: launches {r['launches']} != {want}")
+            print(f"yi-9b draft model (2-layer yi-9b width, seed 1): "
+                  f"acceptance {accepted}/{drafted} = "
+                  f"{accepted / max(drafted, 1):.1%} over {r['steps']} verify "
+                  f"steps | {card}")
+        del eng
+        _release_card()
+    _match_share("yi-9b draft-model spec vs plain", outs["plain"],
+                 outs["draft model"], against="the plain run's",
+                 why="bf16 K-row verify and one-row decode round differently")
+    del dparams
+    _release_card()
+
+
+F32_WIDTH_LAYERS = 2    # of yi-9b's 48: full width in f32 (3.5 GB)
+
+
+def f32_width_phase(card):
+    """yi-9b at full width in f32 (2 of 48 layers, TF32 off): the token
+    equality that bf16 cannot show. A sampled request (T 0.8, seeded
+    generator) beside a greedy one: forcibly preempted after 3 decode steps
+    == not preempted == under SpecConfig(k=4) (0 drafted tokens); then
+    draft-model speculation with the target itself as the drafter
+    (acceptance near 1, the multi-token accept path) and with a 1-layer
+    seed-1 draft: tokens == plain greedy."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import (DraftModelDrafter, Engine,
+                                            EngineConfig, OversubConfig,
+                                            SpecConfig)
+    _release_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=F32_WIDTH_LAYERS,
+                              dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    ek = dict(block_size=16, num_blocks=64, max_blocks_per_seq=16,
+              max_slots=4, prefill_chunk=64)
+    rng = np.random.default_rng(41)
+    sp, gp = (rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+              for n in (70, 33))
+    outs = {}
+    for label, preempt, spec in (("plain", False, None),
+                                 ("preempted", True, None),
+                                 ("spec k=4", False, SpecConfig(k=4))):
+        eng = Engine(cfg, params, EngineConfig(**ek, spec=spec,
+                                               oversub=OversubConfig(
+                                                   ttft_slo_s=1e9,
+                                                   tpot_slo_s=1e9)))
+        rid = eng.add_request(sp, 16, temperature=0.8,
+                              generator=torch.Generator().manual_seed(42))
+        other = eng.add_request(gp, 16)
+        steps = 0
+        while eng.scheduler.has_work:
+            eng.step()
+            if eng.requests[rid].state == "decoding":
+                steps += 1
+                if preempt and steps == 3:
+                    check(eng.preempt_request(rid), "preempt refused")
+        got = eng.drain()
+        check(eng.stats["resumes"] == int(preempt),
+              f"f32 yi-9b {label}: resumes {eng.stats['resumes']}")
+        check(eng.telemetry.request_timeline(rid)["draft_tokens"] == 0,
+              f"f32 yi-9b {label}: the sampled request drafted tokens")
+        outs[label] = [got[rid].tolist(), got[other].tolist()]
+        del eng
+    check(outs["preempted"] == outs["plain"] == outs["spec k=4"],
+          f"f32 yi-9b temperature: {outs}")
+    print(f"f32 yi-9b ({F32_WIDTH_LAYERS} layers, full width, tf32 off): the "
+          f"sampled request's tokens (T 0.8) forcibly preempted after 3 "
+          f"decode steps == not preempted == under SpecConfig(k=4), where it "
+          f"ran unspeculated | {card}")
+
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    dparams = T.init_params(dcfg, seed=1, device="cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 57)]
+    outs = {}
+    for label, drafter in (("plain", None),
+                           ("self-draft", DraftModelDrafter(cfg, params)),
+                           ("1-layer draft", DraftModelDrafter(dcfg,
+                                                               dparams))):
+        spec = SpecConfig(k=4, drafter=drafter) if drafter else None
+        eng = Engine(cfg, params, EngineConfig(**ek, spec=spec))
+        rids = [eng.add_request(p, 16) for p in prompts]
+        got = eng.drain()
+        outs[label] = [got[r].tolist() for r in rids]
+        reg = eng.telemetry.registry
+        if drafter is not None:
+            d = reg.get("engine_draft_tokens_total").value
+            a = reg.get("engine_accepted_tokens_total").value
+            print(f"f32 yi-9b {label}: acceptance {a}/{d}, "
+                  f"{eng.stats['decode_steps']} verify steps for 2 x 16 "
+                  f"tokens")
+            if label == "self-draft":
+                check(a > d / 2, f"self-draft acceptance {a}/{d}")
+        del eng
+    check(outs["self-draft"] == outs["plain"] == outs["1-layer draft"],
+          f"f32 yi-9b draft-model spec: {outs}")
+    print(f"f32 yi-9b: draft-model speculation (the target itself, and a "
+          f"1-layer seed-1 draft) == plain greedy tokens | {card}")
+    del params, dparams
+    _release_card()
+
+
+# ------------------------------- phase 5g: recurrent families (A9 serving)
+# prompts of 32-128 tokens: the recurrent prefill is the decode path's
+# token loop, ~80 ms an iteration for rwkv6-7b's 32 layers on an H100, so
+# a 256-token prompt alone costs ~20 s a run
+RECURRENT_LENS = (32, 48, 64, 80, 96, 112, 128, 128)
+
+
+def recurrent_main_phase(card, arch, kernel_rows=()):
+    """rwkv6-7b (32 layers) or zamba2-2.7b (54 = 9 x (5 mamba2 + shared
+    attention), hd 80) at full depth and width, bf16, seeded random
+    weights, through the port's Engine: 8 requests with prompts of 32-128
+    tokens (one packed prefill: the recurrent layers' token loop) and 32 new
+    tokens, served plainly, with n-gram speculation (k = 4) and under
+    oversubscription with the first request forcibly preempted after 3
+    decode steps. Every request finishes, logits stay finite, no block
+    leaks; rwkv6 resumes from its slab snapshot (after the resume only the
+    pending token is prefilled) and launches no kernel; zamba2 re-prefills
+    and launches B1 once per shared-attention layer per decode step and B4
+    once per layer per verify step. Spec and preempted tokens beside the
+    plain run's are reported (bf16; the f32 parity phase gates them).
+    `kernel_rows`: zamba2's B1 / B4 rows, whose launches this run sets."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import state_providers as SP
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import (Engine, EngineConfig,
+                                            OversubConfig, SpecConfig)
+    _release_card()
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_sb, _ = SP.superblock_layout(cfg)
+    n_attn = n_sb * SP.state_kinds(cfg).count("full")
+    print(f"{arch}: weights ({cfg.param_count() / 1e9:.2f} B params, "
+          f"{cfg.num_layers} layers = {n_sb} superblocks of "
+          f"{SP.layer_kinds(cfg)}, bf16) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(51)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in RECURRENT_LENS]
+    news = [32] * len(prompts)
+    ecfg = EngineConfig(block_size=16, num_blocks=160, max_blocks_per_seq=24,
+                        max_slots=8, prefill_chunk=256, prefills_per_step=8,
+                        step_timing=True)
+    wave = [[(p, m, 0) for p, m in zip(prompts, news)]]
+    res = {}
+    for label, e in (("plain", ecfg),
+                     ("ngram k=4", dataclasses.replace(
+                         ecfg, spec=SpecConfig(k=4))),
+                     ("preempted", dataclasses.replace(
+                         ecfg, oversub=OversubConfig(ttft_slo_s=1e9,
+                                                     tpot_slo_s=1e9)))):
+        eng = Engine(cfg, params, e)
+        state = {"steps": 0}
+
+        def hook(eng, state=state):
+            r0 = eng.requests[0]
+            if r0.state == "decoding":
+                state["steps"] += 1
+                if state["steps"] == 3:
+                    check(eng.preempt_request(0), "preempt refused")
+        r = res[label] = _timed_run(card, eng, f"{arch} {label}", wave,
+                                    hook if label == "preempted" else None)
+        steps = r["steps"]
+        if label == "ngram k=4":
+            want = _launch_want(paged_verify=n_attn * steps)
+        else:
+            want = _launch_want(paged_attention=n_attn * steps)
+        check(r["launches"] == want,
+              f"{arch} {label}: launches {r['launches']} != {want}")
+        if n_attn:
+            print(f"{arch} {label}: B{4 if label == 'ngram k=4' else 1} "
+                  f"launches {n_attn * steps} = {steps} steps x {n_attn} "
+                  f"shared-attention layers")
+        if label == "preempted":
+            after = _prefill_after_resume(eng, 0)
+            check(r["resumes"] == 1, f"{arch}: resumes {r['resumes']} != 1")
+            snap = arch == "rwkv6-7b"
+            check((after == 1) if snap else (after > RECURRENT_LENS[0]),
+                  f"{arch}: {after} tokens prefilled after the resume")
+            print(f"{arch} preempted: request 0 resumed by "
+                  f"{'its slab snapshot' if snap else 're-prefill'}, "
+                  f"{after} tokens prefilled after the resume")
+        if label == "plain":
+            # the same requests host-ahead, for the profile
+            del eng
+            _release_card()
+            # (prompts cut to 32 tokens: the profiled window is decode)
+            fast = Engine(cfg, params, dataclasses.replace(
+                ecfg, step_timing=False))
+            where_time_goes(card, fast, [p[:32] for p in prompts], news,
+                            warm=2)
+            del fast
+        else:
+            del eng
+        _release_card()
+    for label in ("ngram k=4", "preempted"):
+        _match_share(f"{arch} {label} vs plain", res["plain"]["outs"],
+                     res[label]["outs"], against="the plain run's",
+                     why="bf16 K-row verify, one-row decode and a 1-segment "
+                         "prefill round differently")
+    by_name = {row["name"]: row for row in kernel_rows}
+    if by_name:
+        by_name["paged_attention @ zamba2-2.7b"]["launches"] = (
+            res["plain"]["launches"]["paged_attention"])
+        by_name["paged_verify @ zamba2-2.7b"]["launches"] = (
+            res["ngram k=4"]["launches"]["paged_verify"])
+    del params
+    _release_card()
 
 
 # ------------------------------------------ phase 3d: flash attention (B6)
@@ -2791,15 +3414,22 @@ def main() -> int:
         rows += [flash_row, hd80_row]
         rows += quantize_kernel_phase(card)
         rows += matmul_kernel_phase(card)
+        zamba2_rows = zamba2_kernel_phase(card)
+        rows += zamba2_rows
         parity_phase(card)
         ring_spec_parity_phase(card)
         int8_parity_phase(card)
         train_parity_phase(card)
         paper_parity_phase(card)
+        serve_parity_phase(card)
         yi = main_path_phase(card, rows[0])
         yi9b_int8_phase(card, rows, *yi)
+        yi9b_serve_phase(card, *yi[:4])
         del yi
+        f32_width_phase(card)
         gemma3_main_phase(card, rows)
+        recurrent_main_phase(card, "rwkv6-7b")
+        recurrent_main_phase(card, "zamba2-2.7b", zamba2_rows)
         plain_ms = train_main_phase(card, flash_row)
         paper_main_phase(card, rows, plain_ms)
         train_main_phase(card, hd80_row, arch="stablelm-3b",

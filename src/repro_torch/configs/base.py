@@ -58,23 +58,43 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytical parameter count (embedding + blocks + head) of the
-        dense family, the only one this package serves so far."""
-        if self.family not in ("dense", "vlm", "audio") or self.num_experts:
+        dense, recurrent (ssm) and hybrid families; MoE comes with its
+        slice of the port (ROADMAP A13)."""
+        if self.num_experts:
             raise NotImplementedError(
-                f"param_count for the {self.family} family comes with its "
-                f"slice of the port")
+                "param_count for the moe family comes with its slice of the "
+                "port (ROADMAP A13)")
         d, hd = self.d_model, self.resolved_head_dim
         attn = d * self.num_heads * hd * 2 + d * self.num_kv_heads * hd * 2
-        n = self.num_layers * (attn + 3 * d * self.d_ff + 2 * d)
-        n += self.vocab_size * d
+        mlp_dense = 3 * d * self.d_ff  # SwiGLU: gate+in+out
+        n = 0
+        if self.family == "ssm" and self.ssm_type == "rwkv6":
+            per_layer = 6 * d * d + 3 * d * self.d_ff  # r,k,v,g,w,o + channel-mix
+            n += self.num_layers * per_layer
+        elif self.family == "hybrid":
+            nb = self.num_layers // (self.hybrid_ssm_per_attn + 1)
+            n += nb * self.hybrid_ssm_per_attn * (self._mamba_params()
+                                                  + mlp_dense)
+            n += attn + mlp_dense  # shared attention block (stored once)
+        else:
+            n += self.num_layers * (attn + mlp_dense)
+        n += self.num_layers * 2 * d  # norms
+        n += self.vocab_size * d      # embed
         if not self.tie_embeddings:
-            n += self.vocab_size * d
+            n += self.vocab_size * d  # head
         return n
+
+    def _mamba_params(self) -> int:
+        d = self.d_model
+        d_inner = 2 * d
+        return (d * d_inner * 2 + d_inner * d
+                + d_inner * (self.ssm_state_dim * 2 + 2))
 
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
-ARCH_MODULES = ["gemma3_12b", "stablelm_3b", "yi_9b"]
+ARCH_MODULES = ["gemma3_12b", "rwkv6_7b", "stablelm_3b", "yi_9b",
+                "zamba2_2_7b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -1,6 +1,7 @@
-"""GQA attention: training over a full sequence, and against the paged KV
-pool decode, packed prefill and speculative verify, in full and ring
-(sliding-window) layouts.
+"""GQA attention: training over a full sequence; the dense (non-paged)
+cache's prefill and one-token decode (``serve.generate``'s path); and
+against the paged KV pool decode, packed prefill and speculative verify, in
+full and ring (sliding-window) layouts.
 
 Counterpart of ``attention_train`` and the paged verbs in
 ``repro.models.attention``. Training attention takes the device's path:
@@ -9,8 +10,8 @@ the reference's "TPU-native third" strategy); on the CPU the reference's
 two XLA strategies, ``naive`` (materialized scores) and ``chunked`` (query
 chunks, each checkpointed), which are its oracle for that kernel.
 
-For the paged verbs the reference returns new pools; here the pools are
-updated IN PLACE (the returned dict is the one passed in), which saves a pool copy per layer. Rows the reference
+For the cache and paged verbs the reference returns new caches and pools;
+here they are updated IN PLACE (the returned dict is the one passed in), which saves a pool copy per layer. Rows the reference
 drops with ``mode="drop"`` go to the pool's scratch block at index N (see
 ``state_providers``). An int8 pool (a dict with "k_scale"/"v_scale")
 quantizes every write and scatters the scales at the same (block, offset);
@@ -29,6 +30,7 @@ from repro_torch.kernels.paged_attention.ref import (NEG_INF, _gather_pool,
                                                      ring_key_positions)
 from repro_torch.kernels.quantize import dequantize_kv, quantize_kv
 from repro_torch.models import layers as L
+from repro_torch.models.state_providers import alloc_kv_pool
 
 
 def _quantize_pair(k, v):
@@ -162,6 +164,98 @@ def _chunked_attention(q, k, v, n_rep, scale, chunk, window):
     return torch.cat(outs, dim=1)
 
 
+# ------------------------------------------------------------ dense cache
+def init_kv_cache(cfg, batch, max_len, window=None, kv_quant=None,
+                  device="cuda"):
+    """Dense decode cache (batch, size, Hkv, hd), size = max_len, or a ring
+    of min(max_len, window) slots for a sliding-window layer; int8 with
+    per-vector scales with `kv_quant`."""
+    size = min(max_len, window) if window is not None else max_len
+    return alloc_kv_pool((batch, size), cfg.num_kv_heads,
+                         cfg.resolved_head_dim, L.dtype_of(cfg), device,
+                         kv_quant)
+
+
+def _store(cache, slots, k, v, quantized=None):
+    """cache[:, slots] = k / v (their int8 values and scales for an int8
+    cache), in place."""
+    if "k_scale" in cache:
+        qk, sk, qv, sv = quantized or _quantize_pair(k, v)
+        cache["k"][:, slots] = qk
+        cache["v"][:, slots] = qv
+        cache["k_scale"][:, slots] = sk
+        cache["v_scale"][:, slots] = sv
+    else:
+        cache["k"][:, slots] = k
+        cache["v"][:, slots] = v
+
+
+def attention_prefill(params, x, cache, cfg, *, window=None):
+    """Batched prefill: full-sequence causal attention and the cache fill in
+    one pass. x: (B,S,D) starting at position 0. Writes K/V into the dense
+    cache in place (ring-aware for sliding-window layers: only the last
+    min(S, size) positions land, at their ring slots). An int8 cache makes
+    the queries attend the round-tripped values, as the paged prefill reads
+    its keys back from the int8 pool. Returns (out (B,S,D), cache)."""
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    q, k, v = _project_qkv(params, x, positions, cfg)
+    quantized = None
+    if "k_scale" in cache:
+        quantized = qk, sk, qv, sv = _quantize_pair(k, v)
+        k = dequantize_kv(qk, sk).to(k.dtype)
+        v = dequantize_kv(qv, sv).to(v.dtype)
+    out = _attend_full(q, k, v, h // hkv, 1.0 / np.sqrt(hd), cfg.attn_chunk,
+                       window)
+    out = out.reshape(B, S, h * hd) @ params["wo"]
+
+    Sc = cache["k"].shape[1]
+    keep = min(S, Sc)                       # ring slots are unique for the
+    slots = torch.arange(S - keep, S, device=x.device) % Sc   # last `keep`
+    tail = slice(S - keep, S)
+    if quantized is not None:
+        quantized = tuple(a[:, tail] for a in quantized)
+    _store(cache, slots, k[:, tail], v[:, tail], quantized)
+    return out, cache
+
+
+def attention_decode(params, x, cache, index, cfg, *, window=None):
+    """One-token decode against the dense cache. x: (B,1,D); cache k/v:
+    (B,Sc,Hkv,hd); index: the token's absolute position (an int). Writes
+    the token's K/V in place (slot index % Sc in a ring) and attends every
+    valid slot: slot <= index, or in a ring an age below min(index+1, Sc).
+    Returns (out (B,1,D), cache)."""
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B = x.shape[0]
+    positions = torch.full((B, 1), index, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, positions, cfg)
+    Sc = cache["k"].shape[1]
+    slot = index % Sc if window is not None else index      # ring buffer
+    _store(cache, slot, k_new[:, 0], v_new[:, 0])
+    if "k_scale" in cache:
+        k = dequantize_kv(cache["k"], cache["k_scale"]).to(x.dtype)
+        v = dequantize_kv(cache["v"], cache["v_scale"]).to(x.dtype)
+    else:
+        k, v = cache["k"], cache["v"]
+    n_rep = h // hkv
+    kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    scale = 1.0 / np.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
+    kpos = torch.arange(Sc, device=x.device)
+    if window is not None:
+        # ring buffer: valid entries were written within the last
+        # min(index + 1, Sc) steps
+        valid = (slot - kpos) % Sc < min(index + 1, Sc)
+    else:
+        valid = kpos <= index
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, 1, h * hd)
+    return out @ params["wo"], cache
+
+
+# ------------------------------------------------------------ paged verbs
 def _scratch_block(kv) -> int:
     return kv["k"].shape[0] - 1
 

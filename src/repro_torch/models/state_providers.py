@@ -1,11 +1,13 @@
-"""Per-layer-kind sequence-state providers (the paged-KV subset).
+"""Per-layer-kind sequence-state providers.
 
 Mirrors ``repro.models.state_providers``: one provider per layer *state
 kind*, which builds the layer's device state and tells the host scheduler
-what a sequence costs in blocks. The port serves the ``full`` kind (paged
-KV, prefix caching) and the ``ring`` kind (sliding-window KV in a fixed
-ring of blocks per sequence); the recurrent rwkv and mamba kinds raise
-``NotImplementedError`` until their slice lands (ROADMAP A9).
+what a sequence costs in blocks. The ``full`` kind pages KV blocks (prefix
+caching), the ``ring`` kind keeps sliding-window KV in a fixed ring of
+blocks per sequence, and the recurrent ``rwkv`` and ``mamba`` kinds keep
+one O(1) state slab row per engine slot (``RecurrentSlabProvider``: no
+blocks, snapshot resume after a preemption, speculative rollback through
+``select_checkpoint``).
 
 Dropped writes. The reference scatters inactive or padding rows to block id
 N with ``mode="drop"``; PyTorch has no drop mode, and index N would raise
@@ -17,6 +19,7 @@ Nothing ever reads the scratch block; compare pools with the reference's on
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -25,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.quantize import KVQuantConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 # ------------------------------------------------------------- KV allocation
@@ -125,8 +129,7 @@ class _PagedPoolProvider:
     # Preemption rolls paged KV back by freeing blocks (and re-aliasing the
     # registered ones on resume), ring KV by re-prefilling (its write cursor
     # is a function of the token count): neither keeps a snapshot. These
-    # are the reference's rollback hooks, which the recurrent slabs (A9)
-    # fill in.
+    # are the reference's rollback hooks, which the recurrent slabs fill in.
     def preempt_checkpoint(self, state, slot: int):
         return None
 
@@ -222,28 +225,101 @@ class RingKVProvider(_PagedPoolProvider):
                 "offset": seq_len % self.block_size}
 
 
-_LATER = {"rwkv": "recurrent rwkv6 slabs (ROADMAP A9)",
-          "mamba": "recurrent mamba2 slabs (ROADMAP A9)"}
+@dataclass(frozen=True)
+class RecurrentSlabProvider:
+    """O(1) recurrent state: one slab row per engine slot, no block
+    accounting. The engine zeroes a slot's rows when a new request takes
+    it, and the decode step masks the updates of inactive slots, so a
+    mid-prefill neighbour is never corrupted by the batched decode."""
+    cfg: ModelConfig
+    max_slots: int
+    kind: str                         # "rwkv" | "mamba"
+
+    supports_prefix_caching = False
+    supports_snapshot_resume = True   # O(1) state: checkpoint beats re-scan
+
+    def _spec(self):
+        if self.kind == "rwkv":
+            return S.rwkv6_state_spec(self.cfg)
+        if self.kind == "mamba":
+            return S.mamba2_state_spec(self.cfg)
+        raise ValueError(self.kind)
+
+    def init_layer_state(self, n_sb: int, device):
+        """Zero slabs (n_sb, max_slots, ...) of the kind's state spec."""
+        return {k: torch.zeros((n_sb, self.max_slots) + shape, dtype=dt,
+                               device=device)
+                for k, (shape, dt) in self._spec().items()}
+
+    def blocks_needed(self, total_tokens: int) -> int:
+        return 0
+
+    def max_tokens(self) -> Optional[int]:
+        return None
+
+    def state_bytes_per_slot(self, total_tokens: int) -> int:
+        return sum(math.prod(shape) * dt.itemsize
+                   for shape, dt in self._spec().values())
+
+    def pool_bytes_saved(self) -> int:
+        return 0    # slabs are never quantized
+
+    def defrag_remap(self, state, perm):
+        return state  # slot-indexed, block moves don't touch it
+
+    def preempt_checkpoint(self, state, slot: int):
+        """Host snapshot of one slot's recurrent state. Leaves are
+        (n_sb, max_slots, ...) — slot axis 1."""
+        return {k: a[:, slot].to("cpu", copy=True) for k, a in state.items()}
+
+    def resume_restore(self, state, slot: int, snap):
+        """Copy a ``preempt_checkpoint`` snapshot back into `slot`, in
+        place (the engine zeroes the slot first, so this is a plain set)."""
+        for k, a in state.items():
+            a[:, slot] = snap[k].to(a.device)
+        return state
+
+
+# -------------------------------------------------- speculative rollback
+def select_checkpoint(checkpoints, accepts, old):
+    """Roll rejected draft tokens back to the accepted recurrent state.
+
+    ``checkpoints`` leaves: (n_sb, K, max_slots, ...) — the per-draft-step
+    states captured by the verify loop (checkpoint j = state after
+    processing drafts 0..j). ``accepts``: (max_slots,) int32 tokens accepted
+    this step (1..K; 0 marks an inactive slot). ``old``: the pre-verify slab
+    (n_sb, max_slots, ...). Returns new slab leaves advanced by exactly
+    ``accepts`` tokens per slot: checkpoint ``accepts - 1`` where active,
+    the untouched old state elsewhere."""
+    out = {}
+    for name, cps in checkpoints.items():
+        o = old[name]
+        K, n_slots = cps.shape[1], cps.shape[2]
+        cp = torch.clamp(accepts.long() - 1, 0, K - 1)             # (S,)
+        picked = cps[:, cp, torch.arange(n_slots, device=cps.device)]
+        act = (accepts > 0).reshape((1, n_slots) + (1,) * (o.dim() - 2))
+        out[name] = torch.where(act, picked.to(o.dtype), o)
+    return out
 
 
 # ----------------------------------------------------------------- assembly
 def provider_for(skind: str, cfg: ModelConfig, *, num_blocks: int,
-                 block_size: int, max_blocks_per_seq: Optional[int] = None,
-                 draft: int = 0, kv_quant: Optional[KVQuantConfig] = None):
+                 block_size: int, max_slots: int = 0,
+                 max_blocks_per_seq: Optional[int] = None, draft: int = 0,
+                 kv_quant: Optional[KVQuantConfig] = None):
     if skind == "full":
         return PagedKVProvider(cfg, num_blocks, block_size, max_blocks_per_seq,
                                kv_quant)
     if skind == "ring":
         return RingKVProvider(cfg, num_blocks, block_size, max_blocks_per_seq,
                               kv_quant, window=cfg.window_size, draft=draft)
-    if skind in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: state kind {skind!r} — {_LATER[skind]} — comes in a "
-            f"later slice of the port")
+    if skind in ("rwkv", "mamba"):
+        return RecurrentSlabProvider(cfg, max_slots, skind)
     raise ValueError(f"unknown state kind {skind!r}")
 
 
 def providers_for(cfg: ModelConfig, *, num_blocks: int, block_size: int,
+                  max_slots: int = 0,
                   max_blocks_per_seq: Optional[int] = None, draft: int = 0,
                   kv_quant: Optional[KVQuantConfig] = None):
     """One provider per layer of a superblock, aligned with layer_kinds(cfg).
@@ -256,6 +332,7 @@ def providers_for(cfg: ModelConfig, *, num_blocks: int, block_size: int,
         if sk not in cache:
             cache[sk] = provider_for(sk, cfg, num_blocks=num_blocks,
                                      block_size=block_size,
+                                     max_slots=max_slots,
                                      max_blocks_per_seq=max_blocks_per_seq,
                                      draft=draft, kv_quant=kv_quant)
         out.append(cache[sk])

@@ -1,6 +1,7 @@
 """Decoder assembled from a ModelConfig: parameters, the training forward
-and loss, and the paged entry points the serving engine drives (counterpart
-of ``repro.models.transformer``).
+and loss, the dense-cache decode of ``serve.generate``, and the paged entry
+points the serving engine drives (counterpart of
+``repro.models.transformer``).
 
 Parameters are a plain dict with the reference's layout: per-layer weights
 are stacked on a leading superblock axis (n_sb, ...), so the JAX
@@ -8,21 +9,31 @@ are stacked on a leading superblock axis (n_sb, ...), so the JAX
 ``pool[sb]`` / ``weight[sb]`` are contiguous views. The reference's
 ``lax.scan`` over superblocks is a Python loop here.
 
+  family                superblock
+  ------                ----------
+  dense                 1 layer (attn + mlp)
+  local_global (gemma3) ratio local layers + 1 global layer
+  ssm (rwkv6)           time-mix + channel-mix
+  hybrid (zamba2)       N mamba2 layers + 1 *shared-weight* attention layer
+
 Entry points:
   init_params(cfg, seed=..., device=...)
   forward(cfg, params, inputs)                  -> hidden (B,S,D), aux
   loss_fn(cfg, params, batch)                   -> scalar loss (chunked CE)
-  init_paged_state(cfg, num_blocks, block_size, device=...)
+  init_decode_state(cfg, batch, max_len, device=...)
+  prefill_step(cfg, params, state, inputs)      -> logits (B,V), state
+  decode_step(cfg, params, state, inputs, idx)  -> logits (B,V), state
+  init_paged_state(cfg, num_blocks, block_size, max_slots=..., device=...)
   paged_decode_step(cfg, params, pool, inputs, block_tables, positions, attn_lens)
   paged_verify_step(cfg, params, pool, tokens, block_tables, base, qlims)
   paged_prefill_packed(cfg, params, pool, tokens, tables, starts, valids, slots)
   paged_prefill_step(cfg, params, pool, tokens, table_row, start, valid_len, slot)
 
-The port serves the attention-only dense families: full attention (layer
-kind ``attn``), sliding window (``attn`` with ring KV) and local-global
-(gemma3: ``local`` ring layers and ``global`` full layers in one
-superblock). Each layer dispatches on its state kind. MoE, recurrent and
-hybrid families raise ``NotImplementedError`` (ROADMAP A9, A13).
+Serving covers the dense, local-global, recurrent (rwkv6) and hybrid
+(zamba2) families; each layer dispatches on its state kind. Training
+(``forward``, ``loss_fn``) covers the attention families; the recurrent and
+hybrid train layers raise ``NotImplementedError`` (ROADMAP A9's training
+rest), and MoE raises everywhere (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -33,55 +44,132 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import state_providers as SP
 
 superblock_layout = SP.superblock_layout
 _layer_kinds = SP.layer_kinds
 
 
-_ATTN_KINDS = ("attn", "local", "global")
+_ATTN_KINDS = ("attn", "local", "global", "shared_attn")
+_RECURRENT_KINDS = ("rwkv", "mamba")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config outside the port's slices so far."""
     kinds = _layer_kinds(cfg)
-    SP.providers_for(cfg, num_blocks=1, block_size=1)   # raises on recurrent
-    if any(k not in _ATTN_KINDS for k in kinds):
+    if any(k not in _ATTN_KINDS + _RECURRENT_KINDS for k in kinds):
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {kinds} come in a later slice of the "
-            f"port (it serves dense full, sliding and local-global "
-            f"attention decoders)")
+            f"{cfg.name}: layer kinds {kinds} (MoE) come with the MoE slice "
+            f"of the port (ROADMAP A13)")
     if cfg.rope_mode not in ("standard", "none"):
         raise NotImplementedError(
-            f"{cfg.name}: rope_mode {cfg.rope_mode!r} comes in a later slice")
+            f"{cfg.name}: rope_mode {cfg.rope_mode!r} comes in a later slice "
+            f"(ROADMAP A17)")
 
 
 # ------------------------------------------------------------------ param init
-def param_specs(cfg: ModelConfig) -> dict:
-    """Nested dict of (shape, dtype, init) leaves, in the reference's
-    layout; init is "dense", "embed" or "ones"."""
-    check_supported(cfg)
-    n_sb, _ = superblock_layout(cfg)
-    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+def _attn_layer_spec(cfg, lead):
+    """One attention layer's weights (attention, two norms, SwiGLU), with
+    the stack axes `lead` ((n_sb,) for per-superblock layers, () for the
+    hybrid's shared block)."""
+    d = cfg.d_model
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt, f32 = L.dtype_of(cfg), torch.float32
-    layer = {
-        "ln1": {"scale": ((n_sb, d), f32, "ones")},
-        "attn": {"wq": ((n_sb, d, h * hd), dt, "dense"),
-                 "wk": ((n_sb, d, hkv * hd), dt, "dense"),
-                 "wv": ((n_sb, d, hkv * hd), dt, "dense"),
-                 "wo": ((n_sb, h * hd, d), dt, "dense")},
-        "ln2": {"scale": ((n_sb, d), f32, "ones")},
-        "mlp": {"w_gate": ((n_sb, d, f), dt, "dense"),
-                "w_in": ((n_sb, d, f), dt, "dense"),
-                "w_out": ((n_sb, f, d), dt, "dense")},
+    return {
+        "ln1": {"scale": (lead + (d,), f32, "ones")},
+        "attn": {"wq": (lead + (d, h * hd), dt, "dense"),
+                 "wk": (lead + (d, hkv * hd), dt, "dense"),
+                 "wv": (lead + (d, hkv * hd), dt, "dense"),
+                 "wo": (lead + (h * hd, d), dt, "dense")},
+        "ln2": {"scale": (lead + (d,), f32, "ones")},
+        "mlp": _swiglu_spec(cfg, lead),
     }
+
+
+def _swiglu_spec(cfg, lead):
+    d, f, dt = cfg.d_model, cfg.d_ff, L.dtype_of(cfg)
+    return {"w_gate": (lead + (d, f), dt, "dense"),
+            "w_in": (lead + (d, f), dt, "dense"),
+            "w_out": (lead + (f, d), dt, "dense")}
+
+
+def _rwkv_spec(cfg, lead):
+    """The reference's ``init_rwkv6``: token-shift mixes 0.5, decay base
+    w0 = linspace(-6, -1), 0.01-scaled decay LoRA (rank 32), bonus u 0."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.ssm_head_dim
+    dt, f32 = L.dtype_of(cfg), torch.float32
+    lora = 32
+    return {
+        "mix": (lead + (5, d), f32, ("fill", 0.5)),
+        "wr": (lead + (d, d), dt, "dense"),
+        "wk": (lead + (d, d), dt, "dense"),
+        "wv": (lead + (d, d), dt, "dense"),
+        "wg": (lead + (d, d), dt, "dense"),
+        "wo": (lead + (d, d), dt, "dense"),
+        "w0": (lead + (d,), f32, ("linspace", -6.0, -1.0)),
+        "w_lora_a": (lead + (d, lora), f32, ("dense", 0.01)),
+        "w_lora_b": (lead + (lora, d), f32, ("dense", 0.01)),
+        "u": (lead + (d,), f32, ("fill", 0.0)),
+        "ln_scale": (lead + (d // hd, hd), f32, "ones"),
+        "cm_mix": (lead + (2, d), f32, ("fill", 0.5)),
+        "cm_r": (lead + (d, d), dt, "dense"),
+        "cm_k": (lead + (d, f), dt, "dense"),
+        "cm_v": (lead + (f, d), dt, "dense"),
+    }
+
+
+def _mamba_spec(cfg, lead):
+    """The reference's ``init_mamba2``: A_log = log(linspace(1, 16, H)),
+    D 1, dt_bias 0, conv taps normal · 0.1."""
+    d, ds = cfg.d_model, cfg.ssm_state_dim
+    d_inner = 2 * d
+    H = d_inner // cfg.ssm_head_dim
+    dt, f32 = L.dtype_of(cfg), torch.float32
+    return {
+        "in_proj": (lead + (d, 2 * d_inner + 2 * ds + H), dt, "dense"),
+        "conv_w": (lead + (4, d_inner + 2 * ds), f32, ("dense", 0.1)),
+        "A_log": (lead + (H,), f32, ("log_linspace", 1.0, 16.0)),
+        "D": (lead + (H,), f32, "ones"),
+        "dt_bias": (lead + (H,), f32, ("fill", 0.0)),
+        "norm_scale": (lead + (d_inner,), f32, "ones"),
+        "out_proj": (lead + (d_inner, d), dt, "dense"),
+    }
+
+
+def _layer_spec(kind, cfg, lead):
+    d, f32 = cfg.d_model, torch.float32
+
+    def norm():
+        return {"scale": (lead + (d,), f32, "ones")}
+    if kind in ("attn", "local", "global"):
+        return _attn_layer_spec(cfg, lead)
+    if kind == "rwkv":
+        return {"ln1": norm(), "rwkv": _rwkv_spec(cfg, lead), "ln2": norm()}
+    if kind == "mamba":
+        return {"ln1": norm(), "mamba": _mamba_spec(cfg, lead),
+                "ln2": norm(), "mlp": _swiglu_spec(cfg, lead)}
+    if kind == "shared_attn":
+        return {}       # weights live once in params["shared_attn"]
+    raise ValueError(kind)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Nested dict of (shape, dtype, init) leaves, in the reference's
+    layout; init is "dense", "embed", "ones", or a tuple ("dense", scale),
+    ("fill", value), ("linspace", a, b), ("log_linspace", a, b)."""
+    check_supported(cfg)
+    n_sb, _ = superblock_layout(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    dt, f32 = L.dtype_of(cfg), torch.float32
     specs = {"embed": {"table": ((v, d), dt, "embed")},
-             "blocks": {f"l{i}": layer
-                        for i in range(len(_layer_kinds(cfg)))},
+             "blocks": {f"l{i}": _layer_spec(kind, cfg, (n_sb,))
+                        for i, kind in enumerate(_layer_kinds(cfg))},
              "final_norm": {"scale": ((d,), f32, "ones")}}
     if not cfg.tie_embeddings:
         specs["lm_head"] = {"w": ((d, v), dt, "dense")}
+    if cfg.family == "hybrid":
+        specs["shared_attn"] = _attn_layer_spec(cfg, ())
     return specs
 
 
@@ -94,13 +182,24 @@ def _map_specs(fn, specs):
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Random weights made on `device` from a seeded ``torch.Generator``:
     normal · 1/√fan_in for projections, normal · 0.02 for the embedding,
-    ones for norm scales (the reference's initialisers; the two frameworks'
-    generators give different numbers, so parity tests convert the JAX
-    weights instead). Stacked leaves are filled one superblock at a time to
-    bound the float32 temporaries."""
+    ones for norm scales, and the recurrent layers' constants (the
+    reference's initialisers; the two frameworks' generators give different
+    numbers, so parity tests convert the JAX weights instead). Stacked
+    leaves are filled one superblock at a time to bound the float32
+    temporaries."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+
+    def const(shape, dtype, init):
+        kind, *args = init
+        if kind == "fill":
+            return torch.full(shape, args[0], dtype=dtype, device=device)
+        ramp = torch.linspace(args[0], args[1], shape[-1], dtype=dtype,
+                              device=device)
+        if kind == "log_linspace":
+            ramp = torch.log(ramp)
+        return ramp.expand(shape).contiguous()
 
     def make(spec):
         shape, dtype, init = spec
@@ -108,11 +207,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
             return torch.ones(shape, dtype=dtype, device=device)
         if init == "embed":
             return L.embed_init(shape, dtype, gen, device)
+        scale = None
+        if isinstance(init, tuple):
+            if init[0] != "dense":
+                return const(shape, dtype, init)
+            scale = init[1]
         if len(shape) == 2:
-            return L.dense_init(shape, dtype, gen, device)
+            return L.dense_init(shape, dtype, gen, device, scale)
         out = torch.empty(shape, dtype=dtype, device=device)
         for i in range(shape[0]):
-            out[i] = L.dense_init(shape[1:], dtype, gen, device)
+            out[i] = L.dense_init(shape[1:], dtype, gen, device, scale)
         return out
 
     return _map_specs(make, param_specs(cfg))
@@ -137,6 +241,14 @@ def _embed_tokens(cfg, params, tokens):
     return x
 
 
+def _window(kind, cfg):
+    """Sliding window of an attention layer kind, or None (full)."""
+    if kind == "local" or (cfg.attention_type == "sliding"
+                           and kind in ("attn", "moe_attn")):
+        return cfg.window_size
+    return None
+
+
 # -------------------------------------------------------------------- forward
 def _apply_layer_train(kind, lp, x, positions, cfg):
     """One layer over a full sequence: x + attention, then x + MLP.
@@ -145,13 +257,12 @@ def _apply_layer_train(kind, lp, x, positions, cfg):
         raise NotImplementedError(
             "layer kind 'moe_attn' (MoE) comes with the MoE slice of the port "
             "(ROADMAP A13)")
-    if kind not in _ATTN_KINDS:
+    if kind not in ("attn", "local", "global"):
         raise NotImplementedError(
-            f"layer kind {kind!r} (recurrent / hybrid) comes with the "
-            f"recurrent slice of the port (ROADMAP A9)")
-    window = None
-    if kind == "local" or (cfg.attention_type == "sliding" and kind == "attn"):
-        window = cfg.window_size
+            f"training through layer kind {kind!r} (recurrent / hybrid) "
+            f"comes with the rest of ROADMAP A9; the port serves these "
+            f"kinds but does not train them yet")
+    window = _window(kind, cfg)
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     x = x + A.attention_train(lp["attn"], h, positions, cfg, window=window)
     h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
@@ -236,20 +347,158 @@ def loss_fn(cfg: ModelConfig, params, batch):
     return total / (B * Sq) + 0.01 * aux
 
 
-# -------------------------------------------------------------- paged decode
-def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-                     device="cuda", kv_quant=None):
-    """Per-superblock, per-layer paged KV pools (n_sb, num_blocks + 1, bs,
-    Hkv, hd) — all layers share one block table per sequence, each layer
-    owns its pool storage (ring layers use the table's first ring_pages
-    entries modulo the ring), and block num_blocks is the scratch block.
-    `kv_quant` (KVQuantConfig) makes the pools int8 with per-vector f32
-    scales; the decode, prefill and verify steps dispatch on the pools'
-    structure ("k_scale" in the layer's dict)."""
+# --------------------------------------------------------------------- decode
+def _layer_cache(kind, cfg, batch, max_len, kv_quant, device):
+    if kind in _ATTN_KINDS:
+        return A.init_kv_cache(cfg, batch, max_len, window=_window(kind, cfg),
+                               kv_quant=kv_quant, device=device)
+    if kind == "rwkv":
+        return S.init_rwkv6_state(cfg, batch, device)
+    if kind == "mamba":
+        return S.init_mamba2_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
+def init_decode_state(cfg: ModelConfig, batch, max_len, kv_quant=None, *,
+                      device="cuda"):
+    """Dense decode state of ``serve.generate``: per layer of a superblock,
+    a KV cache (n_sb, batch, size, Hkv, hd) (size = max_len, or the ring
+    min(max_len, window) of a sliding layer; int8 with scales under
+    `kv_quant`) or the recurrent state (n_sb, batch, ...), zero-filled. The
+    decode and prefill steps update it in place through per-superblock
+    views."""
     check_supported(cfg)
     n_sb, _ = superblock_layout(cfg)
+    out = {}
+    for i, kind in enumerate(_layer_kinds(cfg)):
+        one = _layer_cache(kind, cfg, batch, max_len, kv_quant, device)
+        out[f"l{i}"] = {k: a[None].repeat((n_sb,) + (1,) * a.dim())
+                        for k, a in one.items()}
+    return out
+
+
+def _apply_layer_decode(kind, lp, cache, x, index, cfg):
+    """One layer over x (B, S, D) against its dense state. Attention kinds
+    take one token (S == 1) at absolute position `index` and update their
+    cache in place; the recurrent kinds are functional (any S a multiple of
+    the chunk, `index` unused) and return their NEW state, which the caller
+    writes back. For ``shared_attn`` `lp` is the hybrid's shared block.
+    Returns (x, state)."""
+    if kind in _ATTN_KINDS:
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, cache = A.attention_decode(lp["attn"], h, cache, index, cfg,
+                                      window=_window(kind, cfg))
+        return _attn_block(lp, x, y, cfg), cache
+    if kind == "rwkv":
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, new = S.rwkv6_mix(lp["rwkv"], h, cfg,
+                             state={"S": cache["S"], "prev": cache["prev"]})
+        x = x + y
+        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        y, prev_cm = S.rwkv6_channel_mix(lp["rwkv"], h, cfg,
+                                         state=cache["prev_cm"])
+        return x + y, {"S": new["S"], "prev": new["prev"],
+                       "prev_cm": prev_cm}
+    if kind == "mamba":
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, new = S.mamba2_mix(lp["mamba"], h, cfg, state=cache)
+        x = x + y
+        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        return x + L.swiglu(lp["mlp"], h), new
+    raise ValueError(kind)
+
+
+def _write(st, new, keep=None):
+    """Copy a recurrent layer's new state into its slab views, in place;
+    rows where `keep` (B,) is False keep their old state."""
+    for k, a in st.items():
+        if keep is None:
+            a.copy_(new[k])
+        else:
+            a.copy_(torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)),
+                                new[k], a))
+
+
+def supports_batched_prefill(cfg: ModelConfig) -> bool:
+    """True when every layer kind has a one-shot prefill path (attention
+    families; recurrent ssm/hybrid states prefill token by token)."""
+    return all(k in _ATTN_KINDS for k in _layer_kinds(cfg))
+
+
+def _dense_layers(cfg, params, state):
+    """Every layer in order: (kind, layer params, layer state) as views of
+    superblock sb; ``shared_attn`` layers get the hybrid's shared block."""
+    n_sb, _ = superblock_layout(cfg)
+    kinds = _layer_kinds(cfg)
+    shared = params.get("shared_attn")
+    for sb in range(n_sb):
+        for i, kind in enumerate(kinds):
+            lp = (shared if kind == "shared_attn"
+                  else _at(params["blocks"][f"l{i}"], sb))
+            yield kind, lp, _at(state[f"l{i}"], sb)
+
+
+def prefill_step(cfg: ModelConfig, params, state, inputs):
+    """Batched prefill: the WHOLE prompt through every layer in one pass,
+    filling the dense decode state (vs. the O(S) token loop).
+    inputs: {"tokens": (B, S0)}. Returns (logits (B,V) of the last prompt
+    token, state updated in place)."""
+    if not supports_batched_prefill(cfg):
+        raise NotImplementedError(
+            f"batched prefill needs attention-only layers, got "
+            f"{_layer_kinds(cfg)}")
+    x = _embed_tokens(cfg, params, inputs["tokens"])
+    for kind, lp, st in _dense_layers(cfg, params, state):
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, _ = A.attention_prefill(lp["attn"], h, st, cfg,
+                                   window=_window(kind, cfg))
+        x = _attn_block(lp, x, y, cfg)
+    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return logits(cfg, params, x)[:, 0], state
+
+
+def decode_step(cfg: ModelConfig, params, state, inputs, index):
+    """One-token decode against the dense state. inputs: {"token": (B,)} or
+    {"embed": (B,D)}; index: the token's absolute position (an int).
+    Returns (logits (B,V), state updated in place)."""
+    if "embed" in inputs:
+        x = inputs["embed"][:, None, :].to(L.dtype_of(cfg))
+    else:
+        x = _embed_tokens(cfg, params, inputs["token"][:, None])
+    for kind, lp, st in _dense_layers(cfg, params, state):
+        x, new = _apply_layer_decode(kind, lp, st, x, index, cfg)
+        if kind in _RECURRENT_KINDS:
+            _write(st, new)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits(cfg, params, x)[:, 0], state
+
+
+# -------------------------------------------------------------- paged decode
+def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                     max_slots: int = None, device="cuda", kv_quant=None):
+    """Per-superblock, per-layer sequence state, built by each layer's state
+    provider (models.state_providers):
+
+      full / ring layers — paged KV pools (n_sb, num_blocks + 1, bs, Hkv,
+        hd); all layers share one block table per sequence, each layer
+        owns its pool storage (ring layers use the table's first ring_pages
+        entries modulo the ring), and block num_blocks is the scratch
+        block. `kv_quant` (KVQuantConfig) makes the pools int8 with
+        per-vector f32 scales; the steps dispatch on the pools' structure
+        ("k_scale" in the layer's dict).
+      rwkv / mamba layers — per-slot recurrent slabs (n_sb, max_slots,
+        ...); no block accounting.
+
+    `max_slots` is required whenever the config has recurrent layers."""
+    check_supported(cfg)
+    if (any(k in _RECURRENT_KINDS for k in SP.state_kinds(cfg))
+            and max_slots is None):
+        raise ValueError("recurrent layers need max_slots for their state "
+                         "slab")
+    n_sb, _ = superblock_layout(cfg)
     providers = SP.providers_for(cfg, num_blocks=num_blocks,
-                                 block_size=block_size, kv_quant=kv_quant)
+                                 block_size=block_size,
+                                 max_slots=max_slots or 0, kv_quant=kv_quant)
     return {f"l{i}": p.init_layer_state(n_sb, device)
             for i, p in enumerate(providers)}
 
@@ -262,21 +511,25 @@ def _attn_block(p, h_in, attn_out, cfg):
 
 
 def _layers(cfg, params, pool, draft):
-    """Every layer in order: (layer params, layer pool, window, ring_pages)
-    as views of superblock sb; window and ring_pages are None for full
+    """Every layer in order: (name, kind, layer params, layer state, window,
+    ring_pages) as views of superblock sb; ``shared_attn`` layers get the
+    hybrid's shared block; window and ring_pages are None but for ring
     layers. ``draft`` sets the ring slack (ring_pages(window, bs, draft)).
     The params and pools were made for a supported config (param_specs and
     init_paged_state check it)."""
     n_sb, _ = superblock_layout(cfg)
-    skinds = SP.state_kinds(cfg)
+    kinds, skinds = _layer_kinds(cfg), SP.state_kinds(cfg)
+    shared = params.get("shared_attn")
     for sb in range(n_sb):
-        for i, skind in enumerate(skinds):
+        for i, (kind, skind) in enumerate(zip(kinds, skinds)):
             st = _at(pool[f"l{i}"], sb)
             window = rp = None
             if skind == "ring":
                 window = cfg.window_size
                 rp = SP.ring_pages(window, st["k"].shape[1], draft=draft)
-            yield _at(params["blocks"][f"l{i}"], sb), st, window, rp
+            lp = (shared if kind == "shared_attn"
+                  else _at(params["blocks"][f"l{i}"], sb))
+            yield f"l{i}", kind, lp, st, window, rp
 
 
 def paged_decode_step(cfg: ModelConfig, params, pool, inputs, block_tables,
@@ -284,12 +537,19 @@ def paged_decode_step(cfg: ModelConfig, params, pool, inputs, block_tables,
     """One-token decode for a continuous batch of slots. inputs: {"token":
     (B,)}; block_tables: (B, P) int32; positions: (B,) absolute position of
     each incoming token; attn_lens: (B,) int32 tokens to attend over
-    including the new one (0 = inactive slot). ``draft`` must match the
-    engine's speculative K-1 (0 when speculation is off) so ring layers use
-    the same ring as the verify step. Returns (logits (B,V), pool updated
-    in place)."""
+    including the new one (0 = inactive slot). Recurrent slabs are per slot
+    (B == max_slots) and the updates of inactive slots are masked, so slots
+    mid-prefill are never corrupted by the batched decode. ``draft`` must
+    match the engine's speculative K-1 (0 when speculation is off) so ring
+    layers use the same ring as the verify step. Returns (logits (B,V),
+    pool updated in place)."""
     x = _embed_tokens(cfg, params, inputs["token"][:, None])
-    for lp, st, window, rp in _layers(cfg, params, pool, draft):
+    active = attn_lens > 0
+    for _, kind, lp, st, window, rp in _layers(cfg, params, pool, draft):
+        if kind in _RECURRENT_KINDS:
+            x, new = _apply_layer_decode(kind, lp, st, x, 0, cfg)
+            _write(st, new, active)
+            continue
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         y, _ = A.attention_decode_paged(lp["attn"], h, st, block_tables,
                                         positions, attn_lens, cfg,
@@ -299,25 +559,87 @@ def paged_decode_step(cfg: ModelConfig, params, pool, inputs, block_tables,
     return logits(cfg, params, x)[:, 0], pool
 
 
+def _stack_states(states):
+    """[state dict] -> one dict of stacked leaves (len(states), ...)."""
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+
+def _recurrent_verify_layer(kind, lp, slab, x, cfg):
+    """Speculative verify through a recurrent layer: a K-step token loop of
+    the decode path that keeps every intermediate state. slab leaves:
+    (max_slots, ...); x: (B, K, D) with B == max_slots. Returns (y (B, K,
+    D), checkpoints) with checkpoint leaves (K, max_slots, ...):
+    checkpoint j is the state after drafts 0..j, so the caller rolls
+    rejected drafts back exactly by taking checkpoint `accepted - 1`
+    (state_providers.select_checkpoint). The slab itself is not touched."""
+    st, ys, cps = slab, [], []
+    for t in range(x.shape[1]):
+        yt, st = _apply_layer_decode(kind, lp, st, x[:, t:t + 1], t, cfg)
+        ys.append(yt[:, 0])
+        cps.append(st)
+    return torch.stack(ys, dim=1), _stack_states(cps)
+
+
 def paged_verify_step(cfg: ModelConfig, params, pool, tokens, block_tables,
                       base, qlims):
     """Multi-query speculative verify for a continuous batch of slots.
     tokens: (B, K) — K draft tokens per slot, draft j at absolute position
     `base[b] + j`; qlims: (B,) number of draft positions that may commit
-    K/V this step (0 = inactive slot). Each layer writes the first qlims[b]
-    drafts' K/V (write-then-attend) and attends causally among the draft
-    positions; ring layers use the ring with K-1 slack. Returns (logits
-    (B, K, V), pool updated in place)."""
+    K/V this step (0 = inactive slot). Paged layers write the first
+    qlims[b] drafts' K/V in place (write-then-attend) and attend causally
+    among the draft positions (ring layers on the ring with K-1 slack);
+    recurrent layers loop over the K tokens keeping per-step checkpoint
+    states for exact rollback. Returns (logits (B, K, V), aux): aux[name]
+    is the layer's pool (updated in place) for paged layers, and stacked
+    checkpoints (n_sb, K, max_slots, ...) for recurrent layers — the
+    caller selects the accepted one via state_providers.select_checkpoint."""
     x = _embed_tokens(cfg, params, tokens)                        # (B, K, D)
-    for lp, st, window, rp in _layers(cfg, params, pool,
-                                      tokens.shape[1] - 1):
+    cps = {}
+    for name, kind, lp, st, window, rp in _layers(cfg, params, pool,
+                                                  tokens.shape[1] - 1):
+        if kind in _RECURRENT_KINDS:
+            x, c = _recurrent_verify_layer(kind, lp, st, x, cfg)
+            cps.setdefault(name, []).append(c)
+            continue
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         y, _ = A.attention_verify_paged(lp["attn"], h, st, block_tables,
                                         base, qlims, cfg, window=window,
                                         ring_pages=rp)
         x = _attn_block(lp, x, y, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits(cfg, params, x), pool
+    aux = {name: _stack_states(cps[name]) if name in cps else layer
+           for name, layer in pool.items()}
+    return logits(cfg, params, x), aux
+
+
+def _recurrent_prefill_layer(kind, lp, slab, x, valids, slots, cfg, steps):
+    """Packed chunked prefill through a recurrent layer: a token loop of the
+    decode path (recurrent state has no one-shot prefill), with each
+    segment's state updates masked past `valids[g]` so each slab row ends
+    at exactly its last real token. The loop runs `steps` = max(valids)
+    tokens: later positions are padding in every segment, so their outputs
+    are zeros (never read, never written). slab leaves: (max_slots, ...)
+    views, written in place; x: (G, C, D); slots: (G,) slab row per segment
+    — `slots[g] >= max_slots` marks a padded segment (its gather clamps to
+    an arbitrary row and its write-back is dropped). Returns y (G, C, D)."""
+    max_slots = next(iter(slab.values())).shape[0]
+    slots = slots.long()
+    st = {k: a[torch.clamp(slots, max=max_slots - 1)]
+          for k, a in slab.items()}
+    y = torch.zeros_like(x)
+    for t in range(steps):
+        yt, new = _apply_layer_decode(kind, lp, st, x[:, t:t + 1], t, cfg)
+        keep = t < valids                                         # (G,)
+        st = {k: torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)),
+                             new[k], a) for k, a in st.items()}
+        y[:, t] = yt[:, 0]
+    # write each real segment's final state to its row: row r takes the
+    # segment whose slot is r (slots of real segments are distinct), and
+    # rows no segment names keep their state — one gather, no host read
+    match = slots[None, :] == torch.arange(max_slots, device=x.device)[:, None]
+    src = torch.argmax(match.to(torch.int32), dim=1)              # (max_slots,)
+    _write(slab, {k: a[src] for k, a in st.items()}, match.any(dim=1))
+    return y
 
 
 def paged_prefill_packed(cfg: ModelConfig, params, pool, tokens, tables,
@@ -326,13 +648,25 @@ def paged_prefill_packed(cfg: ModelConfig, params, pool, tokens, tables,
     segments in ONE call. tokens: (G, C) int32 — segment g's chunk starts
     at absolute position `starts[g]` with the first `valids[g]` tokens real;
     tables: (S, P) block-table rows indexed by `slots`. `slots[g] >= S`
-    marks an all-padding segment (valids[g] == 0): its table gather clamps
-    and its writes go to the scratch block. ``draft`` as in
-    :func:`paged_decode_step`. Returns (logits (G, V) of each segment's
-    last valid token, pool updated in place)."""
+    marks an all-padding segment (valids[g] == 0): its table gather clamps,
+    its paged writes go to the scratch block and its recurrent-slab
+    write-back is dropped. With recurrent layers the call reads max(valids)
+    to the host once (the length of their token loop). ``draft`` as in
+    :func:`paged_decode_step`.
+    Returns (logits (G, V) of each segment's last valid token, pool updated
+    in place)."""
     x = _embed_tokens(cfg, params, tokens)
     rows = tables[torch.clamp(slots, max=tables.shape[0] - 1).long()]
-    for lp, st, window, rp in _layers(cfg, params, pool, draft):
+    steps = None
+    if any(k in _RECURRENT_KINDS for k in _layer_kinds(cfg)):
+        # the recurrent token loop stops at the longest segment: one host
+        # read a call (an all-padding warm-up call loops zero times)
+        steps = int(valids.max())
+    for _, kind, lp, st, window, rp in _layers(cfg, params, pool, draft):
+        if kind in _RECURRENT_KINDS:
+            x = _recurrent_prefill_layer(kind, lp, st, x, valids, slots, cfg,
+                                         steps)
+            continue
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         if window is None:
             y, _ = A.attention_prefill_paged(lp["attn"], h, st, rows, starts,

@@ -1,12 +1,14 @@
 """Continuous-batching serving engine (port of ``repro.serving.engine.engine``).
 
 Sequence state is per layer kind (``models.state_providers``): full
-attention pages O(S) KV blocks, and sliding-window layers keep a fixed ring
-of ``ceil(window/block_size)+1`` blocks written modulo the ring, so the
-engine serves full, sliding and local-global (gemma3) decoders through one
-scheduler and one block-table layout. Admission charges the per-kind block
-cost (the max over kinds) and prefix caching stays on exactly for the
-all-full-attention configs, where block aliasing is sound.
+attention pages O(S) KV blocks, sliding-window layers keep a fixed ring of
+``ceil(window/block_size)+1`` blocks written modulo the ring, and recurrent
+layers (rwkv6, mamba2) keep one O(1) slab row per slot, so the engine
+serves full, sliding, local-global (gemma3), recurrent (rwkv6) and hybrid
+(zamba2) decoders through one scheduler and one block-table layout.
+Admission charges the per-kind block cost (the max over kinds) and prefix
+caching stays on exactly for the all-full-attention configs, where block
+aliasing is sound.
 
 Wires the host-side scheduler + block-pool bookkeeping to the device step
 functions over the paged KV pools:
@@ -25,14 +27,17 @@ functions over the paged KV pools:
     (``spec.verify_step``), then one host read of (greedy, accepts).
   * ``copy_block_fn`` — the copy-on-write block duplication of prefix
     caching.
+  * ``reset_slot_fn`` — zero a slot's recurrent slab rows for a new
+    occupant.
 
 All per-slot batch state (next token, sequence lengths, active mask, block
 tables) lives on the device and greedy sampling happens on the device, so a
-steady-state decode step reads nothing back: the host queues step after
-step ahead of the card. Host<->device traffic happens at request lifecycle
-events (admit / prefill chunk / finish) and for stop_token scanning;
-generated tokens are recorded as (step vector, index) refs and materialized
-once at drain. Host-to-device copies are issued non-blocking.
+steady-state greedy decode step reads nothing back: the host queues step
+after step ahead of the card. Host<->device traffic happens at request
+lifecycle events (admit / prefill chunk / finish), for stop_token scanning
+and for temperature sampling; generated greedy tokens are recorded as (step
+vector, index) refs and materialized once at drain. Host-to-device copies
+are issued non-blocking.
 
 Unlike the reference, which donates and returns new pools, the step
 functions update the KV pools IN PLACE; the small per-slot vectors are
@@ -51,10 +56,15 @@ kernels dequantize inside (the pools' dict structure carries the mode, so
 the step functions are the same). Oversubscription
 (``EngineConfig.oversub``, ``engine.oversub``): optimistic admission under
 a watermark, per-step block growth, and preemption with rollback to a
-re-prefill of ``prompt + generated``, which stores the same KV again.
+re-prefill of ``prompt + generated``, which stores the same KV again; a
+pure-recurrent config resumes from a host snapshot of its slab rows
+instead.
 
-Not ported yet: temperature sampling, the draft-model drafter, and the
-recurrent / hybrid / MoE families (with the recurrent snapshot resume).
+Temperature requests (``add_request(temperature=...)``) sample on the host
+with Gumbel-max noise from the request's own CPU ``torch.Generator``
+(``serve.sample``), so their streams survive preemption; under speculation
+they run unspeculated (one token a verify step). MoE configs come with
+ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -67,6 +77,7 @@ import torch
 from repro_torch.kernels.quantize import KVQuantConfig
 from repro_torch.models import state_providers as SP
 from repro_torch.models import transformer as T
+from repro_torch.serving import serve as SERVE
 from repro_torch.serving import telemetry as TM
 from repro_torch.serving.engine import spec as SPEC
 from repro_torch.serving.engine.oversub import OversubConfig, SLOPolicy
@@ -112,6 +123,7 @@ def _step_fns(cfg, e: EngineConfig):
     """The device step functions (counterparts of the reference's jitted
     decode_fn / prefill_fn / verify_fn / copy_block_fn). None of them reads
     a value back to the host; verify_fn is None without speculation."""
+    skinds = SP.state_kinds(cfg)
     # speculative decoding enlarges every ring layer by the draft depth so a
     # verify step's K in-flight positions never overwrite a key still inside
     # someone's window — decode, prefill and verify must all index the ring
@@ -154,7 +166,16 @@ def _step_fns(cfg, e: EngineConfig):
                 a[:, dst] = a[:, src]
         return pool
 
-    return decode_fn, prefill_fn, copy_block_fn, verify_fn
+    def reset_slot_fn(pool, slot):
+        # zero one slot's recurrent slab rows across all layers: a new
+        # occupant must not see the previous request's final state
+        for i, sk in enumerate(skinds):
+            if sk in ("rwkv", "mamba"):
+                for a in pool[f"l{i}"].values():
+                    a[:, slot] = 0
+        return pool
+
+    return decode_fn, prefill_fn, copy_block_fn, reset_slot_fn, verify_fn
 
 
 def _set(vec, i, value):
@@ -187,9 +208,11 @@ class Engine:
         self.drafter = e.spec.build_drafter() if e.spec is not None else None
         self.providers = SP.providers_for(
             cfg, num_blocks=e.num_blocks, block_size=e.block_size,
-            max_blocks_per_seq=e.max_blocks_per_seq,
+            max_slots=e.max_slots, max_blocks_per_seq=e.max_blocks_per_seq,
             draft=e.spec.k - 1 if e.spec is not None else 0,
             kv_quant=e.kv_quant)
+        self._has_recurrent = any(p.kind in ("rwkv", "mamba")
+                                  for p in self.providers)
         for p in self.providers:
             if p.kind == "ring" and p.ring_pages > e.max_blocks_per_seq:
                 raise ValueError(
@@ -256,6 +279,7 @@ class Engine:
             "engine_request_e2e_seconds", "arrive -> finish")
 
         self.pool_state = T.init_paged_state(cfg, e.num_blocks, e.block_size,
+                                             max_slots=e.max_slots,
                                              device=self.device,
                                              kv_quant=e.kv_quant)
         # pool bytes the int8 layout saves against the config's dtype (all
@@ -284,8 +308,16 @@ class Engine:
         # oversubscription: the SLO policy flips the scheduler to optimistic
         # prompt-only reservation; the engine then appends decode blocks per
         # step and preempts victims when an append (or a higher-priority
-        # queue head) can't be satisfied
+        # queue head) can't be satisfied. Snapshot resume is sound only when
+        # EVERY provider can restore from a snapshot (pure-recurrent
+        # configs); hybrids recompute — the attention KV must be rebuilt
+        # anyway and the slab prefill loop rebuilds recurrent state exactly.
         self._policy = SLOPolicy(e.oversub) if e.oversub is not None else None
+        self._snapshot_resume = (
+            e.oversub is not None and e.oversub.snapshot_resume
+            and self._has_recurrent
+            and all(getattr(p, "supports_snapshot_resume", False)
+                    for p in self.providers))
         self.scheduler = Scheduler(
             self.block_pool, max_slots=e.max_slots,
             max_blocks_per_seq=e.max_blocks_per_seq,
@@ -310,13 +342,14 @@ class Engine:
         self._next_rid = 0
         self.requests: dict = {}        # rid -> Request (all ever submitted)
 
-        (self._decode, self._prefill, self._copy_block,
+        (self._decode, self._prefill, self._copy_block, self._reset_slot,
          self._verify) = _step_fns(cfg, e)
         if self.telemetry.enabled:
             wrap = self.telemetry.recompiles.wrap
             self._decode = wrap("decode", self._decode)
             self._prefill = wrap("prefill", self._prefill)
             self._copy_block = wrap("copy_block", self._copy_block)
+            self._reset_slot = wrap("reset_slot", self._reset_slot)
             if self._verify is not None:
                 self._verify = wrap("verify", self._verify)
         self._step_device_s = 0.0
@@ -386,19 +419,19 @@ class Engine:
         return SP.seq_blocks_needed(self.providers, total_tokens)
 
     def add_request(self, prompt, max_new: int, *, temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
                     stop_token: Optional[int] = None,
                     priority: int = 0) -> int:
-        """Queue a greedy request; returns its id. `prompt`: 1-D int tokens.
-        `priority` is the oversubscription class (LOWER is more important;
-        ignored by the conservative scheduler).
+        """Queue a request; returns its id. `prompt`: 1-D int tokens.
+        `temperature` > 0 samples on the host with noise from `generator`
+        (a CPU ``torch.Generator``; by default one seeded with the request
+        id, as the reference seeds its key). `priority` is the
+        oversubscription class (LOWER is more important; ignored by the
+        conservative scheduler).
 
         Validates up front that prompt + generation budget fits both the
         per-sequence block table and the whole pool, so infeasible requests
         fail here with the offending numbers."""
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "temperature sampling comes in a later slice of the port; "
-                "this engine serves greedy requests")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.shape[0] < 1:
             raise ValueError("prompt must contain at least one token")
@@ -419,9 +452,12 @@ class Engine:
                 f"request infeasible: prompt_len {prompt.shape[0]} + max_new "
                 f"{max_new} = {total} tokens needs {need} blocks > pool "
                 f"budget num_blocks {e.num_blocks}")
+        if temperature > 0.0 and generator is None:
+            generator = torch.Generator().manual_seed(self._next_rid)
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, max_new=max_new,
+                      temperature=temperature, generator=generator,
                       stop_token=stop_token, priority=priority,
                       arrive_t=self.telemetry.clock())
         self.requests[rid] = req
@@ -487,6 +523,12 @@ class Engine:
             padded = np.zeros((e.max_blocks_per_seq,), np.int32)
             padded[:len(row)] = row
             self.tables[req.slot] = self._to_device(padded)
+            if self._has_recurrent:
+                # the slot's recurrent slab rows still hold the previous
+                # occupant's final state — zero them for the newcomer
+                self.pool_state = self._device_call(
+                    "engine/reset_slot", self._reset_slot,
+                    self.pool_state, req.slot)
             self._m_prefix_hits.inc(req.prefilled)
             resumed = req.preempts > 0
             if tel.enabled:
@@ -502,6 +544,17 @@ class Engine:
                                + (1 if req.cow_src is not None else 0))
             if resumed:
                 self._m_resumes.inc()
+            if req.snapshot is not None and self._snapshot_resume:
+                # pure-recurrent resume: copy the checkpointed slab rows
+                # back into the (freshly zeroed) slot and skip the re-scan —
+                # prefill only covers the tokens past the snapshot
+                self.pool_state = {
+                    f"l{i}": p.resume_restore(
+                        self.pool_state[f"l{i}"], req.slot, req.snapshot[i])
+                    for i, p in enumerate(self.providers)}
+                req.prefilled = req.snapshot_len
+            req.snapshot = None
+            req.snapshot_len = 0
             self.seq_lens = _set(self.seq_lens, req.slot, req.prefilled)
             if req.cow_src is not None:
                 # whole prefill cached: copy the last matched block into the
@@ -543,7 +596,7 @@ class Engine:
                     # prefill complete: segment j's logits yield the next
                     # token (the request's FIRST, unless this is a resumed
                     # re-prefill continuing an interrupted generation)
-                    self._record_token(req, greedy, j, sync_memo)
+                    self._record_token(req, greedy, j, logits, sync_memo)
                     emitted.append(req.rid)
                     if tel.enabled:
                         if req.got_first:
@@ -573,7 +626,7 @@ class Engine:
             self._m_decode_steps.inc()
             self._m_occupancy.inc(len(batch) / e.max_slots)
             for req in batch:
-                self._record_token(req, greedy, req.slot, sync_memo)
+                self._record_token(req, greedy, req.slot, logits, sync_memo)
                 emitted.append(req.rid)
                 tel.record(req.rid, "decode_token")
                 if req.done:
@@ -698,8 +751,18 @@ class Engine:
         the scheduler register + free its blocks and requeue it.
         Materialization uses a private memo: this call drops the victim's
         step-vector refs, so a shared id()-keyed memo could dangle for the
-        rest of the step."""
+        rest of the step. A pure-recurrent config snapshots the victim's slab
+        rows first (``_snapshot_resume``)."""
         req.out_tokens = [int(t) for t in self._materialize(req, {})]
+        if self._snapshot_resume:
+            # the state covers exactly the tokens processed as inputs so
+            # far: seq_tokens - 1 while DECODING (the last generated token
+            # is the pending input), prefilled while mid-prefill
+            req.snapshot = [
+                p.preempt_checkpoint(self.pool_state[f"l{i}"], req.slot)
+                for i, p in enumerate(self.providers)]
+            req.snapshot_len = (req.seq_tokens - 1 if req.state == DECODING
+                                else req.prefilled)
         self.active = _set(self.active, req.slot, False)
         blocks = len(self.block_pool.table(req.rid))
         if self.drafter is not None:
@@ -733,7 +796,10 @@ class Engine:
         stream positions. ``qlims`` caps accepted tokens AND KV writes at
         what the request may still emit, so writes never pass the block
         reservation; under oversubscription ``_spec_horizon`` grows the
-        table by the same horizon first."""
+        table by the same horizon first. Temperature requests run with
+        qlims == 1: one token whose value the host samples from the pending
+        position's logits (the device commits only the pending token's
+        state, which holds whatever token is sampled)."""
         e = self.ecfg
         tel = self.telemetry
         k = e.spec.k
@@ -747,7 +813,8 @@ class Engine:
             if any(isinstance(t, tuple) for t in req.out_tokens):
                 req.out_tokens = [int(t) for t in
                                   self._materialize(req, sync_memo)]
-            q = min(k, req.max_new - len(req.out_tokens))
+            q = (1 if req.temperature > 0.0
+                 else min(k, req.max_new - len(req.out_tokens)))
             ctx = np.concatenate([req.prompt,
                                   np.asarray(req.out_tokens, np.int32)])
             tokens[req.slot, 0] = ctx[-1]
@@ -756,7 +823,7 @@ class Engine:
                     req.rid, ctx, k - 1)
             qlims[req.slot] = q
             plans.append((req, q))
-        greedy, accepts, _, self.seq_lens, self.pool_state = \
+        greedy, accepts, logits, self.seq_lens, self.pool_state = \
             self._device_call(
                 "engine/verify", self._verify,
                 self.params, self.pool_state, self._to_device(tokens),
@@ -771,6 +838,9 @@ class Engine:
         for req, q in plans:
             a = int(a_host[req.slot])
             toks = [int(t) for t in g_host[req.slot, :a]]
+            if req.temperature > 0.0:
+                toks = [int(SERVE.sample(logits[req.slot, 0], req.generator,
+                                         req.temperature))]
             if req.stop_token is not None and req.stop_token in toks:
                 # truncate at the stop token; the device advanced past it
                 # but the slot is freed below, so the overrun is unreachable
@@ -793,16 +863,23 @@ class Engine:
         """Extra block-growth horizon under speculation: the next verify
         step writes KV at positions ``seq_tokens-1 .. seq_tokens-2+qlims``,
         i.e. qlims-1 tokens past what the one-token decode step writes."""
-        if self._verify is None:
+        if self._verify is None or req.temperature > 0.0:
             return 0
         return min(self.ecfg.spec.k, req.max_new - len(req.out_tokens)) - 1
 
-    def _record_token(self, req: Request, greedy_vec, greedy_idx,
+    def _record_token(self, req: Request, greedy_vec, greedy_idx, logits,
                       sync_memo: dict):
         """Record the request's next token. Greedy requests store a
-        (step-vector, index) ref — no host sync; stop_token requests pay a
-        host round-trip, at most ONE transfer per step vector (`sync_memo`,
-        one dict per engine step)."""
+        (step-vector, index) ref — no host sync; a temperature request
+        samples row `greedy_idx` of `logits` on the host with its generator;
+        stop_token requests pay a host round-trip, at most ONE transfer per
+        step vector (`sync_memo`, one dict per engine step)."""
+        if req.temperature > 0.0:
+            tok = int(SERVE.sample(logits[greedy_idx], req.generator,
+                                   req.temperature))
+            self.next_tok = _set(self.next_tok, req.slot, tok)
+            req.out_tokens.append(tok)
+            return
         if req.stop_token is not None:
             host = sync_memo.get(id(greedy_vec))
             if host is None:

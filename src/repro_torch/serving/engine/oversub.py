@@ -61,9 +61,13 @@ evict-and-recompute —
     ``prompt + generated`` rebuilds the ring, wrap-for-wrap, at the
     identical cursor. An int8 pool re-quantizes the same K/V vectors to the
     same int8 values and scales.
-  * recurrent slabs (``rwkv`` / ``mamba``) and the reference's
-    snapshot-resume path (``OversubConfig.snapshot_resume``) come with
-    their slice of the port (ROADMAP A9).
+  * recurrent slabs (``rwkv`` / ``mamba``): ``preempt_checkpoint`` copies
+    the victim's slab rows to the host; on resume the engine restores the
+    snapshot (``resume_restore``) and — when EVERY provider restored state
+    (``OversubConfig.snapshot_resume``, pure-recurrent configs) — skips the
+    token re-scan, resuming decode at the checkpointed length. Hybrids
+    recompute instead: the attention KV must be rebuilt anyway, and the
+    slab prefill loop rebuilds the recurrent state from zero.
 
 What the step EWMA sees on the card. The engine feeds ``note_step`` the
 host wall time of each ``step()``. With ``EngineConfig.step_timing`` every
@@ -102,6 +106,8 @@ class OversubConfig:
                                     #   evict strictly-lower-class victims
     step_ewma: float = 0.2          # weight of the newest step duration in
                                     #   the TPOT-proxy moving average
+    snapshot_resume: bool = True    # pure-recurrent configs restore slab
+                                    #   snapshots instead of re-prefilling
 
     def __post_init__(self):
         if not 0.0 < self.admit_watermark <= 1.0:

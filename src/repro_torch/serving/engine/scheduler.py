@@ -3,7 +3,9 @@ prefix-cache matching, chunked prefill interleaved with decode.
 
 Ported near verbatim from ``repro.serving.engine.scheduler`` (host numpy
 code), with the oversubscription policy hooks (optimistic admission, block
-growth, preemption); temperature sampling is not ported yet.
+growth, preemption). A temperature request carries its own CPU
+``torch.Generator`` (the reference's PRNG key), so a preempted and resumed
+request draws the same noise sequence.
 
 Block budgets are provider-aware (`block_cost`, injected by the Engine from
 models.state_providers): sliding-window sequences reserve at most the ring
@@ -110,6 +112,8 @@ class Request:
     rid: int
     prompt: np.ndarray                  # (S0,) int32
     max_new: int
+    temperature: float = 0.0
+    generator: Optional[object] = None  # CPU torch.Generator, temperature > 0
     stop_token: Optional[int] = None
     state: str = WAITING
     slot: int = -1
@@ -128,6 +132,8 @@ class Request:
                                         #   resumed prefill completion is an
                                         #   ordinary decode_token)
     prefill_tokens: Optional[np.ndarray] = None   # resume: prompt + generated
+    snapshot: Optional[list] = None     # per-layer provider state snapshot
+    snapshot_len: int = 0               # tokens the snapshot state covers
 
     @property
     def prompt_len(self) -> int:
@@ -331,8 +337,8 @@ class Scheduler:
         the slot, and requeue the request as WAITING with
         ``prefill_tokens = prompt + generated`` so the ordinary
         (cached-prefix) admission path resumes it. The caller (engine) must
-        have materialized ``out_tokens`` to concrete ints BEFORE calling;
-        registration precedes the free
+        have materialized ``out_tokens`` to concrete ints — and captured any
+        provider snapshot — BEFORE calling; registration precedes the free
         so refcount-zero blocks park content-intact on the cold end of the
         free list and resume can alias them back."""
         if req.rid not in self.running:

@@ -12,9 +12,9 @@ attention sweep — to cut depth by the accepted run length:
     between device steps: ``propose(rid, context, n)`` guesses the next n
     tokens of a request's stream given every token known so far (prompt ++
     emitted). ``NgramDrafter`` is the self-drafting prompt-lookahead
-    default (no second model); ``ReplayDrafter`` replays known
-    continuations (the high-acceptance limit). The reference's
-    ``DraftModelDrafter`` waits for ``serve.generate`` (ROADMAP A7).
+    default (no second model); ``DraftModelDrafter`` drafts with a small
+    model's greedy ``serve.generate``; ``ReplayDrafter`` replays known
+    continuations (the high-acceptance limit).
   * ``verify_step`` — embed the K draft tokens, run the multi-query verify
     through every layer (``transformer.paged_verify_step``) and compute the
     greedy acceptance run on the device; nothing is read back. Paged KV
@@ -22,6 +22,9 @@ attention sweep — to cut depth by the accepted run length:
     the scratch block, and the next verify step rewrites the positions a
     rejection left stale — masked in the interim by each query's causal
     bound — so pool contents stay canonical for the committed prefix.
+    Recurrent slabs roll back exactly: the verify keeps the state after
+    each draft, and ``state_providers.select_checkpoint`` writes the
+    accepted one.
 
 Acceptance rule (greedy): verify feeds ``[pending, d1 .. d_{K-1}]`` where
 ``pending`` is the last emitted (true) token and ``d_i`` are draft guesses.
@@ -41,6 +44,7 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.models import state_providers as SP
 from repro_torch.models import transformer as T
 
 
@@ -108,6 +112,29 @@ class NgramDrafter:
         self._draft_state.pop(rid, None)
 
 
+class DraftModelDrafter:
+    """Draft with a small model's greedy continuation. Reference-grade:
+    each call re-prefills the full context through ``serve.generate`` —
+    correct and simple, but the n-gram drafter is the fast path. The draft
+    model needs nothing in common with the target beyond the vocab; it
+    runs on its params' device."""
+
+    def __init__(self, cfg, params):
+        self.cfg = cfg
+        self.params = params
+        self._draft_state: dict = {}
+
+    def propose(self, rid, context, n):
+        from repro_torch.serving import serve   # serve imports this package
+        out = serve.generate(self.cfg, self.params,
+                             np.asarray(context, np.int32)[None], max_new=n,
+                             temperature=0.0)
+        return out[0].cpu().numpy().astype(np.int32)
+
+    def forget(self, rid):
+        self._draft_state.pop(rid, None)
+
+
 class ReplayDrafter:
     """Oracle drafter replaying known continuations — the high-acceptance
     limit of a perfectly aligned draft model: record each request's
@@ -140,9 +167,9 @@ class SpecConfig:
 
     k        — tokens fed to each verify step: 1 pending (true) token plus
                k-1 draft guesses; each step advances a slot by 1..k tokens.
-    drafter  — "ngram" (default) or any ``Drafter`` instance.
-               "draft_model" (the reference's DraftModelDrafter) raises
-               until the port has ``serve.generate`` (ROADMAP A7).
+    drafter  — "ngram" (default) or any ``Drafter`` instance, e.g. a
+               ``DraftModelDrafter(cfg, params)`` (a name cannot carry the
+               draft model, so any other name raises, as the reference's).
     ngram    — suffix order for the built-in n-gram drafter."""
     k: int = 4
     drafter: object = "ngram"
@@ -152,11 +179,6 @@ class SpecConfig:
         if not 2 <= self.k <= 32:
             raise ValueError(f"spec k must be in [2, 32], got {self.k}")
         if isinstance(self.drafter, str):
-            if self.drafter == "draft_model":
-                raise NotImplementedError(
-                    "the draft-model drafter runs serve.generate, which comes "
-                    "in a later slice of the port (ROADMAP A7); use 'ngram' "
-                    "or a Drafter instance")
             if self.drafter != "ngram":
                 raise ValueError(f"unknown drafter name {self.drafter!r}")
         elif not isinstance(self.drafter, Drafter):
@@ -187,14 +209,20 @@ def verify_step(cfg, params, pool, tokens, block_tables, seq_lens, active,
 
     Returns (greedy (B, K), accepts (B,), logits (B, K, V),
     new_seq_lens (B,), pool). ``accepts`` is 0 for inactive slots, else
-    1..qlims; slot state advances by exactly ``accepts`` tokens."""
+    1..qlims; slot state (paged KV, ring cursors implied by seq_lens,
+    recurrent slabs) advances by exactly ``accepts`` tokens."""
     base = torch.where(active, seq_lens, 0)
     qlims = torch.where(active, qlims, 0)
-    lg, pool = T.paged_verify_step(cfg, params, pool, tokens, block_tables,
-                                   base, qlims)
+    lg, aux = T.paged_verify_step(cfg, params, pool, tokens, block_tables,
+                                  base, qlims)
     greedy = torch.argmax(lg, dim=-1).to(torch.int32)              # (B, K)
     match = (tokens[:, 1:] == greedy[:, :-1]).to(torch.int32)     # (B, K-1)
     run = torch.cumprod(match, dim=1)
     accepts = (1 + torch.sum(run, dim=1)).to(torch.int32)
     accepts = torch.minimum(accepts, qlims)                       # 0 if inactive
+    for name, layer in pool.items():
+        if aux[name] is not layer:      # recurrent: roll back to `accepts`
+            new = SP.select_checkpoint(aux[name], accepts, layer)
+            for k, a in layer.items():
+                a.copy_(new[k])
     return greedy, accepts, lg, seq_lens + accepts, pool

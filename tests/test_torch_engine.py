@@ -191,8 +191,9 @@ def test_host_side_validation(model):
         teng.add_request(np.zeros(30, np.int32), 10)        # > 8 blocks of 4
     with pytest.raises(ValueError):
         teng.add_request(np.zeros(0, np.int32), 4)
-    with pytest.raises(NotImplementedError):
-        teng.add_request(np.zeros(3, np.int32), 4, temperature=0.7)
+    # temperature requests are accepted, each with its own seeded generator
+    rid = teng.add_request(np.zeros(3, np.int32), 4, temperature=0.7)
+    assert isinstance(teng.requests[rid].generator, torch.Generator)
 
 
 def test_decode_step_records_lazy_refs_without_host_sync(model):

@@ -65,8 +65,7 @@ def test_oversub_config_validation_matches_reference():
             OversubConfig(**kw)
     port = dataclasses.asdict(OversubConfig())
     ref = dataclasses.asdict(JaxOversubConfig())
-    # the recurrent snapshot resume comes with the recurrent slabs (A9)
-    assert port == {k: v for k, v in ref.items() if k != "snapshot_resume"}
+    assert port == ref      # snapshot_resume included (recurrent slabs)
 
 
 class _FakePool:

@@ -245,11 +245,29 @@ def test_init_params_matches_specs_and_seed(model):
 
 
 def test_unsupported_families_raise():
+    """MoE and mrope still raise; the recurrent (ssm) and hybrid families
+    build per-slot slabs beside the paged pools (and need max_slots)."""
     import dataclasses
     base = ModelConfig(**CFG_KW)
-    for kw in (dict(family="hybrid", hybrid_ssm_per_attn=1),
-               dict(family="ssm"), dict(num_experts=4, experts_per_token=2),
+    for kw in (dict(num_experts=4, experts_per_token=2),
                dict(rope_mode="mrope")):
         with pytest.raises(NotImplementedError):
             TT.init_paged_state(dataclasses.replace(base, **kw), 4, 4,
                                 device="cpu")
+    ssm = dataclasses.replace(base, family="ssm", ssm_type="rwkv6")
+    hybrid = dataclasses.replace(base, family="hybrid", ssm_type="mamba2",
+                                 hybrid_ssm_per_attn=1, ssm_state_dim=8)
+    for cfg in (ssm, hybrid):
+        with pytest.raises(ValueError, match="max_slots"):
+            TT.init_paged_state(cfg, 4, 4, device="cpu")
+    pool = TT.init_paged_state(ssm, 4, 4, max_slots=3, device="cpu")
+    assert {k: tuple(a.shape) for k, a in pool["l0"].items()} == {
+        "S": (2, 3, 1, 64, 64), "prev": (2, 3, 1, 64),
+        "prev_cm": (2, 3, 1, 64)}
+    assert pool["l0"]["S"].dtype == torch.float32
+    pool = TT.init_paged_state(hybrid, 4, 4, max_slots=3, device="cpu")
+    assert {k: tuple(a.shape) for k, a in pool["l0"].items()} == {
+        "S": (1, 3, 2, 64, 8), "conv": (1, 3, 3, 144)}
+    assert tuple(pool["l1"]["k"].shape) == (1, 5, 4, 2, 16)
+    assert not any(bool(a.any()) for layer in pool.values()
+                   for a in layer.values())

@@ -39,9 +39,9 @@ from repro_torch.kernels.paged_attention import (paged_attention_ref,
                                                  paged_attention_verify_ref)
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
-from repro_torch.serving.engine import (Drafter, Engine, EngineConfig,
-                                        NgramDrafter, ReplayDrafter,
-                                        SpecConfig)
+from repro_torch.serving.engine import (Drafter, DraftModelDrafter, Engine,
+                                        EngineConfig, NgramDrafter,
+                                        ReplayDrafter, SpecConfig)
 from repro_torch.serving.engine import spec as SPEC
 
 pytestmark = pytest.mark.port
@@ -144,8 +144,13 @@ class TestDrafters:
             SpecConfig(drafter=42)
         with pytest.raises(ValueError):
             SpecConfig(ngram=0)
-        with pytest.raises(NotImplementedError, match="A7"):
+        # as the reference: a name cannot carry the draft model, so the
+        # draft-model drafter is passed as an instance
+        with pytest.raises(ValueError):
             SpecConfig(drafter="draft_model")
+        draft = DraftModelDrafter(reduced(get_config("yi-9b")), {})
+        assert isinstance(draft, Drafter)
+        assert SpecConfig(drafter=draft).build_drafter() is draft
         assert isinstance(SpecConfig().build_drafter(), NgramDrafter)
         inst = _ConstantDrafter()
         assert SpecConfig(drafter=inst).build_drafter() is inst
