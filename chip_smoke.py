@@ -108,7 +108,7 @@ Phases, in order; any failure exits non-zero before the final ok line:
   6. serving beyond greedy attention decoders. Kernels: B1 and B4
      at zamba2-2.7b's shared-attention layout (32/32 heads, hd 80), bf16
      and int8 pools, against the plain version and timed beside SDPA and
-     the bound (bf16 rows join the kernels line). Parity (reduced f32,
+     the bound (all four rows join the kernels line). Parity (reduced f32,
      TF32 off): serve.generate cuda == cpu == the cuda engine, f32 and
      int8 caches; a sampled request (temperature 0.8, seeded generator):
      cuda engine == cpu engine == cpu generate == forcibly preempted after
@@ -130,7 +130,39 @@ Phases, in order; any failure exits non-zero before the final ok line:
      B4 == verify steps x 9; tokens/s, TTFT, TPOT, per-step host and
      device ms, peak memory and a profile of the decode window. bf16 token
      agreement between paths is reported, not gated (bf16 prefill, decode
-     and K-row verify round differently; the f32 runs gate it).
+     and K-row verify round differently; the f32 runs gate it). zamba2 is
+     also served on int8 pools, plainly and with n-gram spec (the same
+     requests): B1+B3 == decode steps x 9, B4+B3 == verify steps x 9.
+
+  7. the MoE family and recurrent training. Kernels: B2 and B5 (k = 4)
+     at mixtral-8x7b's layout (32/8 heads, hd 128) on its 4096-token
+     ring, bf16 and int8 pools, with lengths before, at and past the wrap
+     (several splits and a merge), against the plain version (also by
+     row error) and timed beside SDPA and the bound (the four rows join
+     the kernels line). Parity (reduced f32,
+     TF32 off; each path against itself on the cpu, never across paths:
+     an MoE layer's capacity follows the step's padded batch): mixtral-8x7b
+     and qwen3-moe-30b-a3b engine tokens cuda == cpu, plain, n-gram k=4
+     and int8 pools; serve.generate cuda == cpu, batched and loop; 3 Adam
+     steps' losses within 1e-4; rwkv6-7b and zamba2-2.7b training losses
+     likewise; a tiny hd-80 hybrid on int8 pools, cuda == cpu. Full width:
+     qwen3-moe-30b-a3b at full depth (48 layers, 61.1 GB bf16) and
+     mixtral-8x7b cut to 16 of 32 layers (93.4 GB for all 32), 8 requests
+     of 64-512 prompt tokens and 32 new (mixtral: plus a 4200-token prompt
+     that wraps the 4096-token ring), plainly, with n-gram spec, on int8
+     pools and with a forced preemption: finite logits, tokens in the
+     vocabulary, no leaked block, B1/B4 (qwen3) and B2/B5 (mixtral) once
+     per layer a step; spec and preempted agreement with plain printed;
+     a decode profile with the MoE layers' device time split into expert
+     products and routing, dispatch and combine. Training at full width:
+     qwen3-moe-30b-a3b (2 of 48 layers, 1 x 4096, with a profiled step
+     whose MoE forward and backward device time is split into expert
+     products and routing, dispatch and combine),
+     rwkv6-7b (2 of 32, 1 x 2048) and zamba2-2.7b (6 of 54 = one
+     superblock, 1 x 2048, B6 at hd 80), Adam with remat: every gradient
+     leaf finite once, finite losses, B6 twice per attention layer a step
+     (every training main path, yi-9b and stablelm-3b too, checks its
+     gradients once before its timed steps).
 
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -1616,58 +1648,91 @@ def gemma3_main_phase(card, rows):
     where_time_goes(card, fast, prompts[:8], news[:8])
 
 
-# ------------------------------- phase 3g: B1 and B4 at zamba2's layout
+# ------------------------- phase 3g: paged kernels at zamba2's and mixtral's
 ZAMBA2_LAYOUT = (32, 32, 80)        # zamba2-2.7b's shared attention
+MIXTRAL_LAYOUT = (32, 8, 128)       # mixtral-8x7b's attention
+MIXTRAL_WINDOW = 4096
+# ring lengths before, at and past the wrap (R·bs = 4112 for the decode,
+# 4128 for the k = 4 verify), the engine's 4200-token prompt with its 32
+# new tokens, and three times round the ring
+MIXTRAL_LENS = (4, 512, 2048, 4095, 4096, 4129, 4232, 12295)
 
 
-def zamba2_kernel_phase(card):
-    """B1 (one-query decode) and B4 (k = 4 verify) at zamba2-2.7b's shared
-    attention layout (32/32 heads, hd 80: the first model path that runs
-    the tensor-core decode at width 80), bf16 and int8 pools, against the
-    plain version, then timed beside SDPA and the bound (as B1 at yi-9b's
-    shape: B = 8 slots, block 16, 128-page tables, lengths over 4..2048).
-    Returns the bf16 rows, for the kernels line (the int8 rows are
-    printed)."""
+def _layout_rows(card, shape, layout, window, lens, seed, replaces):
+    """One-query decode (B1, or B2 on a ring of `window`) and the k = 4
+    verify (B4, or B5) at one model's head layout, bf16 and int8 pools,
+    held against the plain version (f32 2e-5, bf16 2e-2 by max_abs_err,
+    and DECODE_ROW_TOL by row error when timed), then timed beside SDPA
+    and the bound: B = 8 slots, block 16, the given lengths. Returns the
+    four rows (bf16 decode, verify; int8 decode, verify) keyed by launch
+    count key; the int8 rows are variants of the bf16 ones."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_ref, paged_attention_verify,
         paged_attention_verify_ref)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
+    gen.manual_seed(seed)
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-    H, Hkv, hd = ZAMBA2_LAYOUT
-    B, bs, P, K = 8, 16, 128, 4
-    lens = [int(x) for x in np.linspace(K, bs * P, B)]
-    rows = []
-    for key, n_q, replaces in (
-            ("paged_attention", 0,
-             "src/repro/kernels/paged_attention/kernel.py:52"),
-            ("paged_verify", K,
-             "src/repro/kernels/paged_attention/kernel.py:101")):
+    H, Hkv, hd = layout
+    B, bs, K = len(lens), 16, 4
+    lens = list(lens)
+    rows = {}
+    for key, n_q in (("paged_ring" if window else "paged_attention", 0),
+                     ("paged_ring_verify" if window else "paged_verify", K)):
         kern, plain = ((paged_attention, paged_attention_ref) if n_q == 0
                        else (paged_attention_verify,
                              paged_attention_verify_ref))
+        if window:
+            R = _ring_pages(window, bs, max(n_q - 1, 0))
+            ring, P = (window, R), R + 2
+        else:
+            ring, P = None, 128
         for quant in (False, True):
             errs = {}
             for dt in (torch.float32, torch.bfloat16):
                 args, kw = _multi_inputs(gen, B, n_q, H, Hkv, hd, B * P + 1,
-                                         bs, P, dt, lens, None)
+                                         bs, P, dt, lens, ring)
                 if quant:
                     args, kw = _quantized(args, kw)
                 out, ref = kern(*args, **kw), plain(*args, **kw)
                 torch.cuda.synchronize()
                 errs[dt] = (out.float() - ref.float()).abs().max().item()
                 check(math.isfinite(errs[dt]) and errs[dt] <= tol[dt],
-                      f"{key} @ zamba2-2.7b {dt} int8={quant}: max_abs_err "
+                      f"{key} @ {shape} {dt} int8={quant}: max_abs_err "
                       f"{errs[dt]} > {tol[dt]}")
             k = key + "_int8" if quant else key
-            row = _time_multi(card, k, n_q, args, kw, errs, None,
-                              shape="zamba2-2.7b",
-                              row_name=f"{k} @ zamba2-2.7b",
-                              row_replaces=None if quant else replaces)
-            if not quant:
-                rows.append(row)
+            rows[k] = _time_multi(card, k, n_q, args, kw, errs, window,
+                                  shape=shape, row_name=f"{k} @ {shape}",
+                                  row_replaces=None if quant
+                                  else replaces[n_q > 0])
     return rows
+
+
+def zamba2_kernel_phase(card):
+    """B1 (one-query decode) and B4 (k = 4 verify) at zamba2-2.7b's shared
+    attention layout (32/32 heads, hd 80: the first model path that runs
+    the tensor-core decode at width 80), bf16 and int8 pools, against the
+    plain version, then timed (as B1 at yi-9b's shape: 128-page tables,
+    lengths over 4..2048). Returns the rows, for the kernels line."""
+    lens = [int(x) for x in np.linspace(4, 16 * 128, 8)]
+    rows = _layout_rows(card, "zamba2-2.7b", ZAMBA2_LAYOUT, None, lens, 3,
+                        ("src/repro/kernels/paged_attention/kernel.py:52",
+                         "src/repro/kernels/paged_attention/kernel.py:101"))
+    return list(rows.values())
+
+
+def mixtral_kernel_phase(card):
+    """B2 (ring decode) and B5 (k = 4 ring verify) at mixtral-8x7b's layout
+    (32/8 heads, hd 128) on its 4096-token window, bf16 and int8 pools,
+    with lengths before, at and past the ring's wrap (MIXTRAL_LENS: each
+    live span is cut into several splits and merged), against the plain
+    version, then timed. Returns the rows, for the kernels line; the
+    mixtral serving phase sets their launches."""
+    rows = _layout_rows(card, "mixtral-8x7b", MIXTRAL_LAYOUT, MIXTRAL_WINDOW,
+                        MIXTRAL_LENS, 4,
+                        ("src/repro/kernels/paged_attention/kernel.py:238",
+                         "src/repro/kernels/paged_attention/kernel.py:167"))
+    return list(rows.values())
 
 
 # ------------------------------------------- phase 4f: serving parity (A7, A9)
@@ -2111,13 +2176,19 @@ def recurrent_main_phase(card, arch, kernel_rows=()):
     and launches B1 once per shared-attention layer per decode step and B4
     once per layer per verify step. Spec and preempted tokens beside the
     plain run's are reported (bf16; the f32 parity phase gates them).
-    `kernel_rows`: zamba2's B1 / B4 rows, whose launches this run sets."""
+    zamba2 is also served on int8 pools, plainly and with n-gram
+    speculation, with the same requests: B1+B3 and B4+B3 at hd 80 on a
+    model path (contexts up to 160 keys, three 64-key stages), once per
+    shared-attention layer a step.
+    `kernel_rows`: zamba2's B1 / B4 rows (bf16 and int8 pools), whose
+    launches these runs set."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models import state_providers as SP
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import (Engine, EngineConfig,
-                                            OversubConfig, SpecConfig)
+                                            KVQuantConfig, OversubConfig,
+                                            SpecConfig)
     _release_card()
     cfg = get_config(arch)
     t0 = time.perf_counter()
@@ -2137,13 +2208,18 @@ def recurrent_main_phase(card, arch, kernel_rows=()):
                         max_slots=8, prefill_chunk=256, prefills_per_step=8,
                         step_timing=True)
     wave = [[(p, m, 0) for p, m in zip(prompts, news)]]
+    runs = [("plain", ecfg),
+            ("ngram k=4", dataclasses.replace(ecfg, spec=SpecConfig(k=4))),
+            ("preempted", dataclasses.replace(
+                ecfg, oversub=OversubConfig(ttft_slo_s=1e9,
+                                            tpot_slo_s=1e9)))]
+    if n_attn:
+        q8 = dataclasses.replace(ecfg, kv_quant=KVQuantConfig())
+        runs += [("int8", q8),
+                 ("int8 ngram k=4", dataclasses.replace(
+                     q8, spec=SpecConfig(k=4)))]
     res = {}
-    for label, e in (("plain", ecfg),
-                     ("ngram k=4", dataclasses.replace(
-                         ecfg, spec=SpecConfig(k=4))),
-                     ("preempted", dataclasses.replace(
-                         ecfg, oversub=OversubConfig(ttft_slo_s=1e9,
-                                                     tpot_slo_s=1e9)))):
+    for label, e in runs:
         eng = Engine(cfg, params, e)
         state = {"steps": 0}
 
@@ -2156,15 +2232,15 @@ def recurrent_main_phase(card, arch, kernel_rows=()):
         r = res[label] = _timed_run(card, eng, f"{arch} {label}", wave,
                                     hook if label == "preempted" else None)
         steps = r["steps"]
-        if label == "ngram k=4":
-            want = _launch_want(paged_verify=n_attn * steps)
-        else:
-            want = _launch_want(paged_attention=n_attn * steps)
+        key = ("paged_verify" if "ngram" in label else "paged_attention"
+               ) + ("_int8" if "int8" in label else "")
+        want = _launch_want(**{key: n_attn * steps})
         check(r["launches"] == want,
               f"{arch} {label}: launches {r['launches']} != {want}")
         if n_attn:
-            print(f"{arch} {label}: B{4 if label == 'ngram k=4' else 1} "
-                  f"launches {n_attn * steps} = {steps} steps x {n_attn} "
+            print(f"{arch} {label}: B{4 if 'ngram' in label else 1}"
+                  f"{'+B3' if 'int8' in label else ''} launches "
+                  f"{n_attn * steps} = {steps} steps x {n_attn} "
                   f"shared-attention layers")
         if label == "preempted":
             after = _prefill_after_resume(eng, 0)
@@ -2199,8 +2275,399 @@ def recurrent_main_phase(card, arch, kernel_rows=()):
             res["plain"]["launches"]["paged_attention"])
         by_name["paged_verify @ zamba2-2.7b"]["launches"] = (
             res["ngram k=4"]["launches"]["paged_verify"])
+        by_name["paged_attention_int8 @ zamba2-2.7b"]["launches"] = (
+            res["int8"]["launches"]["paged_attention_int8"])
+        by_name["paged_verify_int8 @ zamba2-2.7b"]["launches"] = (
+            res["int8 ngram k=4"]["launches"]["paged_verify_int8"])
     del params
     _release_card()
+
+
+# ------------------------- phase 7: the MoE family (A13), A9's training rest
+HYBRID_HD80_TINY = dict(name="hybrid-hd80-tiny", family="hybrid",
+                        num_layers=2, d_model=160, num_heads=2,
+                        num_kv_heads=2, head_dim=80, d_ff=320,
+                        vocab_size=256, ssm_type="mamba2", ssm_state_dim=16,
+                        hybrid_ssm_per_attn=1, dtype="float32", remat=False,
+                        loss_chunk=64, attn_chunk=32)
+
+
+def _paged_want(cfg, steps, spec=False, int8=False):
+    """Launches of a served config: each full / ring attention layer runs
+    its paged kernel (B1 / B2; with speculation B4 / B5; int8 pools +B3)
+    once per decode or verify step."""
+    from repro_torch.models import state_providers as SP
+    n_sb, _ = SP.superblock_layout(cfg)
+    kinds = SP.state_kinds(cfg)
+    want = {}
+    for skind, key in (("full", "paged_verify" if spec else "paged_attention"),
+                       ("ring", "paged_ring_verify" if spec
+                        else "paged_ring")):
+        if kinds.count(skind):
+            want[key + ("_int8" if int8 else "")] = (
+                n_sb * kinds.count(skind) * steps)
+    return _launch_want(**want)
+
+
+def _train_losses(cfg, params, dev, batches):
+    """Losses of 3 Adam steps (lr 3e-4, clip 1.0) from a copy of `params`
+    on `dev`, and B6's launches in them."""
+    from repro_torch import kernels
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_map
+    opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+    p = tree_map(lambda t: t.clone().to(dev), params)
+    state = {"params": p, "opt": opt.init(p)}
+    step = make_train_step(cfg, opt)
+    kernels.reset_launch_counts()
+    losses = []
+    for b in batches:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    return losses, kernels.launch_counts["flash_attention"]
+
+
+def moe_parity_phase(card):
+    """Reduced f32 configs, TF32 off, cuda against cpu from the same weights
+    (an MoE layer's capacity counts the whole padded step, so each path is
+    compared with itself on the other device, never across paths).
+    mixtral-8x7b (ring layers, window 32) and qwen3-moe-30b-a3b (full):
+    engine tokens cuda == cpu, plain, n-gram k = 4 and int8 pools, each
+    paged kernel once per layer a step; serve.generate cuda == cpu, batched
+    and loop prefill; 3 Adam steps, losses within TRAIN_PARITY_TOL a step
+    (B6 on cuda). Then reduced rwkv6-7b and zamba2-2.7b trained likewise,
+    and a tiny hybrid at hd 80 (HYBRID_HD80_TINY) served on int8 pools,
+    cuda == cpu (B1+B3 and B4+B3 at width 80)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import ModelConfig, get_config, reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import serve
+    from repro_torch.serving.engine import (Engine, EngineConfig,
+                                            KVQuantConfig, SpecConfig)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ek = dict(block_size=4, num_blocks=64, max_blocks_per_seq=12,
+              max_slots=3, prefill_chunk=8)
+    rng = np.random.default_rng(33)
+    modes = (("plain", {}), ("ngram k=4", dict(spec=SpecConfig(k=4))),
+             ("int8", dict(kv_quant=KVQuantConfig())))
+    for arch in ("mixtral-8x7b", "qwen3-moe-30b-a3b"):
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+        params = T.init_params(cfg, seed=0, device="cpu")
+        dp = {"cpu": params, "cuda": _tree_to(params, "cuda")}
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (5, 17, 9, 30)]
+        news = (8, 6, 10, 12)
+        for label, kw in modes:
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                eng = Engine(cfg, dp[dev], EngineConfig(**ek, **kw),
+                             device=dev)
+                kernels.reset_launch_counts()
+                outs[dev] = _serve(eng, prompts, news)
+                want = (_paged_want(cfg, eng.stats["decode_steps"],
+                                    spec="spec" in kw, int8="kv_quant" in kw)
+                        if dev == "cuda" else _launch_want())
+                check(kernels.launch_counts == want,
+                      f"{arch} {label} {dev}: launches "
+                      f"{kernels.launch_counts} != {want}")
+                check(eng.block_pool.num_free == ek["num_blocks"],
+                      f"{arch} {label} {dev}: blocks leaked")
+            check(outs["cuda"] == outs["cpu"],
+                  f"{arch} {label}: cuda tokens {outs['cuda']} != cpu "
+                  f"{outs['cpu']}")
+        batch = np.stack([p[:5] for p in prompts])
+        for mode in ("batched", "loop"):
+            got = {dev: serve.generate(cfg, dp[dev], batch, 8,
+                                       prefill_mode=mode).cpu().tolist()
+                   for dev in ("cpu", "cuda")}
+            check(got["cuda"] == got["cpu"],
+                  f"{arch} generate {mode}: cuda {got['cuda']} != cpu "
+                  f"{got['cpu']}")
+        print(f"parity {arch} (reduced f32, 4 experts top 2): cuda engine "
+              f"tokens == cpu, plain / n-gram k=4 / int8 pools, each paged "
+              f"kernel once per layer a step; generate cuda == cpu, batched "
+              f"and loop (tf32 off) | {card}")
+    for arch in ("mixtral-8x7b", "qwen3-moe-30b-a3b", "rwkv6-7b",
+                 "zamba2-2.7b"):
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
+                                  remat=True)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        batches = list(SyntheticLM(cfg.vocab_size, 64, seed=0).batches(2, 3))
+        (cpu, n_cpu), (cuda, n) = (_train_losses(cfg, params, dev, batches)
+                                   for dev in ("cpu", "cuda"))
+        diff = max(abs(a - b) for a, b in zip(cpu, cuda))
+        attn = arch != "rwkv6-7b"
+        check(all(map(math.isfinite, cuda)) and diff <= TRAIN_PARITY_TOL,
+              f"{arch} train parity: cuda {cuda} vs cpu {cpu} (max diff "
+              f"{diff} > {TRAIN_PARITY_TOL})")
+        check(n_cpu == 0 and (n > 0) == attn,
+              f"{arch} train parity: B6 launches cpu {n_cpu} cuda {n}")
+        print(f"train parity {cfg.name} (f32, remat, Adam, 3 steps): cuda "
+              f"losses {cuda} vs cpu {cpu}, max diff {diff:.3e} (tol "
+              f"{TRAIN_PARITY_TOL}), B6 launches {n} | {card}")
+    cfg = ModelConfig(**HYBRID_HD80_TINY)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    dp = {"cpu": params, "cuda": _tree_to(params, "cuda")}
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 14, 9)]
+    news = (8, 6, 10)
+    for label, kw in modes[:2]:
+        kw = dict(kv_quant=KVQuantConfig(), **kw)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            eng = Engine(cfg, dp[dev], EngineConfig(**ek, **kw), device=dev)
+            kernels.reset_launch_counts()
+            outs[dev] = _serve(eng, prompts, news)
+            want = (_paged_want(cfg, eng.stats["decode_steps"],
+                                spec="spec" in kw, int8=True)
+                    if dev == "cuda" else _launch_want())
+            check(kernels.launch_counts == want,
+                  f"{cfg.name} int8 {label} {dev}: launches "
+                  f"{kernels.launch_counts} != {want}")
+        check(outs["cuda"] == outs["cpu"],
+              f"{cfg.name} int8 {label}: cuda tokens {outs['cuda']} != cpu "
+              f"{outs['cpu']}")
+    print(f"parity {cfg.name} (mamba2 + shared attention at hd 80, f32, "
+          f"int8 pools): cuda engine tokens == cpu, plain (B1+B3) and n-gram "
+          f"k=4 (B4+B3) | {card}")
+
+
+MOE_LENS = (64, 128, 192, 256, 320, 384, 448, 512)
+MOE_LAYERS = {"qwen3-moe-30b-a3b": 48,     # full depth: 61.1 GB of bf16
+              "mixtral-8x7b": 16}          # of 32: all 32 are 93.4 GB
+MIXTRAL_LONG = 4200                        # passes the 4096-token window
+MOE_PROFILE_STEPS = 2
+
+
+def moe_main_phase(card, arch, kernel_rows=()):
+    """An MoE model at full width (qwen3-moe-30b-a3b: 48 layers, d 2048,
+    32/4 heads, hd 128, 128 experts top 8 of d_ff 768; mixtral-8x7b: d
+    4096, 32/8 heads, hd 128, 8 experts top 2 of d_ff 14336, sliding window
+    4096, cut to 16 of 32 layers), bf16, seeded random weights made on the
+    card, through the port's Engine: 8 requests with prompts of 64-512
+    tokens and 32 new (mixtral: plus one 4200-token prompt, which wraps
+    the ring during prefill), served plainly, with n-gram speculation (k =
+    4), on int8 pools and under oversubscription with request 0 forcibly
+    preempted after 3 decode steps. Every request finishes, logits stay
+    finite, tokens lie in the vocabulary, no block leaks, and B1 (qwen3) /
+    B2 (mixtral) runs once per layer a decode step, B4 / B5 once per layer
+    a verify step (+B3 on int8 pools). Agreement of the spec and preempted
+    tokens with the plain run's is printed, not gated: capacity follows the
+    batch shape, so even the reference does not promise it for MoE. Then
+    a profile of the plain decode window with the MoE layer's device time
+    split into the expert products and the routing, dispatch and combine.
+    `kernel_rows`: mixtral's B2 / B5 rows (bf16 and int8 pools), whose
+    launches these runs set (no run here verifies on int8 pools: B5+B3's
+    row keeps 0)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import (Engine, EngineConfig,
+                                            KVQuantConfig, OversubConfig,
+                                            SpecConfig)
+    _release_card()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS[arch])
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{arch}: weights ({cfg.param_count() / 1e9:.2f} B params = "
+          f"{2 * cfg.param_count() / 1e9:.1f} GB bf16, {cfg.num_layers} of "
+          f"{full.num_layers} layers, {cfg.num_experts} experts top "
+          f"{cfg.experts_per_token}, {cfg.active_param_count() / 1e9:.2f} B "
+          f"active a token) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; decode capacity "
+          f"{M.capacity(8, cfg)} slot(s) an expert at 8 slots")
+    rng = np.random.default_rng(61)
+    lens = MOE_LENS + ((MIXTRAL_LONG,) if arch == "mixtral-8x7b" else ())
+    # (mixtral's 9 requests share 8 slots: the last waits for a free one)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    news = [32] * len(prompts)
+    long = arch == "mixtral-8x7b"    # ring of ceil((4096 + 3) / 16) + 1 pages
+    ecfg = EngineConfig(block_size=16, num_blocks=640 if long else 320,
+                        max_blocks_per_seq=272 if long else 40, max_slots=8,
+                        prefill_chunk=512, prefills_per_step=8,
+                        step_timing=True)
+    wave = [[(p, m, 0) for p, m in zip(prompts, news)]]
+    res = {}
+    for label, e in (
+            ("plain", ecfg),
+            ("ngram k=4", dataclasses.replace(ecfg, spec=SpecConfig(k=4))),
+            ("int8", dataclasses.replace(ecfg, kv_quant=KVQuantConfig())),
+            ("preempted", dataclasses.replace(
+                ecfg, oversub=OversubConfig(ttft_slo_s=1e9,
+                                            tpot_slo_s=1e9)))):
+        eng = Engine(cfg, params, e)
+        state = {"steps": 0}
+
+        def hook(eng, state=state):
+            if eng.requests[0].state == "decoding":
+                state["steps"] += 1
+                if state["steps"] == 3:
+                    check(eng.preempt_request(0), "preempt refused")
+        r = res[label] = _timed_run(card, eng, f"{arch} {label}", wave,
+                                    hook if label == "preempted" else None)
+        want = _paged_want(cfg, r["steps"], spec="ngram" in label,
+                           int8=label == "int8")
+        check(r["launches"] == want,
+              f"{arch} {label}: launches {r['launches']} != {want}")
+        (key, n), = ((k, v) for k, v in want.items() if v)
+        print(f"{arch} {label}: {key} launches {n} = {r['steps']} steps x "
+              f"{cfg.num_layers} layers")
+        if label == "preempted":
+            check(r["resumes"] == 1, f"{arch}: resumes {r['resumes']} != 1")
+        for row in kernel_rows:
+            if row["name"] == f"{key} @ {arch}" and label != "preempted":
+                row["launches"] = n
+        del eng
+        _release_card()
+    for row in kernel_rows:
+        if row["launches"] is None:
+            row["launches"] = 0
+    for label in ("ngram k=4", "preempted"):
+        _match_share(f"{arch} {label} vs plain", res["plain"]["outs"],
+                     res[label]["outs"], against="the plain run's",
+                     why="capacity and bf16 rounding follow the step's batch "
+                         "shape")
+    fast = Engine(cfg, params, dataclasses.replace(ecfg, step_timing=False))
+    # two profiled steps: post-processing the profile of qwen3-moe's
+    # ~5,300 device ops a step is most of this phase's time
+    with _moe_spans():
+        where_time_goes(card, fast, [p[:64] for p in prompts[:8]], news[:8],
+                        warm=2, window=MOE_PROFILE_STEPS,
+                        label=f"{arch} decode")
+    del fast, params
+    _release_card()
+
+
+def _ranged(name, fn):
+    """fn run inside the profiler range `name`."""
+    from torch.profiler import record_function
+
+    def run(*a, **k):
+        with record_function(name):
+            return fn(*a, **k)
+    return run
+
+
+class _moe_spans:
+    """While active, ``moe_apply`` and its expert products run inside
+    profiler ranges "moe/apply" and "moe/experts", which where_time_goes
+    reads back (kernel time launched inside each range)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self.saved = M.moe_apply, M._experts
+        M.moe_apply = _ranged("moe/apply", M.moe_apply)
+        M._experts = _ranged("moe/experts", M._experts)
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        M.moe_apply, M._experts = self.saved
+
+
+class _train_spans(_moe_spans):
+    """_moe_spans, and while active ``load_balance_loss`` runs in the range
+    "moe/balance" and the model's checkpoint runs its function in
+    "remat/forward" on the first call and in "remat/recompute" when the
+    backward pass recomputes it (STEP_PARTS reads them back)."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import moe as M
+        from repro_torch.models import transformer as T
+        super().__enter__()
+        self.saved_train = M.load_balance_loss, T.checkpoint
+        real = T.checkpoint
+        M.load_balance_loss = _ranged("moe/balance", M.load_balance_loss)
+
+        def checkpoint(fn, *args, **kw):
+            calls = []
+
+            def run(*a, **k):
+                calls.append(1)
+                name = "remat/recompute" if len(calls) > 1 else "remat/forward"
+                with record_function(name):
+                    return fn(*a, **k)
+            return real(run, *args, **kw)
+        T.checkpoint = checkpoint
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        from repro_torch.models import transformer as T
+        M.load_balance_loss, T.checkpoint = self.saved_train
+        super().__exit__(*exc)
+
+
+STEP_PARTS = ("MoE experts forward", "MoE routing+dispatch+combine forward",
+              "MoE experts recompute",
+              "MoE routing+dispatch+combine recompute",
+              "MoE experts backward", "MoE routing+dispatch+combine backward",
+              "other forward", "other recompute", "other backward",
+              "optimizer")
+_EVAL = "autograd::engine::evaluate_function: "
+
+
+def _step_parts(events, self_time):
+    """A training step's time by part, from the profiler's host op tree
+    under _train_spans and the range "train/optimizer": `self_time(e)` of
+    every host op (the device time of the kernels it launched itself) goes
+    to the optimizer, to a recomputation (inside "remat/recompute"), to
+    the backward pass (under an autograd node: an MoE part when the node's
+    forward op, matched by thread and sequence number, ran inside
+    "moe/apply" in the forward pass) or to the forward pass; an MoE op is
+    an expert product inside "moe/experts", else routing, dispatch and
+    combine (the load-balancing loss's routing included)."""
+    host = [e for e in events
+            if not str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def chain(e):
+        out = []
+        while e is not None:
+            out.append(e)
+            e = e.cpu_parent
+        return out
+
+    def moe_kind(names):
+        return ("experts" if "moe/experts" in names else
+                "routing+dispatch+combine"
+                if names & {"moe/apply", "moe/balance"} else None)
+    fwd = {}
+    for e in host:
+        if e.sequence_nr < 0:
+            continue
+        names = {a.name for a in chain(e)}
+        kind = moe_kind(names)
+        if kind and "remat/recompute" not in names and not any(
+                n.startswith(_EVAL) for n in names):
+            fwd[(e.thread, e.sequence_nr)] = kind
+    parts = dict.fromkeys(STEP_PARTS, 0.0)
+    for e in host:
+        t = self_time(e)
+        if not t:
+            continue
+        up = chain(e)
+        names = {a.name for a in up}
+        kind = moe_kind(names)
+        if "train/optimizer" in names:
+            part = "optimizer"
+        elif "remat/recompute" in names:
+            part = f"MoE {kind} recompute" if kind else "other recompute"
+        else:
+            node = next((a for a in up if a.name.startswith(_EVAL)), None)
+            if node is not None:
+                kind = fwd.get((node.fwd_thread, node.sequence_nr))
+                part = f"MoE {kind} backward" if kind else "other backward"
+            else:
+                part = f"MoE {kind} forward" if kind else "other forward"
+        parts[part] += t
+    return parts
 
 
 # ------------------------------------------ phase 3d: flash attention (B6)
@@ -2483,24 +2950,32 @@ def train_main_phase(card, row, arch="yi-9b", layers=TRAIN_LAYERS, batch=2,
                      seq=4096, timed=3, profile=True):
     """A model at full width (yi-9b: d_model 4096, 32 heads over 4 kv heads,
     hd 128, d_ff 11008, vocab 64000, bf16; stablelm-3b: d_model 2560, 32
-    heads, hd 80, d_ff 6912, vocab 50304), cut to `layers` layers, trained
-    through the port's own entry points (trainer.init_state,
-    make_train_step -> loss_fn -> forward -> attention_train -> B6): Adam
-    with lr 3e-4 and grad clip 1.0 (the launcher's defaults), remat on,
-    batch `batch` x `seq` from SyntheticLM, 1 warm-up step and `timed`
-    timed steps. Every loss is finite and each step launches B6 exactly 2 x
-    layers times (the forward and the remat recompute). Returns the median
-    step ms."""
+    heads, hd 80, d_ff 6912, vocab 50304; qwen3-moe-30b-a3b,
+    rwkv6-7b, zamba2-2.7b), cut to `layers` layers, trained through the
+    port's own entry points (trainer.init_state, make_train_step -> loss_fn
+    -> forward -> attention_train -> B6): Adam with lr 3e-4 and grad clip
+    1.0 (the launcher's defaults), remat on, batch `batch` x `seq` from
+    SyntheticLM, 1 warm-up step and `timed` timed steps. Every loss is
+    finite and each step launches B6 exactly twice per attention layer (the
+    forward and the remat recompute; none for rwkv6). First the gradients
+    of the first batch are computed once and must all be finite. `row`
+    (B6's kernels-line row, or None) takes the launch count.
+    Returns the median step ms."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import state_providers as SP
+    from repro_torch.models import transformer as T
     from repro_torch.optim import make_optimizer
     from repro_torch.train import trainer
+    from repro_torch.tree import leaves_with_path
     tag = "train" if arch == "yi-9b" else f"train {arch}"
     _release_card()         # engines of the serving phases wait in cycles
     full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=layers)
+    n_sb, _ = SP.superblock_layout(cfg)
+    n_attn = n_sb * sum(k in T._ATTN_KINDS for k in SP.layer_kinds(cfg))
     opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
     t0 = time.perf_counter()
     state = trainer.init_state(cfg, opt, seed=0)
@@ -2514,7 +2989,16 @@ def train_main_phase(card, row, arch="yi-9b", layers=TRAIN_LAYERS, batch=2,
     batches = list(SyntheticLM(cfg.vocab_size, seq, seed=0)
                    .batches(batch, timed + 1))
     step = trainer.make_train_step(cfg, opt)
-    per_step = 2 * cfg.num_layers
+    per_step = 2 * n_attn
+    t0 = time.perf_counter()
+    _, g = trainer._grads_of(cfg, state["params"],
+                             trainer._on(batches[0], "cuda"))
+    g = leaves_with_path(g)
+    bad = [k for k, v in g if not bool(torch.isfinite(v).all())]
+    check(not bad, f"{tag}: non-finite gradients in {bad}")
+    print(f"{tag}: all {len(g)} gradient leaves finite (one extra forward "
+          f"and backward, {time.perf_counter() - t0:.1f} s)")
+    del g
     kernels.reset_launch_counts()
     times, losses = [], []
     for i, b in enumerate(batches):
@@ -2540,13 +3024,18 @@ def train_main_phase(card, row, arch="yi-9b", layers=TRAIN_LAYERS, batch=2,
     launches = kernels.launch_counts["flash_attention"]
     check(launches == per_step * len(batches),
           f"{tag}: B6 launches {launches} != {per_step * len(batches)}")
-    row["launches"] = launches
+    if row is not None:
+        row["launches"] = launches
     print(f"{tag}: {timed} timed steps, median {np.median(times) * 1e3:.1f} "
           f"ms = {batch * seq / np.median(times):.0f} tokens/s; losses "
           f"{losses}; B6 launches {launches} = {per_step} x {len(batches)} "
           f"steps | {card}")
     if profile:
-        train_profile(card, step, state, batches[-1])
+        # the same step with its optimizer in a profiler range
+        ranged = dataclasses.replace(
+            opt, update=_ranged("train/optimizer", opt.update))
+        train_profile(card, trainer.make_train_step(cfg, ranged), state,
+                      batches[-1], label=tag, parts=bool(cfg.num_experts))
     del state
     _release_card()
     return float(np.median(times)) * 1e3
@@ -2556,14 +3045,19 @@ TRAIN_KINDS = ("B6 flash_attention forward", "B9 quantize_rows (int8)",
                "matmul (cuBLAS)", "other kernels and copies")
 
 
-def train_profile(card, step, state, batch, label="train"):
+def train_profile(card, step, state, batch, label="train", parts=False):
     """Device kernel time by kind over one more training step, from
-    torch.profiler; busy share = kernel time / the step's wall time."""
+    torch.profiler; busy share = kernel time / the step's wall time. With
+    `parts` (a step whose optimizer runs in "train/optimizer") the step
+    runs under _train_spans and its device time is also split by
+    STEP_PARTS."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with (_train_spans() if parts else contextlib.nullcontext()), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, metrics = step(state, batch)
         float(metrics["loss"])
@@ -2575,12 +3069,22 @@ def train_profile(card, step, state, batch, label="train"):
                 or getattr(e, "self_cuda_time_total", 0) or 0)
     kern = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and device_us(e) > 0]
+            and device_us(e) > 0
+            and not e.key.startswith(("moe/", "remat/", "train/"))]
     busy_ms = sum(device_us(e) for e in kern) / 1e3
     if busy_ms == 0:
         print(f"{label} profile: no device time recorded — not measured | "
               f"{card}")
         return
+    if parts:
+        split = _step_parts(prof.events(), lambda e: sum(
+            k.duration for k in e.kernels) / 1e3)
+        total = sum(split.values())
+        print(f"{label} profile: device time by part of the step (host op "
+              f"tree; {total:.2f} ms of the {busy_ms:.2f} ms busy "
+              f"attributed): " + "; ".join(
+                  f"{k} {v:.2f} ms ({v / busy_ms:.1%})"
+                  for k, v in split.items()) + f" | {card}")
     by_kind = dict.fromkeys(TRAIN_KINDS, 0.0)
     for e in kern:
         name = e.key.lower()
@@ -2949,7 +3453,7 @@ def _device_kind(key: str) -> str:
     return DEVICE_KINDS[6]
 
 
-def where_time_goes(card, eng, prompts, news, warm=3, window=8,
+def where_time_goes(card, eng, prompts, news, warm=3, window=4,
                     label="mixed"):
     """Device kernel time by kind over `window` engine steps of the given
     requests (prefills and decodes as the scheduler interleaves them),
@@ -2981,13 +3485,18 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8,
     # device-side events, less the engine's own record_function spans
     # ("engine/decode", ...), which the profiler mirrors onto the device
     # timeline as annotations
-    kern = [e for e in prof.key_averages()
+    # (aggregated once: the profiler's post-processing of a window is
+    # most of this function's time)
+    averages = prof.key_averages()
+    kern = [e for e in averages
             if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and device_us(e) > 0 and not e.key.startswith("engine/")]
+            and device_us(e) > 0
+            and not e.key.startswith(("engine/", "moe/"))]
     busy_ms = sum(device_us(e) for e in kern) / 1e3
     if busy_ms == 0:
         print(f"profile: no device time recorded — not measured | {card}")
         return
+    _print_moe_split(averages, busy_ms, wall_ms, window)
     by_kind = dict.fromkeys(DEVICE_KINDS, 0.0)
     for e in kern:
         by_kind[_device_kind(e.key)] += device_us(e) / 1e3
@@ -3007,13 +3516,35 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=8,
         f"{e.key[:60]} {device_us(e) / 1e3:.2f} ms x{e.count}" for e in top))
     # where the host's time goes (self time of host-side ops and CUDA
     # runtime calls, profiler overhead included)
-    host = [e for e in prof.key_averages()
+    host = [e for e in averages
             if not str(getattr(e, "device_type", "")).endswith("CUDA")
-            and not e.key.startswith("engine/")]
+            and not e.key.startswith(("engine/", "moe/"))]
     host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
     print("profile: top host self time: " + "; ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
         for e in host[:10]))
+
+
+def _print_moe_split(averages, busy_ms, wall_ms, window):
+    """With _moe_spans active: the device time of the kernels launched
+    inside the host ranges "moe/apply" and "moe/experts" (the profiler's
+    total device time of a range's ops), as shares of the busy time."""
+    spans = {}
+    for e in averages:
+        if (e.key in ("moe/apply", "moe/experts") and not
+                str(getattr(e, "device_type", "")).endswith("CUDA")):
+            us = (getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0) or 0)
+            spans[e.key] = spans.get(e.key, 0.0) + us / 1e3
+    if not spans:
+        return
+    moe, experts = spans.get("moe/apply", 0.0), spans.get("moe/experts", 0.0)
+    print(f"profile: MoE layers {moe:.2f} ms of device time "
+          f"({moe / busy_ms:.1%} of busy, {moe / window:.2f} ms a step): "
+          f"expert products (bmm, silu) {experts:.2f} ms "
+          f"({experts / busy_ms:.1%}), routing + dispatch + combine "
+          f"{moe - experts:.2f} ms ({(moe - experts) / busy_ms:.1%}); wall "
+          f"{wall_ms:.2f} ms")
 
 
 # ------------------------------------------------------ phase 3f: kernel B7
@@ -3407,7 +3938,14 @@ def main() -> int:
         print(f"device: {name} x{torch.cuda.device_count()} | {card} | torch "
               f"{torch.__version__} cuda {torch.version.cuda}")
 
+        laps = [time.perf_counter()]
+
+        def lap(name):
+            now = time.perf_counter()
+            print(f"time: {name} {now - laps[0]:.1f} s")
+            laps[0] = now
         build_phase()
+        lap("build")
         rows = ([kernel_phase(card)] + multi_kernel_phase(card)
                 + int8_kernel_phase(card))
         flash_row, hd80_row = flash_kernel_phase(card)
@@ -3415,27 +3953,48 @@ def main() -> int:
         rows += quantize_kernel_phase(card)
         rows += matmul_kernel_phase(card)
         zamba2_rows = zamba2_kernel_phase(card)
-        rows += zamba2_rows
+        mixtral_rows = mixtral_kernel_phase(card)
+        rows += zamba2_rows + mixtral_rows
+        lap("kernels")
         parity_phase(card)
         ring_spec_parity_phase(card)
         int8_parity_phase(card)
         train_parity_phase(card)
         paper_parity_phase(card)
         serve_parity_phase(card)
+        lap("parity (slices 1-10)")
+        moe_parity_phase(card)
+        lap("parity (MoE, recurrent training)")
         yi = main_path_phase(card, rows[0])
         yi9b_int8_phase(card, rows, *yi)
         yi9b_serve_phase(card, *yi[:4])
         del yi
         f32_width_phase(card)
+        lap("yi-9b serving")
         gemma3_main_phase(card, rows)
+        lap("gemma3-12b serving")
         recurrent_main_phase(card, "rwkv6-7b")
+        lap("rwkv6-7b serving")
         recurrent_main_phase(card, "zamba2-2.7b", zamba2_rows)
+        lap("zamba2-2.7b serving")
         plain_ms = train_main_phase(card, flash_row)
         paper_main_phase(card, rows, plain_ms)
         train_main_phase(card, hd80_row, arch="stablelm-3b",
                          layers=STABLELM_LAYERS, batch=1, seq=2048, timed=2,
                          profile=False)
         conv_phase(card, rows)
+        lap("yi-9b / stablelm-3b training, convolutions")
+        moe_main_phase(card, "qwen3-moe-30b-a3b")
+        lap("qwen3-moe-30b-a3b serving")
+        moe_main_phase(card, "mixtral-8x7b", mixtral_rows)
+        lap("mixtral-8x7b serving")
+        for arch, layers, seq in (("qwen3-moe-30b-a3b", 2, 4096),
+                                  ("rwkv6-7b", 2, 2048),
+                                  ("zamba2-2.7b", 6, 2048)):
+            train_main_phase(card, None, arch=arch, layers=layers, batch=1,
+                             seq=seq, timed=2,
+                             profile=arch == "qwen3-moe-30b-a3b")
+            lap(f"{arch} training")
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()

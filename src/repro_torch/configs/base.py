@@ -57,13 +57,9 @@ class ModelConfig:
         return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
 
     def param_count(self) -> int:
-        """Analytical parameter count (embedding + blocks + head) of the
-        dense, recurrent (ssm) and hybrid families; MoE comes with its
-        slice of the port (ROADMAP A13)."""
-        if self.num_experts:
-            raise NotImplementedError(
-                "param_count for the moe family comes with its slice of the "
-                "port (ROADMAP A13)")
+        """Analytical parameter count (embedding + blocks + head); an MoE
+        layer holds E experts' SwiGLU and the (d, E) router in place of the
+        dense MLP."""
         d, hd = self.d_model, self.resolved_head_dim
         attn = d * self.num_heads * hd * 2 + d * self.num_kv_heads * hd * 2
         mlp_dense = 3 * d * self.d_ff  # SwiGLU: gate+in+out
@@ -76,6 +72,9 @@ class ModelConfig:
             n += nb * self.hybrid_ssm_per_attn * (self._mamba_params()
                                                   + mlp_dense)
             n += attn + mlp_dense  # shared attention block (stored once)
+        elif self.num_experts:
+            n += self.num_layers * (attn + self.num_experts * mlp_dense
+                                    + d * self.num_experts)
         else:
             n += self.num_layers * (attn + mlp_dense)
         n += self.num_layers * 2 * d  # norms
@@ -83,6 +82,15 @@ class ModelConfig:
         if not self.tie_embeddings:
             n += self.vocab_size * d  # head
         return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: all of them, less the experts
+        it is not routed to (top-k of E per MoE layer)."""
+        if not self.num_experts:
+            return self.param_count()
+        unused = self.num_experts - self.experts_per_token
+        return (self.param_count()
+                - self.num_layers * unused * 3 * self.d_model * self.d_ff)
 
     def _mamba_params(self) -> int:
         d = self.d_model
@@ -93,8 +101,8 @@ class ModelConfig:
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
-ARCH_MODULES = ["gemma3_12b", "rwkv6_7b", "stablelm_3b", "yi_9b",
-                "zamba2_2_7b"]
+ARCH_MODULES = ["gemma3_12b", "mixtral_8x7b", "qwen3_moe_30b_a3b",
+                "rwkv6_7b", "stablelm_3b", "yi_9b", "zamba2_2_7b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -15,6 +15,13 @@ inside the chunk, the states ``S`` are float32, and the token-shift and
 convolution carries (``prev``, ``prev_cm``, ``conv``) keep the config's
 dtype.
 
+When autograd records a graph through it, each chunk runs under a
+non-reentrant checkpoint (the reference's ``jax.checkpoint`` on its chunk
+step), so training keeps one chunk's (C, C) intermediates at a time;
+serving runs the chunks plainly. Mamba2's chunk masks inside the
+exponent, where the reference masks after it and its gradients are not
+finite (``_ssd_chunk``).
+
 Parameter initialisers live with the parameter specs in
 ``models.transformer`` (``param_specs``).
 """
@@ -22,6 +29,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 
@@ -30,6 +38,17 @@ CHUNK = 32  # within-chunk dense block length
 # max total log-decay magnitude per chunk in the factorised form (exp(40)
 # ≈ 2.4e17 stays finite in f32 after one multiply)
 _MAX_CHUNK_LOGDECAY = 40.0
+
+
+def _run_chunk(fn, *args):
+    """fn(*args), under a non-reentrant checkpoint when autograd records a
+    graph through it (the reference's ``jax.checkpoint`` on each chunk: a
+    chunk's (C, C) intermediates are recomputed in the backward pass
+    instead of kept for every chunk of the sequence). Serving passes no
+    tensor that requires grad and runs `fn` plainly."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _strict_lower(C, device):
@@ -106,7 +125,7 @@ def rwkv6_mix(params, x, cfg, state=None):
     ys = []
     for c0 in range(0, S, C):
         sl = slice(c0, c0 + C)
-        y, Sc = _wkv_chunk(r[:, :, sl], k[:, :, sl], v[:, :, sl],
+        y, Sc = _run_chunk(_wkv_chunk, r[:, :, sl], k[:, :, sl], v[:, :, sl],
                            logw[:, :, sl], u, Sc)
         ys.append(y)
     y = torch.cat(ys, dim=2).transpose(1, 2)         # (B, S, H, hd) f32
@@ -179,18 +198,34 @@ def _ssd_chunk(xh, Bm, Cm, la, dtv, S0):
 
     xh: (..., C, hd) inputs; Bm, Cm: (..., C, ds); la: (..., C) cumulative
     log-decay within the chunk; dtv: (..., C) step sizes; S0: (..., hd,
-    ds). Returns (y (..., C, hd), S1 (..., hd, ds))."""
+    ds). Returns (y (..., C, hd), S1 (..., hd, ds)).
+
+    The causal mask sits inside the exponent, G = exp(where(tri, la_t -
+    la_i, -inf)): above the diagonal la_t - la_i is a sum of positive
+    increments that overflows exp to inf, and masking after the exp (as
+    the reference does) keeps the forward finite but makes the backward
+    0 * inf = NaN. exp(-inf) is exactly 0, so the forward values are the
+    same bit for bit."""
     Cl = xh.shape[-2]
-    G = torch.exp(la[..., :, None] - la[..., None, :])        # decay i -> t
     tri = torch.tril(torch.ones((Cl, Cl), dtype=torch.bool,
                                 device=xh.device))
-    M = (Cm @ Bm.transpose(-1, -2)) * torch.where(tri, G, 0.0) \
-        * dtv[..., None, :]
+    G = torch.exp(torch.where(tri, la[..., :, None] - la[..., None, :],
+                              float("-inf")))                 # decay i -> t
+    M = (Cm @ Bm.transpose(-1, -2)) * G * dtv[..., None, :]
     y = M @ xh + torch.exp(la)[..., None] * (Cm @ S0.transpose(-1, -2))
     w_end = torch.exp(la[..., -1:] - la) * dtv                # (..., C)
     S1 = (torch.exp(la[..., -1])[..., None, None] * S0
           + (xh * w_end[..., None]).transpose(-1, -2) @ Bm)
     return y, S1
+
+
+def _ssd_step(xh, Bm, Cm, log_a, dtv, S0):
+    """One chunk of the SSD scan from the sequence layout: xh (B,C,H,hd);
+    Bm, Cm (B,C,ds), shared by the heads; log_a, dtv (B,C,H); S0
+    (B,H,hd,ds). Returns (y (B,H,C,hd), S1)."""
+    la = torch.cumsum(log_a, dim=1).transpose(1, 2)              # (B,H,C)
+    return _ssd_chunk(xh.transpose(1, 2), Bm[:, None], Cm[:, None], la,
+                      dtv.transpose(1, 2), S0)
 
 
 def mamba2_mix(params, x, cfg, state=None):
@@ -225,10 +260,8 @@ def mamba2_mix(params, x, cfg, state=None):
     ys = []
     for c0 in range(0, S, C):
         sl = slice(c0, c0 + C)
-        la = torch.cumsum(log_a[:, sl], dim=1).transpose(1, 2)   # (B,H,C)
-        y, Sc = _ssd_chunk(xh[:, sl].transpose(1, 2),            # (B,H,C,hd)
-                           Bm[:, None, sl], Cm[:, None, sl],     # shared by
-                           la, dtv[:, sl].transpose(1, 2), Sc)   # the heads
+        y, Sc = _run_chunk(_ssd_step, xh[:, sl], Bm[:, sl], Cm[:, sl],
+                           log_a[:, sl], dtv[:, sl], Sc)
         ys.append(y)
     y = torch.cat(ys, dim=2).transpose(1, 2)                  # (B,S,H,hd)
     y = y + params["D"][None, None, :, None] * xh

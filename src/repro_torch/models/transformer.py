@@ -11,7 +11,7 @@ are stacked on a leading superblock axis (n_sb, ...), so the JAX
 
   family                superblock
   ------                ----------
-  dense                 1 layer (attn + mlp)
+  dense/moe             1 layer (attn + mlp|moe)
   local_global (gemma3) ratio local layers + 1 global layer
   ssm (rwkv6)           time-mix + channel-mix
   hybrid (zamba2)       N mamba2 layers + 1 *shared-weight* attention layer
@@ -29,11 +29,9 @@ Entry points:
   paged_prefill_packed(cfg, params, pool, tokens, tables, starts, valids, slots)
   paged_prefill_step(cfg, params, pool, tokens, table_row, start, valid_len, slot)
 
-Serving covers the dense, local-global, recurrent (rwkv6) and hybrid
-(zamba2) families; each layer dispatches on its state kind. Training
-(``forward``, ``loss_fn``) covers the attention families; the recurrent and
-hybrid train layers raise ``NotImplementedError`` (ROADMAP A9's training
-rest), and MoE raises everywhere (ROADMAP A13).
+Serving and training cover the dense, MoE (mixtral, qwen3-moe),
+local-global, recurrent (rwkv6) and hybrid (zamba2) families; each serving
+layer dispatches on its state kind. M-RoPE raises (ROADMAP A17).
 """
 from __future__ import annotations
 
@@ -44,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import state_providers as SP
 
@@ -51,17 +50,12 @@ superblock_layout = SP.superblock_layout
 _layer_kinds = SP.layer_kinds
 
 
-_ATTN_KINDS = ("attn", "local", "global", "shared_attn")
+_ATTN_KINDS = ("attn", "local", "global", "moe_attn", "shared_attn")
 _RECURRENT_KINDS = ("rwkv", "mamba")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config outside the port's slices so far."""
-    kinds = _layer_kinds(cfg)
-    if any(k not in _ATTN_KINDS + _RECURRENT_KINDS for k in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {kinds} (MoE) come with the MoE slice "
-            f"of the port (ROADMAP A13)")
     if cfg.rope_mode not in ("standard", "none"):
         raise NotImplementedError(
             f"{cfg.name}: rope_mode {cfg.rope_mode!r} comes in a later slice "
@@ -69,22 +63,26 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------------------------------------------ param init
-def _attn_layer_spec(cfg, lead):
-    """One attention layer's weights (attention, two norms, SwiGLU), with
-    the stack axes `lead` ((n_sb,) for per-superblock layers, () for the
-    hybrid's shared block)."""
+def _attn_layer_spec(cfg, lead, moe=False):
+    """One attention layer's weights (attention, two norms, SwiGLU or, with
+    `moe`, the experts), with the stack axes `lead` ((n_sb,) for
+    per-superblock layers, () for the hybrid's shared block)."""
     d = cfg.d_model
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt, f32 = L.dtype_of(cfg), torch.float32
-    return {
+    spec = {
         "ln1": {"scale": (lead + (d,), f32, "ones")},
         "attn": {"wq": (lead + (d, h * hd), dt, "dense"),
                  "wk": (lead + (d, hkv * hd), dt, "dense"),
                  "wv": (lead + (d, hkv * hd), dt, "dense"),
                  "wo": (lead + (h * hd, d), dt, "dense")},
         "ln2": {"scale": (lead + (d,), f32, "ones")},
-        "mlp": _swiglu_spec(cfg, lead),
     }
+    if moe:
+        spec["moe"] = _moe_spec(cfg, lead)
+    else:
+        spec["mlp"] = _swiglu_spec(cfg, lead)
+    return spec
 
 
 def _swiglu_spec(cfg, lead):
@@ -92,6 +90,18 @@ def _swiglu_spec(cfg, lead):
     return {"w_gate": (lead + (d, f), dt, "dense"),
             "w_in": (lead + (d, f), dt, "dense"),
             "w_out": (lead + (f, d), dt, "dense")}
+
+
+def _moe_spec(cfg, lead):
+    """The reference's ``init_moe``: the (d, E) f32 router at 1/√d, and the
+    (E, d, f) / (E, f, d) experts at 1/√E — the reference's ``dense_init``
+    takes fan_in = shape[0], which for a stacked expert leaf is E."""
+    d, f, e, dt = cfg.d_model, cfg.d_ff, cfg.num_experts, L.dtype_of(cfg)
+    expert = ("dense", 1.0 / np.sqrt(e))
+    return {"router": (lead + (d, e), torch.float32, "dense"),
+            "w_gate": (lead + (e, d, f), dt, expert),
+            "w_in": (lead + (e, d, f), dt, expert),
+            "w_out": (lead + (e, f, d), dt, expert)}
 
 
 def _rwkv_spec(cfg, lead):
@@ -142,8 +152,8 @@ def _layer_spec(kind, cfg, lead):
 
     def norm():
         return {"scale": (lead + (d,), f32, "ones")}
-    if kind in ("attn", "local", "global"):
-        return _attn_layer_spec(cfg, lead)
+    if kind in ("attn", "local", "global", "moe_attn"):
+        return _attn_layer_spec(cfg, lead, moe=kind == "moe_attn")
     if kind == "rwkv":
         return {"ln1": norm(), "rwkv": _rwkv_spec(cfg, lead), "ln2": norm()}
     if kind == "mamba":
@@ -251,22 +261,29 @@ def _window(kind, cfg):
 
 # -------------------------------------------------------------------- forward
 def _apply_layer_train(kind, lp, x, positions, cfg):
-    """One layer over a full sequence: x + attention, then x + MLP.
-    Returns (x, aux loss)."""
-    if kind == "moe_attn":
-        raise NotImplementedError(
-            "layer kind 'moe_attn' (MoE) comes with the MoE slice of the port "
-            "(ROADMAP A13)")
-    if kind not in ("attn", "local", "global"):
-        raise NotImplementedError(
-            f"training through layer kind {kind!r} (recurrent / hybrid) "
-            f"comes with the rest of ROADMAP A9; the port serves these "
-            f"kinds but does not train them yet")
-    window = _window(kind, cfg)
+    """One layer over a full sequence. Attention kinds: x + attention, then
+    x + MLP or MoE (whose load-balancing loss is the aux); rwkv: x + time
+    mix, then x + channel mix; mamba: x + Mamba2 mix, then x + MLP. For
+    ``shared_attn`` `lp` is the hybrid's shared block. Returns (x, aux
+    loss)."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    x = x + A.attention_train(lp["attn"], h, positions, cfg, window=window)
-    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + L.swiglu(lp["mlp"], h), 0.0
+    if kind in _ATTN_KINDS:
+        x = x + A.attention_train(lp["attn"], h, positions, cfg,
+                                  window=_window(kind, cfg))
+        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        if "moe" in lp:
+            return (x + M.moe_apply(lp["moe"], h, cfg),
+                    M.load_balance_loss(lp["moe"], h, cfg))
+        return x + L.swiglu(lp["mlp"], h), 0.0
+    if kind == "rwkv":
+        x = x + S.rwkv6_mix(lp["rwkv"], h, cfg)[0]
+        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        return x + S.rwkv6_channel_mix(lp["rwkv"], h, cfg)[0], 0.0
+    if kind == "mamba":
+        x = x + S.mamba2_mix(lp["mamba"], h, cfg)[0]
+        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        return x + L.swiglu(lp["mlp"], h), 0.0
+    raise ValueError(kind)
 
 
 def _checkpointed(fn):
@@ -284,7 +301,9 @@ def forward(cfg: ModelConfig, params, inputs):
     has more than one layer each layer is checkpointed again inside it, so
     the superblock's backward holds one layer's intermediates at a time.
     Gradients reach the stacked (n_sb, ...) weights through the superblock
-    views (``_at``)."""
+    views (``_at``), and the hybrid's shared block gathers its gradient from
+    every superblock. The aux is the sum of the MoE layers' load-balancing
+    losses (0 without MoE)."""
     if "embeds" in inputs:
         x = inputs["embeds"].to(L.dtype_of(cfg))
     else:
@@ -294,6 +313,7 @@ def forward(cfg: ModelConfig, params, inputs):
     if positions is None:
         positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
     kinds = _layer_kinds(cfg)
+    shared = params.get("shared_attn")
     layer_fn = _apply_layer_train
     if cfg.remat and len(kinds) > 1:
         layer_fn = _checkpointed(_apply_layer_train)
@@ -301,7 +321,8 @@ def forward(cfg: ModelConfig, params, inputs):
     def sb_fn(x, sb_params):
         aux = 0.0
         for i, kind in enumerate(kinds):
-            x, a = layer_fn(kind, sb_params[f"l{i}"], x, positions, cfg)
+            lp = shared if kind == "shared_attn" else sb_params[f"l{i}"]
+            x, a = layer_fn(kind, lp, x, positions, cfg)
             aux = aux + a
         return x, aux
 
@@ -504,9 +525,14 @@ def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int, *,
 
 
 def _attn_block(p, h_in, attn_out, cfg):
-    """Residual + MLP tail shared by every attention-layer dispatch."""
+    """Residual + MLP or MoE tail shared by every attention-layer dispatch
+    of the serving steps. The MoE sees the step's whole padded batch
+    (inactive slots, padding rows and segments included), as the
+    reference's does: its capacity counts them."""
     x = h_in + attn_out
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if "moe" in p:
+        return x + M.moe_apply(p["moe"], h, cfg)
     return x + L.swiglu(p["mlp"], h)
 
 

@@ -63,8 +63,9 @@ instead.
 Temperature requests (``add_request(temperature=...)``) sample on the host
 with Gumbel-max noise from the request's own CPU ``torch.Generator``
 (``serve.sample``), so their streams survive preemption; under speculation
-they run unspeculated (one token a verify step). MoE configs come with
-ROADMAP A13.
+they run unspeculated (one token a verify step). MoE configs
+(mixtral-8x7b, qwen3-moe-30b-a3b) are served like the dense ones: their
+MoE layers see each step's whole padded batch, as the reference's do.
 """
 from __future__ import annotations
 

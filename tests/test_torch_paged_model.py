@@ -245,15 +245,19 @@ def test_init_params_matches_specs_and_seed(model):
 
 
 def test_unsupported_families_raise():
-    """MoE and mrope still raise; the recurrent (ssm) and hybrid families
-    build per-slot slabs beside the paged pools (and need max_slots)."""
+    """mrope still raises (ROADMAP A17); MoE builds the paged pools of its
+    attention; the recurrent (ssm) and hybrid families build per-slot slabs
+    beside the paged pools (and need max_slots)."""
     import dataclasses
     base = ModelConfig(**CFG_KW)
-    for kw in (dict(num_experts=4, experts_per_token=2),
-               dict(rope_mode="mrope")):
-        with pytest.raises(NotImplementedError):
-            TT.init_paged_state(dataclasses.replace(base, **kw), 4, 4,
-                                device="cpu")
+    with pytest.raises(NotImplementedError, match="A17"):
+        TT.init_paged_state(dataclasses.replace(base, rope_mode="mrope"), 4,
+                            4, device="cpu")
+    moe = dataclasses.replace(base, family="moe", num_experts=4,
+                              experts_per_token=2)
+    pool = TT.init_paged_state(moe, 4, 4, device="cpu")
+    assert {k: tuple(a.shape) for k, a in pool["l0"].items()} == {
+        "k": (2, 5, 4, 2, 16), "v": (2, 5, 4, 2, 16)}
     ssm = dataclasses.replace(base, family="ssm", ssm_type="rwkv6")
     hybrid = dataclasses.replace(base, family="hybrid", ssm_type="mamba2",
                                  hybrid_ssm_per_attn=1, ssm_state_dim=8)

@@ -162,14 +162,33 @@ def test_loss_refuses_a_length_the_chunk_does_not_divide():
         T.loss_fn(tc, tp, _tb(_batch(tc, 1, 96)))
 
 
+_KIND_ARCH = {"moe_attn": "qwen3-moe-30b-a3b", "rwkv": "rwkv6-7b",
+              "mamba": "zamba2-2.7b", "shared_attn": "zamba2-2.7b"}
+
+
 @pytest.mark.parametrize("kind,item", [("moe_attn", "A13"), ("rwkv", "A9"),
                                        ("mamba", "A9"),
                                        ("shared_attn", "A9")])
 def test_unported_layer_kinds_raise(kind, item):
-    _, tc, _, tp = _setup("yi-9b")
-    x = torch.zeros(1, 4, tc.d_model)
-    with pytest.raises(NotImplementedError, match=item):
-        T._apply_layer_train(kind, {}, x, torch.zeros(1, 4), tc)
+    """The layer kinds that ROADMAP `item` brought to training (they raised
+    before it): each kind's train layer returns a finite x of the input's
+    shape and a finite aux (the load-balancing loss, > 0, for MoE; 0
+    otherwise). Parity with the reference: test_torch_moe_model.py and
+    test_torch_recurrent_train.py."""
+    arch = _KIND_ARCH[kind]
+    tc = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    params = T.init_params(tc, seed=0, device="cpu")
+    i = T._layer_kinds(tc).index(kind)
+    lp = (params["shared_attn"] if kind == "shared_attn"
+          else T._at(params["blocks"], 0)[f"l{i}"])
+    x = torch.randn(1, 32, tc.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    y, aux = T._apply_layer_train(kind, lp, x, torch.arange(32)[None], tc)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all()), item
+    assert not torch.equal(y, x)
+    aux = torch.as_tensor(aux)
+    assert bool(torch.isfinite(aux))
+    assert (float(aux) > 0) == (kind == "moe_attn")
 
 
 # ------------------------------------------------------------ train steps
