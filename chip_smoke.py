@@ -164,6 +164,28 @@ Phases, in order; any failure exits non-zero before the final ok line:
      (every training main path, yi-9b and stablelm-3b too, checks its
      gradients once before its timed steps).
 
+  8. the last configs (A17). Kernels: B1 and B4 (k = 4) at
+     musicgen-medium's layout (24/24 heads, hd 64: MHA), bf16 and int8
+     pools, against the plain version (also by row error) and timed
+     beside SDPA and the bound (the four rows join the kernels line), and
+     untimed at qwen2-vl-2b's (12/2, hd 128) and phi4-mini-3.8b's (24/8,
+     hd 128) layouts. Parity (f32, TF32 off): reduced qwen2-vl-2b,
+     musicgen-medium and phi4-mini-3.8b engine tokens cuda == cpu, plain,
+     n-gram k = 4 and int8 pools; qwen2-vl-2b at full width cut to 2
+     layers, engine tokens cuda == cpu, and 2 Adam steps on stub
+     embeddings with distinct t / h / w M-RoPE streams (a 1 x 8 x 8 patch
+     grid, then text), the first with accum_steps = 2: losses within 1e-4.
+     Full width: qwen2-vl-2b at full depth (28 layers) served plainly, with
+     n-gram spec, on int8 pools and with a forced preemption, with a
+     decode profile, and trained (1 x 4096 stub embeddings with a 32 x 32
+     patch grid, Adam, remat); musicgen-medium at full depth (48 layers)
+     served plainly and with n-gram spec and trained (1 x 2048 stub
+     embeddings); phi4-mini-3.8b served plainly at full depth (32 layers)
+     and trained at 4 of 32 layers (1 x 4096). Gates as in 7: finite
+     logits, tokens in the vocabulary, no leaked block, B1 / B4 / B1+B3
+     once per layer a step, B6 twice per layer a step, every gradient
+     leaf finite.
+
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -1658,14 +1680,16 @@ MIXTRAL_WINDOW = 4096
 MIXTRAL_LENS = (4, 512, 2048, 4095, 4096, 4129, 4232, 12295)
 
 
-def _layout_rows(card, shape, layout, window, lens, seed, replaces):
+def _layout_rows(card, shape, layout, window, lens, seed, replaces,
+                 timed=True):
     """One-query decode (B1, or B2 on a ring of `window`) and the k = 4
     verify (B4, or B5) at one model's head layout, bf16 and int8 pools,
     held against the plain version (f32 2e-5, bf16 2e-2 by max_abs_err,
-    and DECODE_ROW_TOL by row error when timed), then timed beside SDPA
+    and DECODE_ROW_TOL by row error), then, if `timed`, timed beside SDPA
     and the bound: B = 8 slots, block 16, the given lengths. Returns the
     four rows (bf16 decode, verify; int8 decode, verify) keyed by launch
-    count key; the int8 rows are variants of the bf16 ones."""
+    count key (none untimed); the int8 rows are variants of the bf16
+    ones."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_ref, paged_attention_verify,
@@ -1701,6 +1725,16 @@ def _layout_rows(card, shape, layout, window, lens, seed, replaces):
                       f"{key} @ {shape} {dt} int8={quant}: max_abs_err "
                       f"{errs[dt]} > {tol[dt]}")
             k = key + "_int8" if quant else key
+            if not timed:
+                row_err = _row_error(out, ref)
+                check(row_err <= DECODE_ROW_TOL,
+                      f"{k} @ {shape} bf16: row error {row_err} > "
+                      f"{DECODE_ROW_TOL}")
+                print(f"{k} @ {shape} (H {H}, Hkv {Hkv}, hd {hd}): "
+                      f"max_abs_err f32 {errs[torch.float32]:.3e} bf16 "
+                      f"{errs[torch.bfloat16]:.3e}, bf16 row error "
+                      f"{row_err:.3e}")
+                continue
             rows[k] = _time_multi(card, k, n_q, args, kw, errs, window,
                                   shape=shape, row_name=f"{k} @ {shape}",
                                   row_replaces=None if quant
@@ -2328,6 +2362,33 @@ def _train_losses(cfg, params, dev, batches):
     return losses, kernels.launch_counts["flash_attention"]
 
 
+def _engine_parity(cfg, dp, modes, ek, prompts, news):
+    """Each of `modes` ((label, EngineConfig keywords)) served on cpu and
+    on cuda from the same weights (`dp`: {device: params}), staggered:
+    tokens equal, each paged kernel once per layer a step on cuda and none
+    on cpu, no block leaked."""
+    from repro_torch import kernels
+    from repro_torch.serving.engine import Engine, EngineConfig
+    for label, kw in modes:
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            eng = Engine(cfg, dp[dev], EngineConfig(**ek, **kw), device=dev)
+            kernels.reset_launch_counts()
+            outs[dev] = _serve(eng, prompts, news)
+            want = (_paged_want(cfg, eng.stats["decode_steps"],
+                                spec="spec" in kw, int8="kv_quant" in kw)
+                    if dev == "cuda" else _launch_want())
+            check(kernels.launch_counts == want,
+                  f"{cfg.name} {label} {dev}: launches "
+                  f"{kernels.launch_counts} != {want}")
+            check(eng.block_pool.num_free == ek["num_blocks"],
+                  f"{cfg.name} {label} {dev}: blocks leaked")
+            del eng
+        check(outs["cuda"] == outs["cpu"],
+              f"{cfg.name} {label}: cuda tokens {outs['cuda']} != cpu "
+              f"{outs['cpu']}")
+
+
 def moe_parity_phase(card):
     """Reduced f32 configs, TF32 off, cuda against cpu from the same weights
     (an MoE layer's capacity counts the whole padded step, so each path is
@@ -2340,13 +2401,11 @@ def moe_parity_phase(card):
     and a tiny hybrid at hd 80 (HYBRID_HD80_TINY) served on int8 pools,
     cuda == cpu (B1+B3 and B4+B3 at width 80)."""
     import torch
-    from repro_torch import kernels
     from repro_torch.configs import ModelConfig, get_config, reduced
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import transformer as T
     from repro_torch.serving import serve
-    from repro_torch.serving.engine import (Engine, EngineConfig,
-                                            KVQuantConfig, SpecConfig)
+    from repro_torch.serving.engine import KVQuantConfig, SpecConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ek = dict(block_size=4, num_blocks=64, max_blocks_per_seq=12,
@@ -2361,24 +2420,7 @@ def moe_parity_phase(card):
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in (5, 17, 9, 30)]
         news = (8, 6, 10, 12)
-        for label, kw in modes:
-            outs = {}
-            for dev in ("cpu", "cuda"):
-                eng = Engine(cfg, dp[dev], EngineConfig(**ek, **kw),
-                             device=dev)
-                kernels.reset_launch_counts()
-                outs[dev] = _serve(eng, prompts, news)
-                want = (_paged_want(cfg, eng.stats["decode_steps"],
-                                    spec="spec" in kw, int8="kv_quant" in kw)
-                        if dev == "cuda" else _launch_want())
-                check(kernels.launch_counts == want,
-                      f"{arch} {label} {dev}: launches "
-                      f"{kernels.launch_counts} != {want}")
-                check(eng.block_pool.num_free == ek["num_blocks"],
-                      f"{arch} {label} {dev}: blocks leaked")
-            check(outs["cuda"] == outs["cpu"],
-                  f"{arch} {label}: cuda tokens {outs['cuda']} != cpu "
-                  f"{outs['cpu']}")
+        _engine_parity(cfg, dp, modes, ek, prompts, news)
         batch = np.stack([p[:5] for p in prompts])
         for mode in ("batched", "loop"):
             got = {dev: serve.generate(cfg, dp[dev], batch, 8,
@@ -2415,22 +2457,9 @@ def moe_parity_phase(card):
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 14, 9)]
     news = (8, 6, 10)
-    for label, kw in modes[:2]:
-        kw = dict(kv_quant=KVQuantConfig(), **kw)
-        outs = {}
-        for dev in ("cpu", "cuda"):
-            eng = Engine(cfg, dp[dev], EngineConfig(**ek, **kw), device=dev)
-            kernels.reset_launch_counts()
-            outs[dev] = _serve(eng, prompts, news)
-            want = (_paged_want(cfg, eng.stats["decode_steps"],
-                                spec="spec" in kw, int8=True)
-                    if dev == "cuda" else _launch_want())
-            check(kernels.launch_counts == want,
-                  f"{cfg.name} int8 {label} {dev}: launches "
-                  f"{kernels.launch_counts} != {want}")
-        check(outs["cuda"] == outs["cpu"],
-              f"{cfg.name} int8 {label}: cuda tokens {outs['cuda']} != cpu "
-              f"{outs['cpu']}")
+    _engine_parity(cfg, dp, [(f"int8 {label}",
+                              dict(kv_quant=KVQuantConfig(), **kw))
+                             for label, kw in modes[:2]], ek, prompts, news)
     print(f"parity {cfg.name} (mamba2 + shared attention at hd 80, f32, "
           f"int8 pools): cuda engine tokens == cpu, plain (B1+B3) and n-gram "
           f"k=4 (B4+B3) | {card}")
@@ -2443,67 +2472,30 @@ MIXTRAL_LONG = 4200                        # passes the 4096-token window
 MOE_PROFILE_STEPS = 2
 
 
-def moe_main_phase(card, arch, kernel_rows=()):
-    """An MoE model at full width (qwen3-moe-30b-a3b: 48 layers, d 2048,
-    32/4 heads, hd 128, 128 experts top 8 of d_ff 768; mixtral-8x7b: d
-    4096, 32/8 heads, hd 128, 8 experts top 2 of d_ff 14336, sliding window
-    4096, cut to 16 of 32 layers), bf16, seeded random weights made on the
-    card, through the port's Engine: 8 requests with prompts of 64-512
-    tokens and 32 new (mixtral: plus one 4200-token prompt, which wraps
-    the ring during prefill), served plainly, with n-gram speculation (k =
-    4), on int8 pools and under oversubscription with request 0 forcibly
-    preempted after 3 decode steps. Every request finishes, logits stay
-    finite, tokens lie in the vocabulary, no block leaks, and B1 (qwen3) /
-    B2 (mixtral) runs once per layer a decode step, B4 / B5 once per layer
-    a verify step (+B3 on int8 pools). Agreement of the spec and preempted
-    tokens with the plain run's is printed, not gated: capacity follows the
-    batch shape, so even the reference does not promise it for MoE. Then
-    a profile of the plain decode window with the MoE layer's device time
-    split into the expert products and the routing, dispatch and combine.
-    `kernel_rows`: mixtral's B2 / B5 rows (bf16 and int8 pools), whose
-    launches these runs set (no run here verifies on int8 pools: B5+B3's
-    row keeps 0)."""
-    import torch
-    from repro_torch.configs.base import get_config
-    from repro_torch.models import moe as M
-    from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import (Engine, EngineConfig,
-                                            KVQuantConfig, OversubConfig,
-                                            SpecConfig)
-    _release_card()
-    full = get_config(arch)
-    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS[arch])
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"{arch}: weights ({cfg.param_count() / 1e9:.2f} B params = "
-          f"{2 * cfg.param_count() / 1e9:.1f} GB bf16, {cfg.num_layers} of "
-          f"{full.num_layers} layers, {cfg.num_experts} experts top "
-          f"{cfg.experts_per_token}, {cfg.active_param_count() / 1e9:.2f} B "
-          f"active a token) made on the card in "
-          f"{time.perf_counter() - t0:.1f} s; decode capacity "
-          f"{M.capacity(8, cfg)} slot(s) an expert at 8 slots")
-    rng = np.random.default_rng(61)
-    lens = MOE_LENS + ((MIXTRAL_LONG,) if arch == "mixtral-8x7b" else ())
-    # (mixtral's 9 requests share 8 slots: the last waits for a free one)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
-    news = [32] * len(prompts)
-    long = arch == "mixtral-8x7b"    # ring of ceil((4096 + 3) / 16) + 1 pages
-    ecfg = EngineConfig(block_size=16, num_blocks=640 if long else 320,
-                        max_blocks_per_seq=272 if long else 40, max_slots=8,
-                        prefill_chunk=512, prefills_per_step=8,
-                        step_timing=True)
+def _serve_variants(card, arch, cfg, params, ecfg, prompts, news, modes,
+                    kernel_rows, compare, why):
+    """The requests through the port's Engine once for each of `modes`:
+    "plain" (`ecfg`), "ngram k=4" (SpecConfig(k=4)), "int8" (int8 pools)
+    and "preempted" (oversubscription, request 0 forcibly preempted after
+    3 decode steps; one resume). Each run is a _timed_run (finished
+    requests, finite logits, tokens in the vocabulary, no leaked block),
+    and the paged kernel of its mode runs once per layer a decode or
+    verify step. Rows of `kernel_rows` named "<key> @ <arch>" take the
+    launches of the runs other than "preempted" (0 where none). The
+    tokens of each mode in `compare` are held to the plain run's,
+    reported, not gated (`why`)."""
+    from repro_torch.serving.engine import (Engine, KVQuantConfig,
+                                            OversubConfig, SpecConfig)
+    variants = {
+        "plain": ecfg,
+        "ngram k=4": dataclasses.replace(ecfg, spec=SpecConfig(k=4)),
+        "int8": dataclasses.replace(ecfg, kv_quant=KVQuantConfig()),
+        "preempted": dataclasses.replace(ecfg, oversub=OversubConfig(
+            ttft_slo_s=1e9, tpot_slo_s=1e9))}
     wave = [[(p, m, 0) for p, m in zip(prompts, news)]]
     res = {}
-    for label, e in (
-            ("plain", ecfg),
-            ("ngram k=4", dataclasses.replace(ecfg, spec=SpecConfig(k=4))),
-            ("int8", dataclasses.replace(ecfg, kv_quant=KVQuantConfig())),
-            ("preempted", dataclasses.replace(
-                ecfg, oversub=OversubConfig(ttft_slo_s=1e9,
-                                            tpot_slo_s=1e9)))):
-        eng = Engine(cfg, params, e)
+    for label in modes:
+        eng = Engine(cfg, params, variants[label])
         state = {"steps": 0}
 
         def hook(eng, state=state):
@@ -2530,11 +2522,65 @@ def moe_main_phase(card, arch, kernel_rows=()):
     for row in kernel_rows:
         if row["launches"] is None:
             row["launches"] = 0
-    for label in ("ngram k=4", "preempted"):
+    for label in compare:
         _match_share(f"{arch} {label} vs plain", res["plain"]["outs"],
-                     res[label]["outs"], against="the plain run's",
-                     why="capacity and bf16 rounding follow the step's batch "
-                         "shape")
+                     res[label]["outs"], against="the plain run's", why=why)
+
+
+def moe_main_phase(card, arch, kernel_rows=()):
+    """An MoE model at full width (qwen3-moe-30b-a3b: 48 layers, d 2048,
+    32/4 heads, hd 128, 128 experts top 8 of d_ff 768; mixtral-8x7b: d
+    4096, 32/8 heads, hd 128, 8 experts top 2 of d_ff 14336, sliding window
+    4096, cut to 16 of 32 layers), bf16, seeded random weights made on the
+    card, through the port's Engine: 8 requests with prompts of 64-512
+    tokens and 32 new (mixtral: plus one 4200-token prompt, which wraps
+    the ring during prefill), served plainly, with n-gram speculation (k =
+    4), on int8 pools and under oversubscription with request 0 forcibly
+    preempted after 3 decode steps. Every request finishes, logits stay
+    finite, tokens lie in the vocabulary, no block leaks, and B1 (qwen3) /
+    B2 (mixtral) runs once per layer a decode step, B4 / B5 once per layer
+    a verify step (+B3 on int8 pools). Agreement of the spec and preempted
+    tokens with the plain run's is printed, not gated: capacity follows the
+    batch shape, so even the reference does not promise it for MoE. Then
+    a profile of the plain decode window with the MoE layer's device time
+    split into the expert products and the routing, dispatch and combine.
+    `kernel_rows`: mixtral's B2 / B5 rows (bf16 and int8 pools), whose
+    launches these runs set (no run here verifies on int8 pools: B5+B3's
+    row keeps 0)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+    _release_card()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS[arch])
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{arch}: weights ({cfg.param_count() / 1e9:.2f} B params = "
+          f"{2 * cfg.param_count() / 1e9:.1f} GB bf16, {cfg.num_layers} of "
+          f"{full.num_layers} layers, {cfg.num_experts} experts top "
+          f"{cfg.experts_per_token}, {cfg.active_param_count() / 1e9:.2f} B "
+          f"active a token) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; decode capacity "
+          f"{M.capacity(8, cfg)} slot(s) an expert at 8 slots")
+    rng = np.random.default_rng(61)
+    lens = MOE_LENS + ((MIXTRAL_LONG,) if arch == "mixtral-8x7b" else ())
+    # (mixtral's 9 requests share 8 slots: the last waits for a free one)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    news = [32] * len(prompts)
+    long = arch == "mixtral-8x7b"    # ring of ceil((4096 + 3) / 16) + 1 pages
+    ecfg = EngineConfig(block_size=16, num_blocks=640 if long else 320,
+                        max_blocks_per_seq=272 if long else 40, max_slots=8,
+                        prefill_chunk=512, prefills_per_step=8,
+                        step_timing=True)
+    _serve_variants(card, arch, cfg, params, ecfg, prompts, news,
+                    ("plain", "ngram k=4", "int8", "preempted"), kernel_rows,
+                    ("ngram k=4", "preempted"),
+                    "capacity and bf16 rounding follow the step's batch "
+                    "shape")
     fast = Engine(cfg, params, dataclasses.replace(ecfg, step_timing=False))
     # two profiled steps: post-processing the profile of qwen3-moe's
     # ~5,300 device ops a step is most of this phase's time
@@ -2947,7 +2993,7 @@ STABLELM_LAYERS = 2  # of stablelm-3b's 32: the hd-80 path at full width
 
 
 def train_main_phase(card, row, arch="yi-9b", layers=TRAIN_LAYERS, batch=2,
-                     seq=4096, timed=3, profile=True):
+                     seq=4096, timed=3, profile=True, make_batches=None):
     """A model at full width (yi-9b: d_model 4096, 32 heads over 4 kv heads,
     hd 128, d_ff 11008, vocab 64000, bf16; stablelm-3b: d_model 2560, 32
     heads, hd 80, d_ff 6912, vocab 50304; qwen3-moe-30b-a3b,
@@ -2960,6 +3006,8 @@ def train_main_phase(card, row, arch="yi-9b", layers=TRAIN_LAYERS, batch=2,
     forward and the remat recompute; none for rwkv6). First the gradients
     of the first batch are computed once and must all be finite. `row`
     (B6's kernels-line row, or None) takes the launch count.
+    `make_batches(cfg, batch, seq, n)`, if given, makes the batches in
+    place of SyntheticLM's tokens (the stub frontends' embeddings).
     Returns the median step ms."""
     import torch
     from repro_torch import kernels
@@ -2986,8 +3034,11 @@ def train_main_phase(card, row, arch="yi-9b", layers=TRAIN_LAYERS, batch=2,
           f"{cfg.remat}, hd {cfg.resolved_head_dim}), Adam state made on "
           f"the card in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    batches = list(SyntheticLM(cfg.vocab_size, seq, seed=0)
-                   .batches(batch, timed + 1))
+    if make_batches is None:
+        batches = list(SyntheticLM(cfg.vocab_size, seq, seed=0)
+                       .batches(batch, timed + 1))
+    else:
+        batches = make_batches(cfg, batch, seq, timed + 1)
     step = trainer.make_train_step(cfg, opt)
     per_step = 2 * n_attn
     t0 = time.perf_counter()
@@ -3840,6 +3891,201 @@ def conv_phase(card, rows):
 # and bf16 (both output types), and the bf16 decode and verify (B1, B2, B4,
 # B5; bf16 and int8 pools) at all its widths, the configs' head dims 64,
 # 80, 128 and 256
+# ------------------------------------------ phase 8: the last configs (A17)
+MUSICGEN_LAYOUT = (24, 24, 64)      # musicgen-medium: MHA, hd 64
+A17_LAYOUTS = {"qwen2-vl-2b": (12, 2, 128),     # 6 groups
+               "phi4-mini-3.8b": (24, 8, 128)}  # 3 groups
+A17_PARITY_LAYERS = 2               # of qwen2-vl-2b's 28, f32 at full width
+MUSICGEN_TRAIN_LAYERS = 48          # full depth: ~18 GB of Adam state
+A17_LENS = (64, 128, 192, 256, 320, 384, 448, 512)
+
+
+def vl_positions(B, S, grid):
+    """(3, B, S) Qwen2-VL M-RoPE position ids (arXiv:2409.12191 §2.1): row
+    b holds b text tokens, a 1 x grid x grid image (t = b, h = b + row, w =
+    b + column), then text whose three ids continue at the image's max +
+    1 (row 0: the image first, t = 0, h = row, w = column)."""
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    out = np.empty((3, B, S), np.int64)
+    for b in range(B):
+        img = b + np.stack([np.zeros_like(r), r, c])
+        tail = img.max() + 1 + np.arange(S - b - grid * grid)
+        lead = np.broadcast_to(np.arange(b), (3, b))
+        out[:, b] = np.concatenate(
+            [lead, img, np.broadcast_to(tail, (3, len(tail)))], axis=1)
+    return out
+
+
+def _stub_batches(grid=None, seed=0):
+    """make_batches for train_main_phase: the stub frontend's embeddings
+    (seeded normal · 0.5, made on the card), random labels and, with
+    `grid`, Qwen2-VL's (3, B, S) positions of a grid x grid image."""
+    def make(cfg, batch, seq, n):
+        import torch
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        out = []
+        for _ in range(n):
+            b = {"embeds": torch.randn((batch, seq, cfg.d_model),
+                                       generator=gen, device="cuda") * 0.5,
+                 "labels": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                         generator=gen, device="cuda")}
+            if grid is not None:
+                b["positions"] = torch.as_tensor(vl_positions(batch, seq,
+                                                              grid),
+                                                 device="cuda")
+            out.append(b)
+        return out
+    return make
+
+
+def a17_kernel_phase(card):
+    """B1 (one-query decode) and B4 (k = 4 verify) at musicgen-medium's
+    layout (24/24 heads, hd 64: MHA, one live row of each 16-row tile),
+    bf16 and int8 pools, against the plain version, timed beside SDPA and
+    the bound (rows for the kernels line; the musicgen runs set their
+    launches, no musicgen run uses int8 pools). Then, untimed, both at
+    qwen2-vl-2b's (12/2, hd 128) and phi4-mini-3.8b's (24/8, hd 128)
+    layouts, bf16, f32 and int8, against the plain version."""
+    lens = [int(x) for x in np.linspace(4, 16 * 128, 8)]
+    rows = _layout_rows(card, "musicgen-medium", MUSICGEN_LAYOUT, None, lens,
+                        5, ("src/repro/kernels/paged_attention/kernel.py:52",
+                            "src/repro/kernels/paged_attention/kernel.py:101"))
+    for i, (arch, layout) in enumerate(A17_LAYOUTS.items()):
+        _layout_rows(card, arch, layout, None, lens, 6 + i, None, timed=False)
+    return list(rows.values())
+
+
+def a17_parity_phase(card):
+    """f32, TF32 off, cuda against cpu from the same weights. The engine
+    (plain, n-gram k = 4, int8 pools; each paged kernel once per layer a
+    step) for reduced qwen2-vl-2b, musicgen-medium and phi4-mini-3.8b:
+    tokens equal. Then qwen2-vl-2b at full width cut to A17_PARITY_LAYERS
+    layers (12/2 heads, hd 128: M-RoPE's sections 16/24/24): the engine,
+    tokens equal; and 2 Adam steps on stub embeddings with DISTINCT t / h /
+    w streams (a 1 x 8 x 8 patch grid, then text; vl_positions), the first
+    with accum_steps = 2 (the microbatches cut the positions on axis 1):
+    losses within TRAIN_PARITY_TOL a step, B6 on cuda only."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import make_optimizer
+    from repro_torch.serving.engine import KVQuantConfig, SpecConfig
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ek = dict(block_size=4, num_blocks=64, max_blocks_per_seq=12,
+              max_slots=3, prefill_chunk=8)
+    rng = np.random.default_rng(71)
+    modes = (("plain", {}), ("ngram k=4", dict(spec=SpecConfig(k=4))),
+             ("int8", dict(kv_quant=KVQuantConfig())))
+    full = dataclasses.replace(get_config("qwen2-vl-2b"), dtype="float32",
+                               num_layers=A17_PARITY_LAYERS)
+    cfgs = [dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+            for arch in ("qwen2-vl-2b", "musicgen-medium", "phi4-mini-3.8b")]
+    for cfg in cfgs + [full]:
+        params = T.init_params(cfg, seed=0, device="cpu")
+        dp = {"cpu": params, "cuda": _tree_to(params, "cuda")}
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (5, 17, 9, 30)]
+        news = (8, 6, 10, 12)
+        _engine_parity(cfg, dp, modes if cfg is not full else modes[:1], ek,
+                       prompts, news)
+        print(f"parity {cfg.name} (f32, {cfg.num_layers} layers, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+              f"{cfg.resolved_head_dim}): cuda engine tokens == cpu, "
+              + ("plain" if cfg is full else "plain / n-gram k=4 / int8 pools")
+              + f", each paged kernel once per layer a step | {card}")
+    # training with distinct streams, the first step accumulated
+    B, S = 2, 128
+    batches = []
+    for i in range(2):
+        r = np.random.default_rng(80 + i)
+        batches.append({
+            "embeds": (r.standard_normal((B, S, full.d_model)) * 0.5
+                       ).astype(np.float32),
+            "positions": vl_positions(B, S, 8),
+            "labels": r.integers(0, full.vocab_size, (B, S)).astype(np.int64)})
+    losses, b6 = {}, {}
+    for dev in ("cpu", "cuda"):
+        opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+        p = tree_map(lambda t: t.clone().to(dev), params)
+        state = {"params": p, "opt": opt.init(p)}
+        kernels.reset_launch_counts()
+        losses[dev] = []
+        for accum, b in zip((2, 1), batches):
+            state, metrics = make_train_step(full, opt, accum_steps=accum)(
+                state, b)
+            losses[dev].append(float(metrics["loss"]))
+        b6[dev] = kernels.launch_counts["flash_attention"]
+        del state, p
+    diff = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    check(all(map(math.isfinite, losses["cuda"])) and diff <= TRAIN_PARITY_TOL,
+          f"qwen2-vl-2b train parity: cuda {losses['cuda']} vs cpu "
+          f"{losses['cpu']} (max diff {diff} > {TRAIN_PARITY_TOL})")
+    # remat on: forward and recompute, per layer, per microbatch
+    want = 2 * full.num_layers * 3
+    check(b6["cpu"] == 0 and b6["cuda"] == want,
+          f"qwen2-vl-2b train parity: B6 launches {b6} (cuda want {want})")
+    print(f"train parity {full.name} ({full.num_layers} layers at full width, "
+          f"f32, remat, Adam; stub embeds {B} x {S}, a 1 x 8 x 8 patch grid "
+          f"then text, distinct t/h/w streams; step 1 with accum_steps = 2): "
+          f"cuda losses {losses['cuda']} vs cpu {losses['cpu']}, max diff "
+          f"{diff:.3e} (tol {TRAIN_PARITY_TOL}), B6 launches {b6['cuda']} | "
+          f"{card}")
+    del dp, params
+    _release_card()
+
+
+def a17_main_phase(card, arch, layers, modes, kernel_rows=(), profile=False):
+    """An A17 config at full width, bf16, seeded random weights made on the
+    card, cut to `layers` layers, through the port's Engine: 8 requests of
+    64-512 prompt tokens (A17_LENS) and 32 new each, in each of `modes`:
+    "plain", "ngram k=4" (B4), "int8" (B1+B3), "preempted" (request 0
+    forcibly preempted after 3 decode steps). Every request finishes,
+    logits stay finite, tokens lie in the vocabulary, no block leaks, and
+    the paged kernel runs once per layer a decode / verify step. bf16
+    agreement with the plain run is printed, not gated. `kernel_rows`:
+    rows whose name is "<key> @ <arch>" take their launches from these
+    runs (0 if no run launched them). With `profile`, where_time_goes over
+    the plain decode window."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+    _release_card()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{arch}: weights ({cfg.param_count() / 1e9:.2f} B params = "
+          f"{2 * cfg.param_count() / 1e9:.1f} GB bf16, {cfg.num_layers} of "
+          f"{full.num_layers} layers, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, hd {cfg.resolved_head_dim}, rope {cfg.rope_mode}) made on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(91)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in A17_LENS]
+    news = [32] * len(prompts)
+    ecfg = EngineConfig(block_size=16, num_blocks=320, max_blocks_per_seq=40,
+                        max_slots=8, prefill_chunk=512, prefills_per_step=8,
+                        step_timing=True)
+    _serve_variants(card, arch, cfg, params, ecfg, prompts, news, modes,
+                    kernel_rows, modes[1:], "bf16 prefill, decode and K-row "
+                    "verify round differently")
+    if profile:
+        fast = Engine(cfg, params, dataclasses.replace(ecfg,
+                                                       step_timing=False))
+        where_time_goes(card, fast, [p[:64] for p in prompts], news, warm=2,
+                        window=4, label=f"{arch} decode")
+        del fast
+    del params
+    _release_card()
+
+
 NO_SPILL = {"flash_attention": r"flash_fwd_bf16ILi(64|80|128)E",
             "matmul": r"matmul_(bf16_)?kernel",
             "paged_attention": r"paged_decode_tcILi(64|80|128|256)E"}
@@ -3937,6 +4183,9 @@ def main() -> int:
         name = torch.cuda.get_device_name(0)
         print(f"device: {name} x{torch.cuda.device_count()} | {card} | torch "
               f"{torch.__version__} cuda {torch.version.cuda}")
+        print(f"device: total_memory "
+              f"{torch.cuda.get_device_properties(0).total_memory} B "
+              f"(torch.cuda.get_device_properties(0))")
 
         laps = [time.perf_counter()]
 
@@ -3956,6 +4205,9 @@ def main() -> int:
         mixtral_rows = mixtral_kernel_phase(card)
         rows += zamba2_rows + mixtral_rows
         lap("kernels")
+        musicgen_rows = a17_kernel_phase(card)
+        rows += musicgen_rows
+        lap("kernels (A17 layouts)")
         parity_phase(card)
         ring_spec_parity_phase(card)
         int8_parity_phase(card)
@@ -3995,6 +4247,26 @@ def main() -> int:
                              seq=seq, timed=2,
                              profile=arch == "qwen3-moe-30b-a3b")
             lap(f"{arch} training")
+        a17_parity_phase(card)
+        lap("parity (A17)")
+        a17_main_phase(card, "qwen2-vl-2b", 28,
+                       ("plain", "ngram k=4", "int8", "preempted"),
+                       profile=True)
+        train_main_phase(card, None, arch="qwen2-vl-2b", layers=28, batch=1,
+                         seq=4096, timed=2, profile=False,
+                         make_batches=_stub_batches(grid=32))
+        lap("qwen2-vl-2b serving and training")
+        a17_main_phase(card, "musicgen-medium", 48, ("plain", "ngram k=4"),
+                       musicgen_rows)
+        train_main_phase(card, None, arch="musicgen-medium",
+                         layers=MUSICGEN_TRAIN_LAYERS, batch=1, seq=2048,
+                         timed=2, profile=False,
+                         make_batches=_stub_batches())
+        lap("musicgen-medium serving and training")
+        a17_main_phase(card, "phi4-mini-3.8b", 32, ("plain",))
+        train_main_phase(card, None, arch="phi4-mini-3.8b", layers=4, batch=1,
+                         seq=4096, timed=2, profile=False)
+        lap("phi4-mini-3.8b serving and training")
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()

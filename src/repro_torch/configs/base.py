@@ -1,7 +1,8 @@
 """Model/config registry (the port's own copy of ``repro.configs.base``).
 
 Every architecture is a `ModelConfig`; reduced variants for CPU tests are
-derived with `reduced()`. The dataclass, its defaults and `reduced()` are
+derived with `reduced()`. Input shapes (the four assigned global shapes)
+live in `SHAPES`. The dataclass, its defaults, `reduced()` and `SHAPES` are
 kept field for field identical to the JAX package's, so one config value
 describes the same model in both packages.
 """
@@ -56,6 +57,18 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether the arch supports long-context decode (long_500k)."""
+        return (
+            self.family in ("ssm", "hybrid")
+            or self.attention_type in ("sliding", "local_global")
+        )
+
     def param_count(self) -> int:
         """Analytical parameter count (embedding + blocks + head); an MoE
         layer holds E experts' SwiGLU and the (d, E) router in place of the
@@ -99,10 +112,28 @@ class ModelConfig:
                 + d_inner * (self.ssm_state_dim * 2 + 2))
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
-ARCH_MODULES = ["gemma3_12b", "mixtral_8x7b", "qwen3_moe_30b_a3b",
-                "rwkv6_7b", "stablelm_3b", "yi_9b", "zamba2_2_7b"]
+ARCH_MODULES = [
+    "gemma3_12b", "phi4_mini_3_8b", "qwen2_vl_2b", "mixtral_8x7b",
+    "stablelm_3b", "rwkv6_7b", "yi_9b", "qwen3_moe_30b_a3b",
+    "zamba2_2_7b", "musicgen_medium",
+]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -80,10 +80,21 @@ def _project_qkv(params, x, positions, cfg):
     if cfg.rope_mode == "standard":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_mode == "mrope":
+        q = L.apply_mrope(q, positions, cfg.rope_theta)
+        k = L.apply_mrope(k, positions, cfg.rope_theta)
     elif cfg.rope_mode != "none":
-        raise NotImplementedError(
-            f"rope_mode {cfg.rope_mode!r} comes in a later slice of the port")
+        raise ValueError(f"unknown rope_mode {cfg.rope_mode!r}")
     return q, k, v
+
+
+def rope_positions(pos, cfg):
+    """The positions a serving verb gives `_project_qkv`: `pos` itself, or
+    under M-RoPE the text position in all three streams, (3, *pos.shape),
+    as the reference's verbs broadcast it (a view, no copy)."""
+    if cfg.rope_mode == "mrope":
+        return pos[None].expand((3,) + tuple(pos.shape))
+    return pos
 
 
 def _mask(q_pos, k_pos, window):
@@ -112,7 +123,8 @@ def _attend_full(q, k, v, n_rep, scale, chunk, window):
 
 def attention_train(params, x, positions, cfg, *, window=None,
                     impl="chunked"):
-    """Self-attention over a full sequence. x: (B,S,D); positions (B,S).
+    """Self-attention over a full sequence. x: (B,S,D); positions (B,S),
+    or (3,B,S) under M-RoPE.
     A CUDA tensor runs the flash-attention kernel (`impl` is not read); a
     CPU tensor takes the reference's `impl`: "naive" or "chunked" (query
     chunks of ``cfg.attn_chunk``)."""
@@ -200,7 +212,7 @@ def attention_prefill(params, x, cache, cfg, *, window=None):
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    q, k, v = _project_qkv(params, x, positions, cfg)
+    q, k, v = _project_qkv(params, x, rope_positions(positions, cfg), cfg)
     quantized = None
     if "k_scale" in cache:
         quantized = qk, sk, qv, sv = _quantize_pair(k, v)
@@ -229,7 +241,8 @@ def attention_decode(params, x, cache, index, cfg, *, window=None):
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B = x.shape[0]
     positions = torch.full((B, 1), index, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, positions, cfg)
+    q, k_new, v_new = _project_qkv(params, x, rope_positions(positions, cfg),
+                                   cfg)
     Sc = cache["k"].shape[1]
     slot = index % Sc if window is not None else index      # ring buffer
     _store(cache, slot, k_new[:, 0], v_new[:, 0])
@@ -300,7 +313,9 @@ def attention_decode_paged(params, x, kv, block_tables, positions, attn_lens,
     (B,1,D), kv updated in place)."""
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     B = x.shape[0]
-    q, k_new, v_new = _project_qkv(params, x, positions[:, None], cfg)
+    q, k_new, v_new = _project_qkv(params, x,
+                                   rope_positions(positions[:, None], cfg),
+                                   cfg)
     paged_write(kv, k_new[:, 0], v_new[:, 0], block_tables, positions,
                 attn_lens > 0, ring_pages=ring_pages)
     ring = {} if window is None else dict(window=window, positions=positions,
@@ -340,7 +355,8 @@ def attention_verify_paged(params, x, kv, block_tables, base, qlims, cfg, *,
     B, K = x.shape[0], x.shape[1]
     ar = torch.arange(K, device=x.device, dtype=base.dtype)
     positions = base[:, None] + ar[None, :]                       # (B, K)
-    q, k_new, v_new = _project_qkv(params, x, positions, cfg)
+    q, k_new, v_new = _project_qkv(params, x, rope_positions(positions, cfg),
+                                   cfg)
     write = ar[None, :] < qlims[:, None]                          # (B, K)
     paged_write_multi(kv, k_new, v_new, block_tables, positions, write,
                       ring_pages=ring_pages)
@@ -366,7 +382,7 @@ def attention_prefill_paged(params, x, kv, table_rows, starts, valids, cfg):
     G, C = x.shape[0], x.shape[1]
     ar = torch.arange(C, device=x.device, dtype=starts.dtype)
     pos = starts[:, None] + ar[None, :]                           # (G, C)
-    q, k, v = _project_qkv(params, x, pos, cfg)
+    q, k, v = _project_qkv(params, x, rope_positions(pos, cfg), cfg)
 
     bs = kv["k"].shape[1]
     P = table_rows.shape[1]
@@ -414,7 +430,7 @@ def attention_prefill_ring(params, x, kv, table_rows, starts, valids, cfg,
     G, C = x.shape[0], x.shape[1]
     ar = torch.arange(C, device=x.device, dtype=starts.dtype)
     pos = starts[:, None] + ar[None, :]                           # (G, C)
-    q, k, v = _project_qkv(params, x, pos, cfg)
+    q, k, v = _project_qkv(params, x, rope_positions(pos, cfg), cfg)
     quant = "k_scale" in kv
     quantized = None
     if quant:

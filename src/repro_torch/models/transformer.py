@@ -29,9 +29,14 @@ Entry points:
   paged_prefill_packed(cfg, params, pool, tokens, tables, starts, valids, slots)
   paged_prefill_step(cfg, params, pool, tokens, table_row, start, valid_len, slot)
 
-Serving and training cover the dense, MoE (mixtral, qwen3-moe),
-local-global, recurrent (rwkv6) and hybrid (zamba2) families; each serving
-layer dispatches on its state kind. M-RoPE raises (ROADMAP A17).
+Serving and training cover every family of the registry: dense, MoE
+(mixtral, qwen3-moe), local-global, recurrent (rwkv6), hybrid (zamba2), the
+vision-language qwen2-vl (M-RoPE) and the audio musicgen; each serving
+layer dispatches on its state kind. The vision and audio frontends are
+stubs, as in the reference: `forward` takes precomputed "embeds" (and
+M-RoPE's (3, B, S) "positions"), `decode_step` an "embed"; the serving
+verbs take token ids and, under M-RoPE, the text position in all three
+streams.
 """
 from __future__ import annotations
 
@@ -55,11 +60,9 @@ _RECURRENT_KINDS = ("rwkv", "mamba")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config outside the port's slices so far."""
-    if cfg.rope_mode not in ("standard", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: rope_mode {cfg.rope_mode!r} comes in a later slice "
-            f"(ROADMAP A17)")
+    """Raise for a rope mode neither package knows."""
+    if cfg.rope_mode not in ("standard", "mrope", "none"):
+        raise ValueError(f"{cfg.name}: unknown rope_mode {cfg.rope_mode!r}")
 
 
 # ------------------------------------------------------------------ param init
@@ -294,7 +297,9 @@ def _checkpointed(fn):
 
 def forward(cfg: ModelConfig, params, inputs):
     """inputs: {"tokens": (B,S)} or {"embeds": (B,S,D)}, optional
-    "positions" (B,S). Returns (hidden (B,S,D), aux_loss f32 scalar).
+    "positions" (B,S), or (3,B,S) under M-RoPE (default: the text position
+    0..S-1, in all three streams under M-RoPE). Returns (hidden (B,S,D),
+    aux_loss f32 scalar).
 
     With ``cfg.remat`` each superblock is checkpointed (only its input is
     kept; its layers run again in the backward pass), and when a superblock
@@ -311,7 +316,8 @@ def forward(cfg: ModelConfig, params, inputs):
     B, Sq = x.shape[0], x.shape[1]
     positions = inputs.get("positions")
     if positions is None:
-        positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
+        positions = A.rope_positions(
+            torch.arange(Sq, device=x.device)[None].expand(B, Sq), cfg)
     kinds = _layer_kinds(cfg)
     shared = params.get("shared_attn")
     layer_fn = _apply_layer_train

@@ -50,22 +50,43 @@ def _on(batch, device):
     return out
 
 
+def _batch_rows(batch):
+    """The batch size B: the rows of the labels (or the tokens / embeds),
+    never of M-RoPE's (3, B, S) positions."""
+    for k in ("labels", "tokens", "embeds"):
+        if k in batch:
+            return batch[k].shape[0]
+    raise KeyError(f"batch has none of labels, tokens, embeds: "
+                   f"{sorted(batch)}")
+
+
+def _rows(batch, lo, hi):
+    """Rows lo:hi of every batch entry: axis 0, but axis 1 of M-RoPE's
+    (3, B, S) positions (the reference's microbatch split)."""
+    return {k: v[:, lo:hi] if k == "positions" and v.dim() == 3 else v[lo:hi]
+            for k, v in batch.items()}
+
+
 def _device(params):
     return leaves_with_path(params)[0][1].device
 
 
 def _grads_of(cfg, params, batch):
-    """(loss, gradient tree) of ``loss_fn`` by autograd."""
+    """(loss, gradient tree) of ``loss_fn`` by autograd. A leaf the loss
+    does not reach gets zeros, as ``jax.value_and_grad`` gives it: the
+    token embedding of an untied model fed "embeds" (musicgen's stub)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     paths, leaves = zip(*leaves_with_path(live))
     loss = T.loss_fn(cfg, live, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), tree_from_leaves(zip(paths, grads))
 
 
 def make_train_step(cfg, optimizer, *, accum_steps: int = 1):
     """train_step(state, batch) -> (state, {"loss": f32 scalar tensor}).
-    batch: {"tokens", "labels"} (B, S), numpy or tensors, B divisible by
+    batch: {"tokens" or "embeds", "labels"} (B, S[, D]) and optional
+    "positions" ((3, B, S) under M-RoPE), numpy or tensors, B divisible by
     `accum_steps`. The params and optimizer state are updated in place."""
 
     def train_step(state, batch):
@@ -75,13 +96,12 @@ def make_train_step(cfg, optimizer, *, accum_steps: int = 1):
         if accum_steps == 1:
             loss, grads = _grads_of(cfg, params, batch)
         else:
-            B = next(iter(batch.values())).shape[0]
-            mb = B // accum_steps
+            mb = _batch_rows(batch) // accum_steps
             loss = torch.zeros((), dtype=torch.float32, device=device)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=device), params)
             for i in range(accum_steps):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                micro = _rows(batch, i * mb, (i + 1) * mb)
                 loss_i, g_i = _grads_of(cfg, params, micro)
                 loss = loss + loss_i
                 tree_map(lambda a, g: a.add_(g.float()), grads, g_i)
@@ -101,13 +121,15 @@ def make_paper_train_step(cfg, optimizer, group=None, *, algorithm="ring",
     group) — the counterpart of the reference's ``shard_map`` over the
     mesh's data axis (survey §5.1 + §6.3).
 
-    Each rank takes its contiguous slice of the global batch along axis 0
-    (``P("data")``), computes its gradients with autograd, compresses them
-    with error feedback when `compression` (a ``core.compression.
-    Compressor``) is given — each sent leaf cast to its gradient's dtype,
-    the f32 residual, this rank's own, updated in place — averages each leaf
-    with ``allreduce_mean(algorithm)`` (ring|tree|butterfly|rabenseifner|
-    psum) and the loss with ``psum``, and applies the optimizer in place.
+    Each rank takes its contiguous slice of the global batch's rows
+    (``P("data")``; axis 1 of M-RoPE's (3, B, S) positions, where the
+    reference's ``P("data")`` would cut the stream axis), computes its
+    gradients with autograd, compresses them with error feedback when
+    `compression` (a ``core.compression.Compressor``) is given — each sent
+    leaf cast to its gradient's dtype, the f32 residual, this rank's own,
+    updated in place — averages each leaf with ``allreduce_mean(algorithm)``
+    (ring|tree|butterfly|rabenseifner|psum) and the loss with ``psum``, and
+    applies the optimizer in place.
     `residual` is ``zero_residual(params)`` with a compressor, else unused.
     """
 
@@ -115,13 +137,11 @@ def make_paper_train_step(cfg, optimizer, group=None, *, algorithm="ring",
         params = state["params"]
         P, rank = dist.get_world_size(group), dist.get_rank(group)
         batch = _on(batch, _device(params))
-        local = {}
-        for k, v in batch.items():
-            if v.shape[0] % P:
-                raise ValueError(f"batch axis 0 of {k!r} ({v.shape[0]}) does "
-                                 f"not divide into {P} ranks")
-            n = v.shape[0] // P
-            local[k] = v[rank * n:(rank + 1) * n]
+        B = _batch_rows(batch)
+        if B % P:
+            raise ValueError(f"batch size {B} does not divide into {P} ranks")
+        n = B // P
+        local = _rows(batch, rank * n, (rank + 1) * n)
         loss, grads = _grads_of(cfg, params, local)
         if compression is not None:
             grads, residual = compression.compress_with_feedback(grads,

@@ -24,6 +24,7 @@ from repro_torch.serving.engine.scheduler import (Request, Scheduler,
 from repro_torch.serving.telemetry import validate_order
 from repro_torch.serving.workloads import (mixed_workload,
                                            shared_prefix_workload)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 

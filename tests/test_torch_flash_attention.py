@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 from repro_torch.kernels.flash_attention.ops import (FlashAttention,
                                                      attention_backward)
 from repro_torch.models import attention as A
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 

@@ -40,6 +40,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import make_optimizer
 from repro_torch.train import trainer
 from repro_torch.tree import leaves_with_path, tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 

@@ -52,6 +52,7 @@ from repro_torch.models import state_providers as SP
 from repro_torch.models import transformer as TT
 from repro_torch.serving.engine import Engine, EngineConfig, SpecConfig
 from repro_torch.serving.telemetry import validate_order
+from torch_threads import jitted, one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 
@@ -293,11 +294,10 @@ def _prefill_both(kind, kv_seed=4):
     starts = np.array([0, 4], np.int32)
     valids = np.array([9, 16], np.int32)
     slots = np.array([0, 1], np.int32)
-    jl, jpool = JT.paged_prefill_packed(jcfg, jp, jpool, jnp.asarray(tokens),
-                                        jnp.asarray(tables),
-                                        jnp.asarray(starts),
-                                        jnp.asarray(valids),
-                                        jnp.asarray(slots))
+    prefill = jitted(JT.paged_prefill_packed, (0,))
+    jl, jpool = prefill(jcfg, jp, jpool, jnp.asarray(tokens),
+                        jnp.asarray(tables), jnp.asarray(starts),
+                        jnp.asarray(valids), jnp.asarray(slots))
     tl, tpool = TT.paged_prefill_packed(cfg, tp, tpool, _t(tokens).long(),
                                         _t(tables), _t(starts), _t(valids),
                                         _t(slots))

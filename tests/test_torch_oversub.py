@@ -44,6 +44,7 @@ from repro_torch.serving.engine import (BlockPool, BlockPoolError, Engine,
 from repro_torch.serving.engine.scheduler import (DECODING, Request,
                                                   Scheduler)
 from repro_torch.serving.telemetry import derive_timeline, validate_order
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 

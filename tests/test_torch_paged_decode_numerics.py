@@ -38,6 +38,7 @@ from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                      ring_key_positions)
 from repro_torch.kernels.quantize import quantize_kv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 

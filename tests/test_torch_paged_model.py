@@ -245,14 +245,15 @@ def test_init_params_matches_specs_and_seed(model):
 
 
 def test_unsupported_families_raise():
-    """mrope still raises (ROADMAP A17); MoE builds the paged pools of its
-    attention; the recurrent (ssm) and hybrid families build per-slot slabs
-    beside the paged pools (and need max_slots)."""
+    """mrope builds the paged pools of its attention (ROADMAP A17 lifted
+    its refusal); MoE likewise; the recurrent (ssm) and hybrid families
+    build per-slot slabs beside the paged pools (and need max_slots)."""
     import dataclasses
     base = ModelConfig(**CFG_KW)
-    with pytest.raises(NotImplementedError, match="A17"):
-        TT.init_paged_state(dataclasses.replace(base, rope_mode="mrope"), 4,
-                            4, device="cpu")
+    pool = TT.init_paged_state(dataclasses.replace(base, rope_mode="mrope"),
+                               4, 4, device="cpu")
+    assert {k: tuple(a.shape) for k, a in pool["l0"].items()} == {
+        "k": (2, 5, 4, 2, 16), "v": (2, 5, 4, 2, 16)}
     moe = dataclasses.replace(base, family="moe", num_experts=4,
                               experts_per_token=2)
     pool = TT.init_paged_state(moe, 4, 4, device="cpu")

@@ -42,6 +42,7 @@ from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_attention_verify_ref, ring_key_positions)
 from repro_torch.kernels.quantize import quantize_kv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 

@@ -33,6 +33,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import serve as TS
 from repro_torch.serving.engine import (Engine, EngineConfig, OversubConfig,
                                         SpecConfig)
+from torch_threads import jitted, one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 
@@ -224,7 +225,7 @@ def test_packed_prefill_and_verify_match_reference(arch):
     starts = np.zeros(3, np.int32)
     valids = np.array([5, 8, 0], np.int32)
     slots = np.array([2, 0, S], np.int32)            # the third is padding
-    jl, jpool = JT.paged_prefill_packed(
+    jl, jpool = jitted(JT.paged_prefill_packed, (0,))(
         jc, jp, jpool, *map(jnp.asarray, (tokens, tables, starts, valids,
                                           slots)))
     tl, tpool = TT.paged_prefill_packed(
@@ -236,7 +237,7 @@ def test_packed_prefill_and_verify_match_reference(arch):
     vt = rng.integers(0, tc.vocab_size, (S, 3)).astype(np.int32)
     base = np.array([8, 0, 5], np.int32)
     qlims = np.array([3, 0, 2], np.int32)
-    jl, jaux = JT.paged_verify_step(jc, jp, jpool, *map(
+    jl, jaux = jitted(JT.paged_verify_step, (0,))(jc, jp, jpool, *map(
         jnp.asarray, (vt, tables, base, qlims)))
     tl, taux = TT.paged_verify_step(tc, tp, tpool, *map(
         torch.from_numpy, (vt, tables, base, qlims)))

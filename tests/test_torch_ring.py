@@ -42,8 +42,11 @@ from repro_torch.models import state_providers as SP
 from repro_torch.models import transformer as TT
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.telemetry import validate_order
+from torch_threads import jitted, one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
+
+RING = ("window", "ring_pages")      # the ring verbs' static keywords
 
 STATS = ("decode_steps", "prefill_chunks", "emitted", "prefix_hit_tokens",
          "cow_copies")
@@ -160,9 +163,9 @@ def test_paged_write_ring_mode():
         kn = rng.standard_normal((2, 2, 8)).astype(np.float32)
         vn = rng.standard_normal((2, 2, 8)).astype(np.float32)
         active = np.asarray([True, positions[0] != 11])
-        jkv = JA.paged_write(jkv, jnp.asarray(kn), jnp.asarray(vn),
-                             jnp.asarray(tables), jnp.asarray(positions),
-                             jnp.asarray(active), ring_pages=R)
+        jkv = jitted(JA.paged_write, (), ("ring_pages",))(
+            jkv, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(tables),
+            jnp.asarray(positions), jnp.asarray(active), ring_pages=R)
         TA.paged_write(tkv, _t(kn), _t(vn), _t(tables), _t(positions),
                        _t(active), ring_pages=R)
         _close(jkv, tkv, N, atol=0)
@@ -227,7 +230,7 @@ def test_attention_decode_paged_ring(sliding):
     tables = rng.permutation(N)[:B * 5].reshape(B, 5).astype(np.int32)
     positions = np.asarray([2, 12, 30, 0], np.int32)
     attn_lens = np.asarray([3, 13, 31, 0], np.int32)      # slot 3 inactive
-    jout, jkv = JA.attention_decode_paged(
+    jout, jkv = jitted(JA.attention_decode_paged, (6,), RING)(
         _layer(jp["blocks"]["l0"])["attn"], jnp.asarray(x), jkv,
         jnp.asarray(tables), jnp.asarray(positions), jnp.asarray(attn_lens),
         jcfg, window=8, ring_pages=R)
@@ -256,7 +259,7 @@ def test_attention_prefill_ring(sliding, C, starts, valids):
     x = rng.standard_normal((G, C, 64)).astype(np.float32)
     rows = rng.permutation(N)[:G * 6].reshape(G, 6).astype(np.int32)
     starts, valids = np.asarray(starts, np.int32), np.asarray(valids, np.int32)
-    jout, jkv = JA.attention_prefill_ring(
+    jout, jkv = jitted(JA.attention_prefill_ring, (6,), RING)(
         _layer(jp["blocks"]["l0"])["attn"], jnp.asarray(x), jkv,
         jnp.asarray(rows), jnp.asarray(starts), jnp.asarray(valids), jcfg,
         window=8, ring_pages=R)
@@ -284,8 +287,8 @@ def test_gemma3_prefill_then_decode_steps(gemma):
     tokens = rng.integers(0, cfg.vocab_size, (2, C)).astype(np.int32)
     args = (tokens, tables, np.asarray([0, 0], np.int32),
             np.asarray([C, 21], np.int32), np.asarray([0, 1], np.int32))
-    jl, jpool = JT.paged_prefill_packed(jcfg, jp, jpool,
-                                        *[jnp.asarray(a) for a in args])
+    jl, jpool = jitted(JT.paged_prefill_packed, (0,))(
+        jcfg, jp, jpool, *[jnp.asarray(a) for a in args])
     tl, _ = TT.paged_prefill_packed(cfg, tp, tpool, _t(tokens).long(),
                                     *[_t(a) for a in args[1:]])
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
@@ -293,7 +296,7 @@ def test_gemma3_prefill_then_decode_steps(gemma):
     tok = np.argmax(np.asarray(jl), -1).astype(np.int32)
     for _ in range(2):
         step = (tables, seq, seq + 1)
-        jl, jpool = JT.paged_decode_step(
+        jl, jpool = jitted(JT.paged_decode_step, (0,))(
             jcfg, jp, jpool, {"token": jnp.asarray(tok)},
             *[jnp.asarray(a) for a in step])
         tl, _ = TT.paged_decode_step(cfg, tp, tpool,

@@ -32,6 +32,7 @@ from repro_torch.serving import serve as TS
 from repro_torch.serving.engine import (DraftModelDrafter, Engine,
                                         EngineConfig, OversubConfig,
                                         SpecConfig)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 
@@ -90,15 +91,18 @@ def test_prefill_and_decode_logits_match_reference(arch):
         0, tc.vocab_size, (B, S0)).astype(np.int32)
     jst = JT.init_decode_state(jc, B, S0 + steps)
     tst = TT.init_decode_state(tc, B, S0 + steps, device="cpu")
-    jl, jst = JT.prefill_step(jc, jp, jst, {"tokens": jnp.asarray(prompt)})
+    jprefill = jax.jit(lambda p, st, t: JT.prefill_step(jc, p, st,
+                                                        {"tokens": t}))
+    jdecode = jax.jit(lambda p, st, t, i: JT.decode_step(jc, p, st,
+                                                         {"token": t}, i))
+    jl, jst = jprefill(jp, jst, jnp.asarray(prompt))
     tl, tst = TT.prefill_step(tc, tp, tst,
                               {"tokens": torch.from_numpy(prompt)})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL,
                                rtol=0)
     for j in range(steps):
         tok = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
-        jl, jst = JT.decode_step(jc, jp, jst, {"token": jnp.asarray(tok)},
-                                 jnp.int32(S0 + j))
+        jl, jst = jdecode(jp, jst, jnp.asarray(tok), jnp.int32(S0 + j))
         tl, tst = TT.decode_step(tc, tp, tst,
                                  {"token": torch.from_numpy(tok)}, S0 + j)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl),

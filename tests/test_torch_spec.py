@@ -43,6 +43,7 @@ from repro_torch.serving.engine import (Drafter, DraftModelDrafter, Engine,
                                         EngineConfig, NgramDrafter,
                                         ReplayDrafter, SpecConfig)
 from repro_torch.serving.engine import spec as SPEC
+from torch_threads import jitted, one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 
@@ -249,7 +250,8 @@ def test_attention_verify_paged(layer):
     lp = lambda tree: {kk: (lambda t: {a: b[0] for a, b in t.items()})(vv)
                        if isinstance(vv, dict) else vv[0]
                        for kk, vv in tree.items()}
-    jout, jkv = JA.attention_verify_paged(
+    jout, jkv = jitted(JA.attention_verify_paged, (6,),
+                       ("window", "ring_pages"))(
         lp(jp["blocks"][f"l{layer}"]["attn"]), jnp.asarray(x), jkv,
         jnp.asarray(tables), jnp.asarray(base), jnp.asarray(qlims), jcfg,
         window=window, ring_pages=R)
@@ -275,8 +277,8 @@ def _prefilled(jcfg, cfg, jp, tp):
         0, cfg.vocab_size, size=6).astype(np.int32)
     toks = np.zeros((1, 8), np.int32)
     toks[0, :6] = prompt
-    jl, jpool = JT.paged_prefill_step(jcfg, jp, jpool, jnp.asarray(toks),
-                                      jnp.asarray(tables[0]), 0, 6, 0)
+    jl, jpool = jitted(JT.paged_prefill_step, (0,))(
+        jcfg, jp, jpool, jnp.asarray(toks), jnp.asarray(tables[0]), 0, 6, 0)
     TT.paged_prefill_step(cfg, tp, tpool, _t(toks).long(), _t(tables[0]),
                           0, 6, 0)
     return jpool, tpool, tables, int(np.argmax(np.asarray(jl[0])))
@@ -307,9 +309,9 @@ def test_verify_step_logits_match_sequential_decode_and_reference(model):
     tokens = np.zeros((2, 3), np.int32)
     tokens[0] = fed
     base, qlims = np.asarray([6, 0], np.int32), np.asarray([3, 0], np.int32)
-    jl, _ = JT.paged_verify_step(jcfg, jp, jpool, jnp.asarray(tokens),
-                                 jnp.asarray(tables), jnp.asarray(base),
-                                 jnp.asarray(qlims))
+    jl, _ = jitted(JT.paged_verify_step, (0,))(
+        jcfg, jp, jpool, jnp.asarray(tokens), jnp.asarray(tables),
+        jnp.asarray(base), jnp.asarray(qlims))
     tl, _ = TT.paged_verify_step(cfg, tp, tpool, _t(tokens).long(),
                                  _t(tables), _t(base), _t(qlims))
     np.testing.assert_allclose(tl[0].numpy(), np.asarray(jl)[0], atol=1e-4,

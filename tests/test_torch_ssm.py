@@ -25,6 +25,7 @@ from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.models import ssm as JS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as S
+from torch_threads import jitted, one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 
@@ -116,8 +117,9 @@ def test_rwkv6_mix_matches_reference(Sq, with_state):
     state = None
     if with_state:
         state = {"S": _x((2, 2, 32, 32), 4), "prev": _x((2, 1, 64), 5)}
-    jy, jst = JS.rwkv6_mix(jp, jnp.asarray(x), jc, state=None if state is None
-                           else {k: jnp.asarray(v) for k, v in state.items()})
+    jy, jst = jitted(JS.rwkv6_mix, (2,))(
+        jp, jnp.asarray(x), jc, state=None if state is None
+        else {k: jnp.asarray(v) for k, v in state.items()})
     y, st = S.rwkv6_mix(tp, _t(x), tc, state=None if state is None
                         else {k: _t(v) for k, v in state.items()})
     _close(y, jy)
@@ -130,7 +132,7 @@ def test_rwkv6_channel_mix_matches_reference(with_state):
     jc, tc, jp, tp = _params(JS.init_rwkv6, RWKV_KW, seed=1)
     x = _x((2, 5, 64), 6)
     prev = _x((2, 1, 64), 7) if with_state else None
-    jy, jprev = JS.rwkv6_channel_mix(
+    jy, jprev = jitted(JS.rwkv6_channel_mix, (2,))(
         jp, jnp.asarray(x), jc, None if prev is None else jnp.asarray(prev))
     y, tprev = S.rwkv6_channel_mix(tp, _t(x), tc,
                                    None if prev is None else _t(prev))
@@ -147,7 +149,7 @@ def test_rwkv6_bf16_keeps_the_reference_dtypes():
         torch.bfloat16 if np.asarray(v).dtype.name == "bfloat16"
         else torch.float32) for k, v in jp.items()}
     x = _x((1, 32, 64), 8)
-    jy, jst = JS.rwkv6_mix(jp, jnp.asarray(x, jnp.bfloat16), jc)
+    jy, jst = jitted(JS.rwkv6_mix, (2,))(jp, jnp.asarray(x, jnp.bfloat16), jc)
     y, st = S.rwkv6_mix(tp, _t(x).to(torch.bfloat16), tc)
     assert y.dtype == torch.bfloat16 and st["prev"].dtype == torch.bfloat16
     assert st["S"].dtype == torch.float32
@@ -200,8 +202,9 @@ def test_mamba2_mix_matches_reference(Sq, with_state):
     state = None
     if with_state:
         state = {"S": _x((2, H, 16, 8), 12), "conv": _x((2, 3, conv_dim), 13)}
-    jy, jst = JS.mamba2_mix(jp, jnp.asarray(x), jc, state=None if state is None
-                            else {k: jnp.asarray(v) for k, v in state.items()})
+    jy, jst = jitted(JS.mamba2_mix, (2,))(
+        jp, jnp.asarray(x), jc, state=None if state is None
+        else {k: jnp.asarray(v) for k, v in state.items()})
     y, st = S.mamba2_mix(tp, _t(x), tc, state=None if state is None
                          else {k: _t(v) for k, v in state.items()})
     _close(y, jy)

@@ -32,6 +32,7 @@ from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, SOURCE
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
 from repro_torch.kernels.matmul import matmul_ref
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 

@@ -43,6 +43,7 @@ from repro_torch.optim import make_optimizer
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import trainer
 from repro_torch.tree import leaves_with_path, tree_map
+from torch_threads import jitted, one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.port
 
@@ -104,8 +105,9 @@ def test_attention_train_matches_reference(arch, impl, S):
     jl = jax.tree.map(lambda a: a[0], jp["blocks"]["l0"]["attn"])
     tl = {k: v[0] for k, v in tp["blocks"]["l0"]["attn"].items()}
     for window in (None, tc.window_size):
-        want = JA.attention_train(jl, jnp.asarray(x), jnp.asarray(pos), jc,
-                                  window=window, impl=impl)
+        want = jitted(JA.attention_train, (3,), ("window", "impl"))(
+            jl, jnp.asarray(x), jnp.asarray(pos), jc, window=window,
+            impl=impl)
         got = A.attention_train(tl, torch.from_numpy(x.copy()),
                                 torch.from_numpy(pos.copy()), tc,
                                 window=window, impl=impl)
@@ -118,11 +120,11 @@ def test_attention_train_matches_reference(arch, impl, S):
 def test_forward_and_loss_match_reference(arch, remat, S):
     jc, tc, jp, tp = _setup(arch, remat, loss_chunk=64 if S == 64 else 40)
     batch = _batch(tc, 2, S)
-    jh, jaux = JT.forward(jc, jp, {"tokens": batch["tokens"]})
+    jh, jaux = jitted(JT.forward, (0,))(jc, jp, {"tokens": batch["tokens"]})
     th, taux = T.forward(tc, tp, _tb(batch))
     np.testing.assert_allclose(_f32(th), _f32(jh), atol=2e-5, rtol=0)
     assert float(taux) == float(jaux) == 0.0
-    jl = JT.loss_fn(jc, jp, batch)
+    jl = jitted(JT.loss_fn, (0,))(jc, jp, batch)
     tl = T.loss_fn(tc, tp, _tb(batch))
     assert tl.dtype == torch.float32 and tl.dim() == 0
     assert abs(float(tl) - float(jl)) <= 1e-5
@@ -134,7 +136,7 @@ def test_forward_from_embeddings_matches_reference(arch):
     jc, tc, jp, tp = _setup(arch)
     x = np.random.default_rng(7).standard_normal(
         (2, 40, tc.d_model)).astype(np.float32)
-    jh, _ = JT.forward(jc, jp, {"embeds": jnp.asarray(x)})
+    jh, _ = jitted(JT.forward, (0,))(jc, jp, {"embeds": jnp.asarray(x)})
     th, _ = T.forward(tc, tp, {"embeds": torch.from_numpy(x.copy())})
     np.testing.assert_allclose(_f32(th), _f32(jh), atol=2e-5, rtol=0)
 

@@ -113,8 +113,10 @@ def test_transformer_train_wd_on_the_ports_configs(arch, cut, batch, seq):
 
 def test_every_port_config_has_a_reference_twin():
     assert set(list_configs()) == {"gemma3-12b", "mixtral-8x7b",
-                                   "qwen3-moe-30b-a3b", "rwkv6-7b",
-                                   "stablelm-3b", "yi-9b", "zamba2-2.7b"}
+                                   "musicgen-medium", "phi4-mini-3.8b",
+                                   "qwen2-vl-2b", "qwen3-moe-30b-a3b",
+                                   "rwkv6-7b", "stablelm-3b", "yi-9b",
+                                   "zamba2-2.7b"}
     for name in list_configs():
         _same(W.transformer_train_wd(get_config(name), 2, 512),
               JW.transformer_train_wd(jax_get_config(name), 2, 512))
