@@ -186,6 +186,24 @@ Phases, in order; any failure exits non-zero before the final ok line:
      once per layer a step, B6 twice per layer a step, every gradient
      leaf finite.
 
+  9. the sharding plans (A15: core/parallelism.py on DTensor) on a
+     one-rank group and a (1, 1) ("data", "model") mesh (one card; the
+     multi-rank runs are the CPU tests'). Parity (f32, TF32 off): reduced
+     yi-9b and qwen3-moe-30b-a3b (capacity factor 1.0, an overflow
+     asserted), 2 Adam steps under each of the seven plans: losses within
+     1e-4 of the unplanned cuda steps and of the same plan on a gloo cpu
+     group; moe_apply_ep under every plan with tensor axes, never under
+     dp; B6 launching as in the unplanned steps; pipeline_forward at S =
+     1 against the sequential stack. Full width: yi-9b (8 of 48 layers, 2
+     x 4096) and qwen3-moe-30b-a3b (2 layers, 1 x 4096, expert
+     parallelism engaged) trained under dp_tp in turns with the unplanned
+     step (step ms, peak GiB, B6 twice per attention layer a step in
+     both); yi-9b served at full depth (48 layers, bf16, 8 requests x 32
+     new) under Engine(plan=dp_tp) in turns with the unplanned engine
+     (tokens/s, TPOT p50, a profile's busy share; B1 == decode steps x
+     48), and in f32 at 2 layers with tokens equal to the unplanned
+     engine's.
+
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -1365,7 +1383,8 @@ def _timed_run(card, eng, label, waves, hook=None):
             "launches": dict(kernels.launch_counts),
             "steps": st["decode_steps"], "resident": resident,
             "preemptions": st["preemptions"], "resumes": st["resumes"],
-            "tok_s": generated / wall, "step_ms": np.median(dev) * 1e3}
+            "tok_s": generated / wall, "step_ms": np.median(dev) * 1e3,
+            "tpot_p50": float(np.percentile(tpot, 50)) * 1e3}
 
 
 def _match_share(label, base, other, against="the bf16-pool run",
@@ -3574,6 +3593,7 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=4,
     print("profile: top host self time: " + "; ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
         for e in host[:10]))
+    return busy_ms / wall_ms
 
 
 def _print_moe_split(averages, busy_ms, wall_ms, window):
@@ -4086,6 +4106,343 @@ def a17_main_phase(card, arch, layers, modes, kernel_rows=(), profile=False):
     _release_card()
 
 
+# ---------------------------------------- phase 9: sharding plans (A15)
+PLAN_ARCHS = ("yi-9b", "qwen3-moe-30b-a3b")
+
+
+def _one_rank_mesh(device):
+    """A one-rank default group (launch/mesh.py: gloo for cpu, nccl for
+    cuda) and a (1, 1) ("data", "model") DeviceMesh over it."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh((1, 1), ("data", "model"), device)
+
+
+def _plan_cfg(arch):
+    """Reduced f32 configs of the parity checks; qwen3-moe at capacity
+    factor 1.0, where its experts overflow."""
+    from repro_torch.configs import get_config, reduced
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
+                              remat=False)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=1.0)
+    return cfg
+
+
+def _plan_losses(cfg, params, batches, dev, plan):
+    """Losses of Adam steps (lr 3e-4, clip 1.0) from a copy of `params` on
+    `dev`, planned by `plan` (None: the unplanned step); with B6's and
+    moe_apply_ep's calls over them."""
+    from repro_torch import kernels
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_map
+    opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+    p = tree_map(lambda t: t.clone().to(dev), params)
+    state = {"params": p, "opt": opt.init(p)}
+    if plan is None:
+        step = trainer.make_train_step(cfg, opt)
+    else:
+        step, state, _ = trainer.jit_train_step(cfg, opt, plan, state)
+    kernels.reset_launch_counts()
+    _EP_CALLS[0] = 0
+    losses = []
+    for b in batches:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    return losses, kernels.launch_counts["flash_attention"], _EP_CALLS[0]
+
+
+_EP_CALLS = [0]
+_DROPS = [0]
+
+
+def _plan_spies():
+    """Count moe_apply_ep's calls and the expert assignments dropped at
+    capacity (inside moe_apply_ep the last local id is the discard bin, not
+    an expert). Returns the function that removes the spies."""
+    import torch
+    from repro_torch.core import parallelism as par
+    from repro_torch.models import moe as M
+    ep, slots = M.moe_apply_ep, M._slots
+    inside = [False]
+
+    def counted(*a, **k):
+        _EP_CALLS[0] += 1
+        inside[0] = True
+        try:
+            return ep(*a, **k)
+        finally:
+            inside[0] = False
+
+    def spied(flat_e, E, C):
+        expert, slot, keep = slots(flat_e, E, C)
+        real = flat_e < (E - 1 if inside[0] else E)
+        _DROPS[0] += int(torch.sum(real & ~par.full(keep)))
+        return expert, slot, keep
+
+    def restore():
+        M.moe_apply_ep, M._slots = ep, slots
+    M.moe_apply_ep, M._slots = counted, spied
+    return restore
+
+
+def plan_parity_phase(card):
+    """(a) Reduced f32 yi-9b and qwen3-moe-30b-a3b (capacity factor 1.0,
+    an overflow asserted), 2 Adam steps under each of the seven plans on a
+    (1, 1) mesh: the losses within TRAIN_PARITY_TOL of the unplanned cuda
+    steps and of the same plan on a one-rank gloo cpu group (made, then
+    destroyed, before the nccl group: a process holds one default group at
+    a time); moe_apply_ep called under every plan with tensor axes and
+    never under dp; B6 launching as often as in the unplanned steps. Then
+    pipeline_forward at S = 1 on cuda against the sequential stack.
+    Returns the cuda mesh (its nccl group stays up for the next phases)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import parallelism as par
+    from repro_torch.core import pipeline as PL
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    restore = _plan_spies()
+    try:
+        cfgs = {a: _plan_cfg(a) for a in PLAN_ARCHS}
+        params = {a: T.init_params(c, seed=0, device="cpu")
+                  for a, c in cfgs.items()}
+        batches = {a: list(SyntheticLM(c.vocab_size, 64, seed=0)
+                           .batches(2, 2)) for a, c in cfgs.items()}
+        ref = {a: _plan_losses(cfgs[a], params[a], batches[a], "cuda", None)
+               for a in PLAN_ARCHS}
+        cpu = {}
+        mesh = _one_rank_mesh("cpu")
+        try:
+            for a in PLAN_ARCHS:
+                for name in par.PLANS:
+                    cpu[a, name] = _plan_losses(
+                        cfgs[a], params[a], batches[a], "cpu",
+                        par.make_plan(name, mesh))[0]
+        finally:
+            dist.destroy_process_group()
+        mesh = _one_rank_mesh("cuda")
+        for a in PLAN_ARCHS:
+            for name in par.PLANS:
+                plan = par.make_plan(name, mesh)
+                _DROPS[0] = 0
+                got, b6, ep = _plan_losses(cfgs[a], params[a], batches[a],
+                                           "cuda", plan)
+                want, want_b6, _ = ref[a]
+                diff = max(max(abs(x - y) for x, y in zip(got, want)),
+                           max(abs(x - y) for x, y in zip(got, cpu[a, name])))
+                check(all(map(math.isfinite, got))
+                      and diff <= TRAIN_PARITY_TOL,
+                      f"plan parity {a} {name}: cuda {got} vs unplanned "
+                      f"{want} and cpu {cpu[a, name]}")
+                check(b6 == want_b6, f"plan parity {a} {name}: B6 launches "
+                      f"{b6} != unplanned {want_b6}")
+                if cfgs[a].num_experts:
+                    check((ep > 0) == bool(plan.tensor_axes),
+                          f"plan parity {a} {name}: moe_apply_ep called "
+                          f"{ep} times with tensor axes {plan.tensor_axes}")
+                    check(_DROPS[0] > 0, f"plan parity {a} {name}: no "
+                          f"expert assignment dropped at capacity 1.0")
+                print(f"plan parity {cfgs[a].name} (f32, {name}, (1, 1) "
+                      f"mesh, Adam, 2 steps): cuda losses {got} vs unplanned "
+                      f"{want} and cpu {cpu[a, name]}, max diff {diff:.3e} "
+                      f"(tol {TRAIN_PARITY_TOL}); B6 launches {b6} "
+                      f"(unplanned {want_b6}); moe_apply_ep calls {ep}; "
+                      f"assignments dropped {_DROPS[0]} | {card}")
+    finally:
+        restore()
+    from torch.distributed.device_mesh import init_device_mesh
+    smesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    gen = torch.Generator().manual_seed(3)
+    w = (torch.randn(1, 64, 64, generator=gen) * 0.3).cuda()
+    b = (torch.randn(1, 64, generator=gen) * 0.1).cuda()
+    x = torch.randn(8, 4, 64, generator=gen).cuda()
+    out = PL.pipeline_forward(lambda p, t: torch.tanh(t @ p["w"] + p["b"]),
+                              {"w": w, "b": b}, x, smesh)
+    want = torch.tanh(x @ w[0] + b[0])
+    err = float((out - want).abs().max())
+    check(err <= 2e-5 and PL.counts["rounds"] == 8
+          and PL.counts["hops"] == 0,
+          f"pipeline_forward S=1: err {err}, counts {PL.counts}")
+    print(f"plan parity: pipeline_forward 1 stage x 8 microbatches on cuda "
+          f"== the sequential stack (max err {err:.2e}; {PL.counts['rounds']} "
+          f"rounds, {PL.counts['hops']} hops) | {card}")
+    return mesh
+
+
+def _plan_train_turns(card, mesh, arch, layers, batch, seq):
+    """(b) `arch` at full width cut to `layers` layers, batch x seq, Adam
+    (lr 3e-4, clip 1.0) with remat, unplanned and under dp_tp on the (1, 1)
+    mesh over the same tensors (a one-rank DTensor wraps its local
+    tensor), in turns unplanned, dp_tp, dp_tp, unplanned after one warm-up
+    step each: step ms and peak GiB of each, finite losses, B6 twice per
+    attention layer a step in both; under dp_tp an MoE layer takes
+    moe_apply_ep."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import parallelism as par
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import state_providers as SP
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import trainer
+    _release_card()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    n_sb, _ = SP.superblock_layout(cfg)
+    per_step = 2 * n_sb * sum(k in T._ATTN_KINDS for k in SP.layer_kinds(cfg))
+    opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+    state = trainer.init_state(cfg, opt, seed=0)
+    plan = par.make_plan("dp_tp", mesh)
+    steps = {"unplanned": trainer.make_train_step(cfg, opt)}
+    steps["dp_tp"], pstate, _ = trainer.jit_train_step(cfg, opt, plan, state)
+    states = {"unplanned": state, "dp_tp": pstate}
+    batches = list(SyntheticLM(cfg.vocab_size, seq, seed=0).batches(batch, 6))
+    turns = ["unplanned", "dp_tp", "unplanned", "dp_tp", "dp_tp",
+             "unplanned"]
+    restore = _plan_spies()
+    rec = {"unplanned": [], "dp_tp": []}
+    try:
+        for i, (turn, b) in enumerate(zip(turns, batches)):
+            kernels.reset_launch_counts()
+            _EP_CALLS[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            states[turn], metrics = steps[turn](states[turn], b)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            n = kernels.launch_counts["flash_attention"]
+            check(math.isfinite(loss), f"plan train {arch} {turn}: loss "
+                  f"{loss}")
+            check(n == per_step, f"plan train {arch} {turn}: B6 launches "
+                  f"{n} != {per_step}")
+            if cfg.num_experts:
+                check((_EP_CALLS[0] > 0) == (turn == "dp_tp"),
+                      f"plan train {arch} {turn}: moe_apply_ep calls "
+                      f"{_EP_CALLS[0]}")
+            what = "warm-up" if i < 2 else "timed"
+            print(f"plan train {arch} ({layers} of {full.num_layers} layers, "
+                  f"{batch} x {seq}, remat) {turn} {what}: loss {loss:.4f}, "
+                  f"{dt:.1f} ms, peak {peak:.2f} GiB, B6 launches {n}, "
+                  f"moe_apply_ep calls {_EP_CALLS[0]} | {card}")
+            if i >= 2:
+                rec[turn].append((dt, peak))
+    finally:
+        restore()
+    summary = {k: (float(np.median([d for d, _ in v])),
+                   max(p for _, p in v)) for k, v in rec.items()}
+    print(f"plan train {arch}: step ms unplanned "
+          f"{summary['unplanned'][0]:.1f} vs dp_tp {summary['dp_tp'][0]:.1f} "
+          f"(x{summary['dp_tp'][0] / summary['unplanned'][0]:.3f}); peak GiB "
+          f"{summary['unplanned'][1]:.2f} vs {summary['dp_tp'][1]:.2f} "
+          f"(2 timed steps each, in turns) | {card}")
+    del states, steps, state, pstate
+    _release_card()
+
+
+def _plan_serve(card, mesh):
+    """(c) yi-9b at full depth (48 layers, bf16) through the Engine
+    unplanned and with Engine(plan=dp_tp) on the (1, 1) mesh, in turns
+    unplanned, dp_tp, dp_tp, unplanned: 8 mixed requests with 32 new tokens
+    each; tokens/s and TPOT p50 of each (step_timing), B1 == decode steps x
+    48 in both, bf16 token agreement printed; the device busy share of
+    both from a profile of 4 engine steps. Then yi-9b in f32 cut to 2
+    layers: the planned engine's tokens equal the unplanned engine's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import parallelism as par
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.workloads import mixed_workload
+    _release_card()
+    cfg = get_config("yi-9b")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    ecfg = EngineConfig(block_size=16, num_blocks=1024, max_blocks_per_seq=128,
+                        max_slots=8, prefill_chunk=256, step_timing=True)
+    prompts, _ = mixed_workload(n=8, seed=0, vocab=cfg.vocab_size)
+    news = [32] * len(prompts)
+    plan = par.make_plan("dp_tp", mesh)
+    wave = [[(p, m, 0) for p, m in zip(prompts, news)]]
+    res = {"unplanned": [], "dp_tp": []}
+    for turn in ("unplanned", "dp_tp", "dp_tp", "unplanned"):
+        eng = Engine(cfg, params, ecfg,
+                     plan=plan if turn == "dp_tp" else None)
+        r = _timed_run(card, eng, f"plan serve yi-9b {turn}", wave)
+        b1 = r["launches"]["paged_attention"]
+        check(b1 == r["steps"] * cfg.num_layers,
+              f"plan serve {turn}: B1 launches {b1} != {r['steps']} x "
+              f"{cfg.num_layers}")
+        res[turn].append(r)
+        del eng
+        _release_card()
+    same = sum(a == b for a, b in zip(res["unplanned"][0]["outs"],
+                                      res["dp_tp"][0]["outs"]))
+    busy = {}
+    for turn in ("unplanned", "dp_tp"):
+        eng = Engine(cfg, params, dataclasses.replace(ecfg, step_timing=False),
+                     plan=plan if turn == "dp_tp" else None)
+        busy[turn] = where_time_goes(card, eng, prompts, news, warm=3,
+                                     window=4, label=f"yi-9b {turn}")
+        del eng
+        _release_card()
+
+    def med(turn, key):
+        return float(np.median([r[key] for r in res[turn]]))
+    print(f"plan serve yi-9b ({cfg.num_layers} layers, bf16, {len(prompts)} "
+          f"requests x {news[0]} new): tok/s "
+          f"unplanned {med('unplanned', 'tok_s'):.2f} vs dp_tp "
+          f"{med('dp_tp', 'tok_s'):.2f}; TPOT p50 "
+          f"{med('unplanned', 'tpot_p50'):.2f} vs "
+          f"{med('dp_tp', 'tpot_p50'):.2f} ms (x"
+          f"{med('dp_tp', 'tpot_p50') / med('unplanned', 'tpot_p50'):.2f}); "
+          f"device busy {_share(busy['unplanned'])} vs "
+          f"{_share(busy['dp_tp'])} (profiles of 4 steps); bf16 tokens "
+          f"equal on {same} of {len(prompts)} requests | {card}")
+    del params
+    _release_card()
+    f32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    params = T.init_params(f32, seed=0, device="cuda")
+    small = dataclasses.replace(ecfg, step_timing=False)
+    outs = []
+    for pl in (None, plan):
+        eng = Engine(f32, params, small, plan=pl)
+        rids = [eng.add_request(p, m) for p, m in zip(prompts, news)]
+        got = eng.drain()
+        outs.append([got[r].tolist() for r in rids])
+    check(outs[0] == outs[1], "plan serve f32: dp_tp tokens != unplanned")
+    print(f"plan serve yi-9b f32 (2 layers): Engine(plan=dp_tp) tokens == "
+          f"unplanned on all {len(prompts)} requests | {card}")
+    del params
+    _release_card()
+
+
+def _share(x):
+    return "not measured" if x is None else f"{x:.1%}"
+
+
+def plan_phase(card):
+    """The sharding plans (core/parallelism.py on DTensor) on the card: a
+    one-rank nccl group and a (1, 1) ("data", "model") mesh (one H100: the
+    multi-rank runs are the CPU tests'); (a) plan_parity_phase, (b)
+    yi-9b (8 of 48 layers, 2 x 4096) and qwen3-moe-30b-a3b (2 layers, 1 x
+    4096) training under dp_tp beside the unplanned step, (c) yi-9b
+    serving under Engine(plan=dp_tp) beside the unplanned engine."""
+    import torch.distributed as dist
+    mesh = plan_parity_phase(card)
+    try:
+        _plan_train_turns(card, mesh, "yi-9b", TRAIN_LAYERS, 2, 4096)
+        _plan_train_turns(card, mesh, "qwen3-moe-30b-a3b", 2, 1, 4096)
+        _plan_serve(card, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
 NO_SPILL = {"flash_attention": r"flash_fwd_bf16ILi(64|80|128)E",
             "matmul": r"matmul_(bf16_)?kernel",
             "paged_attention": r"paged_decode_tcILi(64|80|128|256)E"}
@@ -4267,6 +4624,8 @@ def main() -> int:
         train_main_phase(card, None, arch="phi4-mini-3.8b", layers=4, batch=1,
                          seq=4096, timed=2, profile=False)
         lap("phi4-mini-3.8b serving and training")
+        plan_phase(card)
+        lap("sharding plans")
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()

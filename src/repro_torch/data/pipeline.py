@@ -1,6 +1,6 @@
 """Deterministic synthetic data pipeline (the port's copy of
-``repro.data.pipeline``, numpy only; ``shard_batch`` is left out: the port
-trains on one device).
+``repro.data.pipeline``; numpy, but for `shard_batch`, which places a batch
+on a sharding plan's mesh as DTensors).
 
 Two sources:
   * `SyntheticLM` — a seeded Markov-ish token stream with learnable structure
@@ -64,3 +64,21 @@ def copy_task(batch_size: int, seq_len: int, vocab: int, seed: int = 0):
     labels[:, -1] = 0
     return {"tokens": tokens, "labels": labels}
 
+
+
+def shard_batch(batch, plan):
+    """A batch {name: (B, ...) array or tensor} as DTensors on the plan's
+    mesh with its batch placements (``plan.batch_specs``: rows split over
+    the batch axes; M-RoPE's (3, B, S) positions on axis 1). Rank 0's batch
+    is the one placed: each rank gets its rows of it (under torchrun the
+    ranks' ``SyntheticLM`` draw different batches). Leaves that are
+    DTensors already stay as they are."""
+    import torch
+
+    from repro_torch.core import parallelism as par
+    dev = plan.mesh.device_type
+    batch = {k: v if par.is_dtensor(v)
+             else torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                  else v, device=dev)
+             for k, v in batch.items()}
+    return par.shard_tree(batch, plan.batch_specs(batch), plan.mesh)

@@ -1,6 +1,11 @@
-"""The data-parallel process group (counterpart of
-``repro.launch.mesh.make_host_mesh``: a group of ranks takes the place of
-the mesh's "data" axis). Nothing here runs at import time."""
+"""Process groups and device meshes (counterpart of ``repro.launch.mesh``).
+
+`make_dp_group` is the default process group (a group of ranks takes the
+place of a JAX mesh's "data" axis in the paper mode); `make_host_mesh`
+lays a ``DeviceMesh`` over it for the sharding plans; and
+`make_production_mesh` gives the reference's production mesh shapes as an
+``AbstractMesh`` (axis sizes only: no run here has 256 ranks). Nothing here
+runs at import time."""
 from __future__ import annotations
 
 import atexit
@@ -11,6 +16,8 @@ import tempfile
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.parallelism import AbstractMesh
 
 
 def make_dp_group(device="cuda", *, init_method=None,
@@ -48,3 +55,29 @@ def make_dp_group(device="cuda", *, init_method=None,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world, timeout=timeout)
     return dist.group.WORLD
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: 16x16 = 256 chips ('data', 'model'); multi-pod adds a
+    2-way 'pod' axis (512 chips). Shape only: the plans' rules run on it."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh(shape=(1,), axes=("data",), device="cuda", **group_kw):
+    """A ``DeviceMesh`` of `shape` named `axes` over the default process
+    group (made by `make_dp_group(device, **group_kw)` if there is none).
+    When the shape's size is not the group's, the mesh falls back to
+    ((world,), ("data",)), as the reference's falls back to its device
+    count."""
+    from torch.distributed.device_mesh import init_device_mesh
+    make_dp_group(device, **group_kw)
+    world = dist.get_world_size()
+    total = 1
+    for s in shape:
+        total *= s
+    if total != world:
+        shape, axes = (world,), ("data",)
+    return init_device_mesh(torch.device(device).type, tuple(shape),
+                            mesh_dim_names=tuple(axes))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import parallelism as par
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_verify)
@@ -63,12 +64,38 @@ def _scatter(kv, bids, offs, k, v, quantized=None):
 
 
 def _split_heads(x, n, hd):
+    if par.is_dtensor(x):
+        x = _whole_heads(x, n)
     return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _whole_heads(x, n):
+    """A DTensor (..., n·hd) whose last dim splits into whole heads: kept
+    when one mesh dim shards it and divides the n heads; otherwise that dim
+    is gathered (DTensor cannot view a dim split over two mesh dims, or
+    within a head, as (n, hd))."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.ndim - 1
+    dims = [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim in (-1, last)]
+    if not dims or (len(dims) == 1 and n % x.device_mesh.size(dims[0]) == 0):
+        return x
+    want = [Replicate() if i in dims else p
+            for i, p in enumerate(x.placements)]
+    return x.redistribute(x.device_mesh, want)
 
 
 def _repeat_kv(k, n_rep):
     if n_rep == 1:
         return k
+    if par.is_dtensor(k):
+        # each rank's kv heads feed its own contiguous query heads, so the
+        # repeat runs on the local heads whatever their placement
+        from torch.distributed.tensor.experimental import local_map
+        pl = list(k.placements)
+        return local_map(lambda t: torch.repeat_interleave(t, n_rep, dim=2),
+                         out_placements=pl, in_placements=(pl,),
+                         device_mesh=k.device_mesh)(k)
     return torch.repeat_interleave(k, n_rep, dim=2)
 
 
@@ -86,6 +113,15 @@ def _project_qkv(params, x, positions, cfg):
     elif cfg.rope_mode != "none":
         raise ValueError(f"unknown rope_mode {cfg.rope_mode!r}")
     return q, k, v
+
+
+def _plain_qkv(params, x, positions, cfg):
+    """`_project_qkv` for the paged verbs: under a sharding plan q, k and v
+    are gathered whole, since the paged pools are plain tensors holding
+    every kv head on every rank (the reference gives them no sharding);
+    the kernels then take every head."""
+    return tuple(par.full(t) for t in _project_qkv(params, x, positions,
+                                                    cfg))
 
 
 def rope_positions(pos, cfg):
@@ -132,12 +168,40 @@ def attention_train(params, x, positions, cfg, *, window=None,
     q, k, v = _project_qkv(params, x, positions, cfg)
     B, S = x.shape[0], x.shape[1]
     if x.is_cuda:
-        out = flash_attention(q, k, v, causal=True, window=window)
+        def attend(q, k, v):
+            return flash_attention(q, k, v, causal=True, window=window)
     else:
         chunk = S if impl == "naive" else cfg.attn_chunk
-        out = _attend_full(q, k, v, h // hkv, 1.0 / np.sqrt(hd), chunk,
-                           window)
+
+        def attend(q, k, v):
+            return _attend_full(q, k, v, h // hkv, 1.0 / np.sqrt(hd), chunk,
+                                window)
+    out = _on_local_heads(attend, q, k, v)
     return out.reshape(B, S, h * hd) @ params["wo"]
+
+
+def _on_local_heads(fn, q, k, v):
+    """fn(q, k, v) -> (B, S, H, hd); on DTensors (a sharding plan) it runs
+    through ``local_map`` on each rank's own rows and heads: the batch
+    split over the plan's batch axes and the heads over its tensor axes
+    where they divide (the query and the kv heads alike), each replicated
+    otherwise. So a kernel only ever sees plain local tensors."""
+    if not par.is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+    plan = par.current_plan()
+    mesh = q.device_mesh
+    spec = par.P()
+    if plan is not None:
+        heads = plan.tensor_axes or None
+        if heads and not par._divisible(k.shape[2], heads, plan.shape):
+            heads = None
+        spec = par.clean_spec(plan, q.shape,
+                              par.P(plan.batch_axes or None, None, heads))
+    want = par.placements(spec, mesh, [min(a, b) for a, b in
+                                       zip(q.shape, k.shape)])
+    return local_map(fn, out_placements=list(want), in_placements=(want,) * 3,
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def _chunked_attention(q, k, v, n_rep, scale, chunk, window):
@@ -193,13 +257,11 @@ def _store(cache, slots, k, v, quantized=None):
     cache), in place."""
     if "k_scale" in cache:
         qk, sk, qv, sv = quantized or _quantize_pair(k, v)
-        cache["k"][:, slots] = qk
-        cache["v"][:, slots] = qv
-        cache["k_scale"][:, slots] = sk
-        cache["v_scale"][:, slots] = sv
+        vals = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
     else:
-        cache["k"][:, slots] = k
-        cache["v"][:, slots] = v
+        vals = {"k": k, "v": v}
+    for name, val in vals.items():
+        par.write_along(cache[name], 1, slots, val)
 
 
 def attention_prefill(params, x, cache, cfg, *, window=None):
@@ -218,8 +280,9 @@ def attention_prefill(params, x, cache, cfg, *, window=None):
         quantized = qk, sk, qv, sv = _quantize_pair(k, v)
         k = dequantize_kv(qk, sk).to(k.dtype)
         v = dequantize_kv(qv, sv).to(v.dtype)
-    out = _attend_full(q, k, v, h // hkv, 1.0 / np.sqrt(hd), cfg.attn_chunk,
-                       window)
+    out = _on_local_heads(
+        lambda q, k, v: _attend_full(q, k, v, h // hkv, 1.0 / np.sqrt(hd),
+                                     cfg.attn_chunk, window), q, k, v)
     out = out.reshape(B, S, h * hd) @ params["wo"]
 
     Sc = cache["k"].shape[1]
@@ -251,10 +314,6 @@ def attention_decode(params, x, cache, index, cfg, *, window=None):
         v = dequantize_kv(cache["v"], cache["v_scale"]).to(x.dtype)
     else:
         k, v = cache["k"], cache["v"]
-    n_rep = h // hkv
-    kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    scale = 1.0 / np.sqrt(hd)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
     kpos = torch.arange(Sc, device=x.device)
     if window is not None:
         # ring buffer: valid entries were written within the last
@@ -262,9 +321,16 @@ def attention_decode(params, x, cache, index, cfg, *, window=None):
         valid = (slot - kpos) % Sc < min(index + 1, Sc)
     else:
         valid = kpos <= index
-    s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, 1, h * hd)
+
+    scale = 1.0 / np.sqrt(hd)
+
+    def attend(q, k, v):
+        kk, vv = _repeat_kv(k, h // hkv), _repeat_kv(v, h // hkv)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+    out = _on_local_heads(attend, q, k, v).reshape(B, 1, h * hd)
     return out @ params["wo"], cache
 
 
@@ -313,9 +379,8 @@ def attention_decode_paged(params, x, kv, block_tables, positions, attn_lens,
     (B,1,D), kv updated in place)."""
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     B = x.shape[0]
-    q, k_new, v_new = _project_qkv(params, x,
-                                   rope_positions(positions[:, None], cfg),
-                                   cfg)
+    q, k_new, v_new = _plain_qkv(params, x,
+                                 rope_positions(positions[:, None], cfg), cfg)
     paged_write(kv, k_new[:, 0], v_new[:, 0], block_tables, positions,
                 attn_lens > 0, ring_pages=ring_pages)
     ring = {} if window is None else dict(window=window, positions=positions,
@@ -355,8 +420,8 @@ def attention_verify_paged(params, x, kv, block_tables, base, qlims, cfg, *,
     B, K = x.shape[0], x.shape[1]
     ar = torch.arange(K, device=x.device, dtype=base.dtype)
     positions = base[:, None] + ar[None, :]                       # (B, K)
-    q, k_new, v_new = _project_qkv(params, x, rope_positions(positions, cfg),
-                                   cfg)
+    q, k_new, v_new = _plain_qkv(params, x, rope_positions(positions, cfg),
+                                 cfg)
     write = ar[None, :] < qlims[:, None]                          # (B, K)
     paged_write_multi(kv, k_new, v_new, block_tables, positions, write,
                       ring_pages=ring_pages)
@@ -382,7 +447,7 @@ def attention_prefill_paged(params, x, kv, table_rows, starts, valids, cfg):
     G, C = x.shape[0], x.shape[1]
     ar = torch.arange(C, device=x.device, dtype=starts.dtype)
     pos = starts[:, None] + ar[None, :]                           # (G, C)
-    q, k, v = _project_qkv(params, x, rope_positions(pos, cfg), cfg)
+    q, k, v = _plain_qkv(params, x, rope_positions(pos, cfg), cfg)
 
     bs = kv["k"].shape[1]
     P = table_rows.shape[1]
@@ -430,7 +495,7 @@ def attention_prefill_ring(params, x, kv, table_rows, starts, valids, cfg,
     G, C = x.shape[0], x.shape[1]
     ar = torch.arange(C, device=x.device, dtype=starts.dtype)
     pos = starts[:, None] + ar[None, :]                           # (G, C)
-    q, k, v = _project_qkv(params, x, rope_positions(pos, cfg), cfg)
+    q, k, v = _plain_qkv(params, x, rope_positions(pos, cfg), cfg)
     quant = "k_scale" in kv
     quantized = None
     if quant:

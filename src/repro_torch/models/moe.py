@@ -23,15 +23,24 @@ inverse map and sums over k in a fixed order, and the dispatch is an
 plain ``torch.bmm``: the reference computes them with XLA einsums outside
 any Pallas kernel.
 
-Expert parallelism (``moe_apply_ep``) needs the sharding plans of ROADMAP
-A15 and raises until then.
+Under a sharding plan (``core.parallelism``) the layer takes DTensors.
+`moe_apply_ep` is the reference's expert-parallel path: each rank routes
+its data shard's tokens to its own slice of the experts at the per-shard
+capacity, and the partial outputs are summed over the tensor axes. Where
+it does not apply (the dp plan, or experts that do not divide the tensor
+axes), `moe_apply` and `load_balance_loss` gather their inputs and run on
+every rank over the whole batch, so capacity stays global, as the
+reference's GSPMD step keeps it.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.core import parallelism as par
 
 
 def _route(params, xt, cfg):
@@ -80,6 +89,26 @@ def _experts(params, buf):
     return torch.bmm(act, params["w_out"])
 
 
+def _replicated(fn):
+    """fn over DTensor arguments run on every rank on their whole values
+    (gathered), its result a replicated DTensor. Every rank computes the
+    same thing, so the gradients stay replicated too."""
+    def run(params, x, cfg):
+        if not par.is_dtensor(x):
+            return fn(params, x, cfg)
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = x.device_mesh
+        rep = (Replicate(),) * mesh.ndim
+
+        def local(t):
+            return (t.redistribute(mesh, rep).to_local()
+                    if par.is_dtensor(t) else t)
+        out = fn({k: local(v) for k, v in params.items()}, local(x), cfg)
+        return DTensor.from_local(out, mesh, rep, run_check=False)
+    return run
+
+
+@_replicated
 def moe_apply(params, x, cfg):
     """x (B, S, D) -> (B, S, D). params: {"router" (D, E) f32, "w_gate",
     "w_in" (E, D, F), "w_out" (E, F, D)}."""
@@ -105,6 +134,7 @@ def moe_apply(params, x, cfg):
     return torch.sum(rows.reshape(T, K, D), dim=1).reshape(B, S, D)
 
 
+@_replicated
 def load_balance_loss(params, x, cfg):
     """Auxiliary load-balancing loss (Shazeer-style): E · Σ_e f_e · p_e,
     with f_e the share of top-k assignments routed to expert e and p_e its
@@ -116,17 +146,96 @@ def load_balance_loss(params, x, cfg):
 
 
 def ep_applicable(cfg, plan) -> bool:
-    """Whether the expert-parallel path applies: never without a sharding
-    plan; the port has no plans before ROADMAP A15."""
+    """Whether the expert-parallel path applies: a plan with tensor axes
+    whose size divides the experts."""
     if plan is None or not cfg.num_experts:
         return False
-    raise NotImplementedError(
-        "expert parallelism over a sharding plan comes with ROADMAP A15")
+    axes = plan.tensor_axes
+    if not axes:
+        return False
+    ep = plan.axis_size(axes)
+    return cfg.num_experts % ep == 0 and cfg.num_experts >= ep
+
+
+class _SumOverGroups(torch.autograd.Function):
+    """All-reduce (sum) over each process group in turn; the backward is
+    the identity. The summed output's consumers are replicated over these
+    groups, so each rank's gradient of it is already the whole gradient
+    (an all-reduce there would multiply it by the group size)."""
+
+    @staticmethod
+    def forward(ctx, t, *groups):
+        t = t.clone()
+        for g in groups:
+            dist.all_reduce(t, group=g)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad,) + (None,) * len(ctx.needs_input_grad[1:])
 
 
 def moe_apply_ep(params, x, cfg, plan):
-    """The reference's expert-parallel path (experts sharded over the
-    plan's model axis, one psum of the partial outputs per layer)."""
-    raise NotImplementedError(
-        "moe_apply_ep (expert parallelism over a sharding plan) comes with "
-        "ROADMAP A15")
+    """Expert-parallel MoE (survey §5.2): the experts are split over the
+    plan's tensor axes (E / ep per rank) and x (B, S, D) is split over its
+    batch axes and replicated over the tensor axes, so every rank already
+    holds the tokens its experts need and the dispatch moves nothing. Each
+    rank routes its T_loc tokens to its own experts at the per-shard
+    capacity C_loc = ceil(T_loc·k/E · capacity_factor) and the only
+    collective is one sum of the (T_loc, D) partial outputs over the tensor
+    axes. Drops can differ from the global-capacity `moe_apply` (the
+    reference's documented approximation). x and params are DTensors on the
+    plan's mesh; returns x's shape, split over the batch axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    t_axes = plan.tensor_axes
+    E, K = cfg.num_experts, cfg.experts_per_token
+    ep = plan.axis_size(t_axes)
+    E_loc = E // ep
+    x_spec = par.clean_spec(plan, x.shape, par.P(plan.batch_axes or None))
+    x_pl = par.placements(x_spec, mesh, x.shape)
+    w_pl = par.placements(par.P(t_axes), mesh)
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(t, want):
+        # the gradient of a value replicated over a mesh dim is each rank's
+        # partial contribution there: every rank runs other experts / rows
+        grad = tuple(Partial() if isinstance(p, Replicate) else p
+                     for p in want)
+        return t.redistribute(mesh, want).to_local(grad_placements=grad)
+
+    router = local(params["router"], rep)
+    w = {k: local(params[k], w_pl) for k in ("w_gate", "w_in", "w_out")}
+    xl = local(x, x_pl)
+    B, S, D = xl.shape
+    T = B * S
+    C = capacity(T, cfg)
+    xt = xl.reshape(T, D)
+    _, top_p, top_e = _route({"router": router}, xt, cfg)
+
+    coord = mesh.get_coordinate()
+    ep_rank = 0
+    for a in t_axes:                  # major first, as the experts' Shard
+        i = names.index(a)
+        ep_rank = ep_rank * mesh.size(i) + coord[i]
+    lo = ep_rank * E_loc
+    flat_e = top_e.reshape(-1)
+    mine = (flat_e >= lo) & (flat_e < lo + E_loc)
+    # rank within its local expert, among this rank's assignments only
+    # (E_loc is the discard bin)
+    expert, slot, keep = _slots(torch.where(mine, flat_e - lo, E_loc),
+                                E_loc + 1, C)
+    keep = keep & mine
+    expert = torch.where(keep, expert, 0)
+    slot = torch.where(keep, slot, C)
+    buf = xl.new_zeros((E_loc, C + 1, D)).index_put(
+        (expert, slot), torch.repeat_interleave(xt, K, dim=0))
+    y = _experts(w, buf[:, :C])
+    y = torch.cat([y, y.new_zeros((E_loc, 1, D))], dim=1)
+    wt = (top_p.reshape(-1) * keep).to(y.dtype)
+    out = torch.sum((y[expert, slot] * wt[:, None]).reshape(T, K, D), dim=1)
+    out = _SumOverGroups.apply(out, *(mesh.get_group(a) for a in t_axes))
+    return DTensor.from_local(out.reshape(B, S, D), mesh, x_pl,
+                              run_check=False,
+                              shape=x.shape, stride=x.stride())

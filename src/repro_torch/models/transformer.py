@@ -37,6 +37,14 @@ stubs, as in the reference: `forward` takes precomputed "embeds" (and
 M-RoPE's (3, B, S) "positions"), `decode_step` an "embed"; the serving
 verbs take token ids and, under M-RoPE, the text position in all three
 streams.
+
+Under a sharding plan (``core.parallelism``: the params, and in training
+the batch, are DTensors) `forward` constrains the residual stream to
+("batch", "seq", None) after the embedding and after each superblock, as
+the reference does, an MoE layer takes ``moe_apply_ep`` where
+``ep_applicable`` holds, and the loss's gold logit is a one-hot
+contraction. The paged entry points, whose pools are plain tensors,
+return their logits gathered whole.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import parallelism as par
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -248,7 +257,9 @@ def logits(cfg: ModelConfig, params, hidden):
 
 
 def _embed_tokens(cfg, params, tokens):
-    x = L.embed(params["embed"], tokens)
+    table = params["embed"]["table"]
+    x = (par.embedding(table, tokens) if par.is_dtensor(table)
+         else L.embed(params["embed"], tokens))
     if cfg.family != "ssm":
         x = x * float(np.sqrt(cfg.d_model))
     return x
@@ -263,29 +274,53 @@ def _window(kind, cfg):
 
 
 # -------------------------------------------------------------------- forward
+def _residual(y):
+    """A sublayer's output `y` in the residual stream's placements, ("batch",
+    "seq", None): under sequence parallelism the row-split linear's partial
+    sums are reduce-scattered over the sequence, as Megatron's do, so the
+    gradient reaching the matmul is not split over the sequence (DTensor in
+    torch 2.11 refuses to flatten one into the matmul's rows). A no-op
+    without a plan."""
+    return par.constrain(y, ("batch", "seq", None))
+
+
+def _whole_seq(h):
+    """`h` (B, S, D) split over the batch axes only. Under sequence
+    parallelism (dp_tp_sp) the residual stream is split over the sequence
+    between layers; a layer's matmuls take the whole sequence, as
+    Megatron's all-gather before its column-split linear does (DTensor in
+    torch 2.11 refuses to flatten a split sequence into a matmul's rows).
+    A no-op without a plan."""
+    return par.constrain(h, ("batch", None, None))
+
+
 def _apply_layer_train(kind, lp, x, positions, cfg):
     """One layer over a full sequence. Attention kinds: x + attention, then
     x + MLP or MoE (whose load-balancing loss is the aux); rwkv: x + time
     mix, then x + channel mix; mamba: x + Mamba2 mix, then x + MLP. For
     ``shared_attn`` `lp` is the hybrid's shared block. Returns (x, aux
     loss)."""
-    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    h = _whole_seq(L.rmsnorm(lp["ln1"], x, cfg.norm_eps))
     if kind in _ATTN_KINDS:
-        x = x + A.attention_train(lp["attn"], h, positions, cfg,
-                                  window=_window(kind, cfg))
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        x = x + _residual(A.attention_train(lp["attn"], h, positions, cfg,
+                                            window=_window(kind, cfg)))
+        h = _whole_seq(L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
         if "moe" in lp:
-            return (x + M.moe_apply(lp["moe"], h, cfg),
-                    M.load_balance_loss(lp["moe"], h, cfg))
-        return x + L.swiglu(lp["mlp"], h), 0.0
+            plan = par.current_plan()
+            if M.ep_applicable(cfg, plan):
+                y = M.moe_apply_ep(lp["moe"], h, cfg, plan)
+            else:
+                y = M.moe_apply(lp["moe"], h, cfg)
+            return x + _residual(y), M.load_balance_loss(lp["moe"], h, cfg)
+        return x + _residual(L.swiglu(lp["mlp"], h)), 0.0
     if kind == "rwkv":
-        x = x + S.rwkv6_mix(lp["rwkv"], h, cfg)[0]
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        return x + S.rwkv6_channel_mix(lp["rwkv"], h, cfg)[0], 0.0
+        x = x + _residual(S.rwkv6_mix(lp["rwkv"], h, cfg)[0])
+        h = _whole_seq(L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        return x + _residual(S.rwkv6_channel_mix(lp["rwkv"], h, cfg)[0]), 0.0
     if kind == "mamba":
-        x = x + S.mamba2_mix(lp["mamba"], h, cfg)[0]
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        return x + L.swiglu(lp["mlp"], h), 0.0
+        x = x + _residual(S.mamba2_mix(lp["mamba"], h, cfg)[0])
+        h = _whole_seq(L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        return x + _residual(L.swiglu(lp["mlp"], h)), 0.0
     raise ValueError(kind)
 
 
@@ -318,6 +353,7 @@ def forward(cfg: ModelConfig, params, inputs):
     if positions is None:
         positions = A.rope_positions(
             torch.arange(Sq, device=x.device)[None].expand(B, Sq), cfg)
+    x = par.constrain(x, ("batch", "seq", None))
     kinds = _layer_kinds(cfg)
     shared = params.get("shared_attn")
     layer_fn = _apply_layer_train
@@ -330,7 +366,7 @@ def forward(cfg: ModelConfig, params, inputs):
             lp = shared if kind == "shared_attn" else sb_params[f"l{i}"]
             x, a = layer_fn(kind, lp, x, positions, cfg)
             aux = aux + a
-        return x, aux
+        return par.constrain(x, ("batch", "seq", None)), aux
 
     if cfg.remat:
         sb_fn = _checkpointed(sb_fn)
@@ -344,10 +380,18 @@ def forward(cfg: ModelConfig, params, inputs):
 
 
 def _ce_chunk(h, labels, head):
-    """Summed cross-entropy of one chunk: h (B, c, D) against head (D, V)."""
+    """Summed cross-entropy of one chunk: h (B, c, D) against head (D, V).
+    The gold logit is a gather on plain tensors; on DTensors (a sharding
+    plan) it is the reference's one-hot contraction, which keeps
+    vocab-sharded logits sharded (DTensor cannot gather along a sharded
+    dim)."""
     lg = (h @ head).float()
     lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+    if par.is_dtensor(lg):
+        vocab = torch.arange(lg.shape[-1], device=lg.device)
+        gold = torch.sum(lg * (labels[..., None] == vocab).float(), dim=-1)
+    else:
+        gold = torch.gather(lg, -1, labels[..., None])[..., 0]
     return torch.sum(lse - gold)
 
 
@@ -355,9 +399,11 @@ def loss_fn(cfg: ModelConfig, params, batch):
     """Chunked cross-entropy over sequence chunks of ``cfg.loss_chunk``,
     each chunk checkpointed so its (B, chunk, V) f32 logits are recomputed
     in the backward pass instead of stored; plus 0.01 · aux. The gold logit
-    is a gather (the reference contracts a one-hot only to keep its
-    vocab-sharded logits sharded). batch: {"tokens", "labels"} (B, S)."""
+    is a gather without a plan (the reference contracts a one-hot only to
+    keep its vocab-sharded logits sharded; under a plan the port does too).
+    batch: {"tokens", "labels"} (B, S)."""
     hidden, aux = forward(cfg, params, batch)
+    hidden = _whole_seq(hidden)
     labels = batch["labels"].long()
     B, Sq, _ = hidden.shape
     chunk = min(cfg.loss_chunk, Sq)
@@ -437,13 +483,15 @@ def _apply_layer_decode(kind, lp, cache, x, index, cfg):
 
 def _write(st, new, keep=None):
     """Copy a recurrent layer's new state into its slab views, in place;
-    rows where `keep` (B,) is False keep their old state."""
+    rows where `keep` (B,) is False keep their old state. A plain slab
+    takes a DTensor state (a sharding plan's) gathered whole."""
     for k, a in st.items():
+        n = new[k] if par.is_dtensor(a) else par.full(new[k])
         if keep is None:
-            a.copy_(new[k])
+            a.copy_(n)
         else:
             a.copy_(torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)),
-                                new[k], a))
+                                n, a))
 
 
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
@@ -588,7 +636,7 @@ def paged_decode_step(cfg: ModelConfig, params, pool, inputs, block_tables,
                                         window=window, ring_pages=rp)
         x = _attn_block(lp, x, y, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits(cfg, params, x)[:, 0], pool
+    return par.full(logits(cfg, params, x)[:, 0]), pool
 
 
 def _stack_states(states):
@@ -603,13 +651,15 @@ def _recurrent_verify_layer(kind, lp, slab, x, cfg):
     D), checkpoints) with checkpoint leaves (K, max_slots, ...):
     checkpoint j is the state after drafts 0..j, so the caller rolls
     rejected drafts back exactly by taking checkpoint `accepted - 1`
-    (state_providers.select_checkpoint). The slab itself is not touched."""
+    (state_providers.select_checkpoint). The slab itself is not touched;
+    under a sharding plan the checkpoints are gathered whole, as the slab
+    is a plain tensor."""
     st, ys, cps = slab, [], []
     for t in range(x.shape[1]):
         yt, st = _apply_layer_decode(kind, lp, st, x[:, t:t + 1], t, cfg)
         ys.append(yt[:, 0])
         cps.append(st)
-    return torch.stack(ys, dim=1), _stack_states(cps)
+    return torch.stack(ys, dim=1), par.full_tree(_stack_states(cps))
 
 
 def paged_verify_step(cfg: ModelConfig, params, pool, tokens, block_tables,
@@ -641,7 +691,7 @@ def paged_verify_step(cfg: ModelConfig, params, pool, tokens, block_tables,
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = {name: _stack_states(cps[name]) if name in cps else layer
            for name, layer in pool.items()}
-    return logits(cfg, params, x), aux
+    return par.full(logits(cfg, params, x)), aux
 
 
 def _recurrent_prefill_layer(kind, lp, slab, x, valids, slots, cfg, steps):
@@ -711,7 +761,7 @@ def paged_prefill_packed(cfg: ModelConfig, params, pool, tokens, tables,
     idx = torch.clamp(valids - 1, min=0).long()                   # (G,)
     last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     last = L.rmsnorm(params["final_norm"], last, cfg.norm_eps)    # (G, 1, D)
-    return logits(cfg, params, last)[:, 0], pool
+    return par.full(logits(cfg, params, last)[:, 0]), pool
 
 
 def paged_prefill_step(cfg: ModelConfig, params, pool, tokens, table_row,

@@ -9,7 +9,10 @@ Unlike the reference's pure functions, ``update(grads, state, params)``
 works IN PLACE under ``torch.no_grad()``: it rewrites the f32 state tensors
 and copies the new master into the param tensors, and returns the same
 ``params`` and ``state`` objects. At full width that saves a second copy of
-the f32 state. ``state["step"]`` is a Python int (no device sync).
+the f32 state. ``state["step"]`` is a Python int (no device sync). Under a sharding plan
+the tensors are DTensors: each rule runs in the master's placements and
+the new master is redistributed to each parameter's (ZeRO-1,
+``core.parallelism.opt_specs``).
 
 Table 3 rules:
   sgd        w ← w − η·g
@@ -27,6 +30,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.parallelism import is_dtensor
 from repro_torch.tree import leaves_with_path, tree_leaves, tree_map
 
 
@@ -35,8 +39,17 @@ def _f32(tree):
 
 
 def _zeros(tree):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), tree)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), tree)
+
+
+def _like(t, ref):
+    """`t` in `ref`'s placements where both are DTensors that differ in
+    them (a ZeRO-1 moment is split further than its parameter, so the
+    gradient is reduce-scattered onto it and the new master gathered back
+    for the parameter); else `t`."""
+    if is_dtensor(t) and is_dtensor(ref) and t.placements != ref.placements:
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
 
 
 @dataclass(frozen=True)
@@ -67,11 +80,11 @@ def make_optimizer(name: str, lr: float = 1e-3, *, momentum: float = 0.9,
         for path, g in leaves_with_path(grads):
             g = g.float() if scale is None else g.float() * scale
             leaves = [_get(t, path) for t in trees]
-            fn(leaves[0], g, *leaves[1:])
+            fn(leaves[0], _like(g, leaves[0]), *leaves[1:])
 
     def finish(params, state):
         for path, p in leaves_with_path(params):
-            p.copy_(_get(state["master"], path))
+            p.copy_(_like(_get(state["master"], path), p))
         state["step"] += 1
         return params, state
 

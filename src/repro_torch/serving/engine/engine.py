@@ -66,6 +66,13 @@ with Gumbel-max noise from the request's own CPU ``torch.Generator``
 they run unspeculated (one token a verify step). MoE configs
 (mixtral-8x7b, qwen3-moe-30b-a3b) are served like the dense ones: their
 MoE layers see each step's whole padded batch, as the reference's do.
+
+Under a sharding plan (``Engine(..., plan=)``, ``core.parallelism``) the
+params are placed by ``plan.param_specs`` as DTensors and the decode,
+prefill and verify steps run in the plan's context; the paged entry
+points return their logits gathered to plain tensors. The pools stay plain tensors holding every kv
+head on every rank (the reference gives them no sharding), so the paged
+kernels take every query head.
 """
 from __future__ import annotations
 
@@ -75,6 +82,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import parallelism as par
 from repro_torch.kernels.quantize import KVQuantConfig
 from repro_torch.models import state_providers as SP
 from repro_torch.models import transformer as T
@@ -120,10 +128,26 @@ class EngineConfig:
                            tuple(self.prefill_buckets))
 
 
-def _step_fns(cfg, e: EngineConfig):
+def _in_plan(fn, plan):
+    """fn run under the sharding plan's context; fn itself without a plan.
+    Its results are plain tensors (the paged entry points gather their
+    logits)."""
+    if plan is None:
+        return fn
+
+    def run(*args):
+        with par.plan_context(plan):
+            return fn(*args)
+    return run
+
+
+def _step_fns(cfg, e: EngineConfig, plan=None):
     """The device step functions (counterparts of the reference's jitted
     decode_fn / prefill_fn / verify_fn / copy_block_fn). None of them reads
-    a value back to the host; verify_fn is None without speculation."""
+    a value back to the host; verify_fn is None without speculation. Under
+    a sharding `plan` the decode, prefill and verify steps run in its
+    context (the params are DTensors, the paged pools plain tensors on
+    every rank, as the reference gives them no sharding)."""
     skinds = SP.state_kinds(cfg)
     # speculative decoding enlarges every ring layer by the draft depth so a
     # verify step's K in-flight positions never overwrite a key still inside
@@ -176,7 +200,10 @@ def _step_fns(cfg, e: EngineConfig):
                     a[:, slot] = 0
         return pool
 
-    return decode_fn, prefill_fn, copy_block_fn, reset_slot_fn, verify_fn
+    if verify_fn is not None:
+        verify_fn = _in_plan(verify_fn, plan)
+    return (_in_plan(decode_fn, plan), _in_plan(prefill_fn, plan),
+            copy_block_fn, reset_slot_fn, verify_fn)
 
 
 def _set(vec, i, value):
@@ -188,8 +215,8 @@ def _set(vec, i, value):
 
 
 class Engine:
-    def __init__(self, cfg, params, engine_cfg: EngineConfig = None, *,
-                 device="cuda"):
+    def __init__(self, cfg, params, engine_cfg: EngineConfig = None,
+                 plan=None, *, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -201,6 +228,10 @@ class Engine:
                              f"is {self.device}")
         self.cfg = cfg
         self.ecfg = engine_cfg or EngineConfig()
+        self.plan = plan
+        if plan is not None:
+            params = par.shard_tree(params, plan.param_specs(params),
+                                    plan.mesh)
         self.params = params
         e = self.ecfg
 
@@ -344,7 +375,7 @@ class Engine:
         self.requests: dict = {}        # rid -> Request (all ever submitted)
 
         (self._decode, self._prefill, self._copy_block, self._reset_slot,
-         self._verify) = _step_fns(cfg, e)
+         self._verify) = _step_fns(cfg, e, plan)
         if self.telemetry.enabled:
             wrap = self.telemetry.recompiles.wrap
             self._decode = wrap("decode", self._decode)

@@ -2,8 +2,10 @@
 (port of ``repro.serving.serve``).
 
 `make_serve_step` builds the one-token step (ONE new token against a cache
-of seq_len). `generate` drives a full sampling loop and is the oracle for
-the continuous-batching engine across all families the port serves (full,
+of seq_len), under a sharding plan if given; `jit_serve_step` places its
+params, cache and token on the plan's mesh (``core.parallelism``).
+`generate` drives a full sampling loop and is the oracle for the
+continuous-batching engine across all families the port serves (full,
 sliding, local-global, ssm, hybrid: per-layer state providers).
 `engine_generate` routes the same request shape through the Engine in one
 call.
@@ -23,27 +25,38 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.core import parallelism as par
 from repro_torch.models import transformer as T
 
 
 def make_serve_step(cfg, plan=None):
     """serve_step(params, cache, inputs, index) -> (logits (B,V), cache
-    updated in place)."""
-    if plan is not None:
-        raise NotImplementedError(
-            "sharding plans come with the multi-device slice of the port "
-            "(ROADMAP A15)")
+    updated in place). With a sharding `plan` the step runs in its context
+    (``core.parallelism.plan_context``): params, cache and token as placed
+    by `jit_serve_step`, the logits a DTensor."""
 
     def serve_step(params, cache, inputs, index):
-        return T.decode_step(cfg, params, cache, inputs, index)
+        with par.plan_context(plan):
+            return T.decode_step(cfg, params, cache, inputs, index)
 
     return serve_step
 
 
-def jit_serve_step(cfg, plan, params_abs, cache_abs, inputs_abs):
-    raise NotImplementedError(
-        "jit_serve_step shards the step over a plan's mesh, which comes with "
-        "the multi-device slice of the port (ROADMAP A15)")
+def jit_serve_step(cfg, plan, params, cache, inputs):
+    """(step, params, cache, inputs): the planned `make_serve_step`, and the
+    params placed on the plan's mesh by ``plan.param_specs``, the
+    ``decode_step`` cache by ``plan.cache_specs`` (batch over the batch
+    axes, kv heads over the tensor axes, the sequence over 'data' when the
+    batch does not divide: dp_tp_seq) and each input by
+    ``plan.spec_for_batch_leaf("token", ...)``, as the reference's
+    ``jit_serve_step`` shards them. Every rank passes equal values."""
+    mesh = plan.mesh
+    params = par.shard_tree(params, plan.param_specs(params), mesh)
+    cache = par.shard_tree(cache, plan.cache_specs(cache), mesh)
+    inputs = par.shard_tree(
+        inputs, {k: plan.spec_for_batch_leaf("token", tuple(v.shape))
+                 for k, v in inputs.items()}, mesh)
+    return make_serve_step(cfg, plan), params, cache, inputs
 
 
 def gumbel(shape, generator: torch.Generator):
@@ -127,15 +140,17 @@ def generate(cfg, params, prompt_tokens, max_new, *, generator=None,
 
 
 def engine_generate(cfg, params, prompts, max_news, *, engine_cfg=None,
-                    device="cuda", return_engine=False):
+                    plan=None, device="cuda", return_engine=False):
     """Greedy generation for a batch of VARIABLE-length prompts through the
-    continuous-batching Engine (any family the state providers cover).
-    `prompts`: list of 1-D int token arrays; `max_news`: per-request
-    generation budgets. Returns a list of np arrays in request order —
-    greedy outputs equal per-request `generate` calls. With
-    `return_engine=True` also returns the drained Engine (its telemetry)."""
+    continuous-batching Engine (any family the state providers cover),
+    under a sharding `plan` if given. `prompts`: list of 1-D int token
+    arrays; `max_news`: per-request generation budgets. Returns a list of
+    np arrays in request order — greedy outputs equal per-request
+    `generate` calls. With `return_engine=True` also returns the drained
+    Engine (its telemetry)."""
     from repro_torch.serving.engine import Engine, EngineConfig
-    eng = Engine(cfg, params, engine_cfg or EngineConfig(), device=device)
+    eng = Engine(cfg, params, engine_cfg or EngineConfig(), plan=plan,
+                 device=device)
     rids = [eng.add_request(p, int(m)) for p, m in zip(prompts, max_news)]
     outs = eng.drain()
     outs = [outs[r] for r in rids]

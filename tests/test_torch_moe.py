@@ -173,11 +173,36 @@ def test_expert_leaves_start_at_the_references_scale():
 
 
 def test_expert_parallelism_names_its_roadmap_item():
-    _, tc, _, tm = _layer()
+    """Expert parallelism applies under a plan with tensor axes whose size
+    divides the experts, as the reference's ``ep_applicable`` decides
+    (``moe_apply_ep`` itself runs across ranks in test_torch_plans.py).
+    Before the plans were ported (ROADMAP A15) this test held that
+    ``ep_applicable`` with a plan and ``moe_apply_ep`` raised and named
+    that item."""
+    from jax.sharding import AbstractMesh
+
+    from repro.core import parallelism as jpar
+    from repro_torch.core import parallelism as par
+    jc, tc, _, _ = _layer()
     assert M.ep_applicable(tc, None) is False
-    assert M.ep_applicable(dataclasses.replace(tc, num_experts=0),
-                           object()) is False
-    with pytest.raises(NotImplementedError, match="A15"):
-        M.ep_applicable(tc, object())
-    with pytest.raises(NotImplementedError, match="A15"):
-        M.moe_apply_ep(tm, torch.zeros(1, 2, tc.d_model), tc, object())
+    seen = set()
+    for shape, axes in (((2, 2), ("data", "model")),
+                        ((1, 8), ("data", "model")),
+                        ((2, 16, 16), ("pod", "data", "model")), ((4,),
+                                                                  ("data",))):
+        for name in par.PLANS:
+            if name != "dp" and "model" not in axes:
+                continue          # the reference's rules need a 'model' axis
+            jp = jpar.make_plan(name, AbstractMesh(shape, axes))
+            tp = par.make_plan(name, par.AbstractMesh(shape, axes))
+            for e in (0, 4, 8, 128):
+                want = JM.ep_applicable(dataclasses.replace(
+                    jc, num_experts=e), jp)
+                assert M.ep_applicable(dataclasses.replace(
+                    tc, num_experts=e), tp) is want, (shape, name, e)
+                seen.add(want)
+    assert seen == {True, False}
+    # tensor axes of size 4 divide the reduced config's 4 experts; dp has none
+    mesh = par.AbstractMesh((2, 4), ("data", "model"))
+    assert M.ep_applicable(tc, par.make_plan("dp_tp", mesh))
+    assert not M.ep_applicable(tc, par.make_plan("dp", mesh))

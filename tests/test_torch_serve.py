@@ -174,6 +174,16 @@ def test_engine_generate_equals_generate(arch):
 
 
 def test_serve_step_and_plan_refusals():
+    """The unplanned step is ``decode_step``; ``jit_serve_step`` under
+    dp_tp on a one-rank (1, 1) mesh (a gloo group) gives its logits (the
+    4-rank parity is in test_torch_plans.py). Before the plans were ported
+    (ROADMAP A15) this test held that ``make_serve_step(plan=)`` and
+    ``jit_serve_step`` raised and named that item."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import parallelism as par
+    from repro_torch.launch.mesh import make_dp_group
     _, tc, _, tp = _model("yi-9b")
     step = TS.make_serve_step(tc)
     st = TT.init_decode_state(tc, 1, 4, device="cpu")
@@ -181,10 +191,24 @@ def test_serve_step_and_plan_refusals():
     st2 = TT.init_decode_state(tc, 1, 4, device="cpu")
     lg2, _ = TT.decode_step(tc, tp, st2, {"token": torch.tensor([3])}, 0)
     assert torch.equal(lg, lg2)
-    with pytest.raises(NotImplementedError, match="A15"):
-        TS.make_serve_step(tc, plan=object())
-    with pytest.raises(NotImplementedError, match="A15"):
-        TS.jit_serve_step(tc, None, None, None, None)
+    owns = not dist.is_initialized()
+    make_dp_group("cpu")
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        plan = par.make_plan("dp_tp", mesh)
+        st3 = TT.init_decode_state(tc, 1, 4, device="cpu")
+        pstep, dp, dc, di = TS.jit_serve_step(
+            tc, plan, tp, st3, {"token": torch.tensor([3])})
+        assert par.is_dtensor(dp["embed"]["table"])
+        assert par.is_dtensor(dc["l0"]["k"])
+        lg3, _ = pstep(dp, dc, di, 0)
+        assert par.is_dtensor(lg3)
+        np.testing.assert_allclose(par.full(lg3).numpy(), lg.numpy(),
+                                   atol=1e-5, rtol=0)
+    finally:
+        if owns:
+            dist.destroy_process_group()
 
 
 # ------------------------------------------------------------------- sampling
