@@ -204,6 +204,18 @@ Phases, in order; any failure exits non-zero before the final ok line:
      48), and in f32 at 2 layers with tokens equal to the unplanned
      engine's.
 
+ 10. the dry run (A15's op analysis, A16's launch scripts). yi-9b at full
+     width cut to 8 of 48 layers, batch 2 x 4096, Adam, remat: one train
+     step traced on fake CUDA tensors under core/op_analysis.py, then run
+     for real under it: equal FLOPs and HBM bytes, B6's custom-op calls
+     equal to its launches, the predicted peak within 10% of
+     max_memory_allocated over the step; the H100 roofline time printed
+     beside the measured step. Then python -m repro_torch.launch.dryrun on
+     the card's path over a fake 256-rank 16 x 16 mesh under dp_tp, three
+     processes started together: yi-9b train_4k (ok, B6 reached twice per
+     attention layer, none launched), rwkv6-7b decode_32k (ok, fits the
+     card), phi4-mini-3.8b long_500k (skipped), each record printed.
+
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -4443,6 +4455,210 @@ def plan_phase(card):
         dist.destroy_process_group()
 
 
+# ------------------------------------------ phase 10: the dry run (A15/A16)
+# (arch, shape, what the record must show): the card's path traced on fake
+# tensors on rank 0 of a fake 256-rank group (the 16 x 16 mesh), dp_tp
+DRYRUN_COMBOS = (("yi-9b", "train_4k", "ok"),
+                 ("rwkv6-7b", "decode_32k", "fits"),
+                 ("phi4-mini-3.8b", "long_500k", "skipped"))
+DRYRUN_TIMEOUT = 420
+
+
+def dryrun_phase(card):
+    """``python -m repro_torch.launch.dryrun`` on the card (device cuda),
+    one process per combo (the fake group is process-wide), all started
+    together: yi-9b train_4k under dp_tp on the 16 x 16 mesh (status ok,
+    256 chips, B6's custom op reached once a forward per attention layer:
+    twice with remat), rwkv6-7b decode_32k (ok, fits the card's memory)
+    and phi4-mini-3.8b long_500k (skipped: full attention); each ok
+    record's ``launches`` (the kernels its trace launched) all 0. The 2 x
+    16 x 16 multi-pod mesh is left out: DTensor's sharding propagation
+    over its three mesh dims made one decode trace take 392 s on a CPU
+    (33x the 16 x 16 mesh's). Prints each record's roofline terms, memory
+    needed and trace time."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        _dryrun_combos(card, Path(tmp))
+
+
+def _dryrun_combos(card, out):
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import state_providers as SP
+    from repro_torch.models import transformer as T
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape, _ in DRYRUN_COMBOS:
+        path = out / f"{arch}__{shape}.json"
+        log = open(out / f"{arch}__{shape}.log", "w")
+        procs.append((path, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--plan", "dp_tp",
+             "--device", "cuda", "--out", str(path)], stdout=log,
+            stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
+    rcs = []
+    try:
+        for _, log, proc in procs:
+            rcs.append(proc.wait(timeout=DRYRUN_TIMEOUT))
+    finally:
+        for _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    failed = []
+    for (arch, shape, want), (path, log, _), rc in zip(
+            DRYRUN_COMBOS, procs, rcs):
+        label = f"dryrun {arch} {shape} single dp_tp"
+        if rc != 0:
+            print(f"{label}: exited {rc}:\n"
+                  f"{Path(log.name).read_text()[-3000:]}")
+            failed.append(label)
+            continue
+        rec = json.loads(path.read_text())
+        if want == "skipped":
+            check(rec["status"] == "skipped", f"{label}: {rec}")
+            print(f"{label}: skipped ({rec['reason'][:60]}...)")
+            continue
+        check(rec["status"] == "ok" and rec["chips"] == 256
+              and rec["device"] == "cuda", f"{label}: {rec}")
+        check(not any(rec["launches"].values()),
+              f"{label}: the trace launched kernels {rec['launches']}")
+        ratio = rec["useful_flops_ratio"]
+        t = rec["roofline"]
+        print(f"{label}: per device flops {rec['flops_per_device']:.4e}, HBM "
+              f"bytes {rec['bytes_per_device']:.4e}, collective bytes "
+              f"{rec['collective_bytes_per_device']:.4e} "
+              f"{json.dumps(rec['collectives']['counts'])}; roofline on the "
+              f"H100 entry: compute {t['compute_s']:.6f} s, memory "
+              f"{t['memory_s']:.6f} s, collective {t['collective_s']:.6f} s "
+              f"({rec['dominant']}); MODEL_FLOPS / counted "
+              f"{ratio}; HBM needed {rec['hbm_needed_per_device']} B "
+              f"(fits {rec['fits_hbm']}; memory {json.dumps(rec['memory'])}); "
+              f"kernel calls {rec['kernel_calls']}; trace {rec['trace_s']} s "
+              f"| {card}")
+        check(ratio is not None and math.isfinite(ratio) and ratio > 0,
+              f"{label}: useful_flops_ratio {ratio}")
+        if want == "fits":
+            check(rec["fits_hbm"] is True, f"{label}: needs "
+                  f"{rec['hbm_needed_per_device']} B of the card's")
+        cfg = get_config(arch)
+        n_sb, _ = SP.superblock_layout(cfg)
+        n_attn = n_sb * sum(k in T._ATTN_KINDS for k in SP.layer_kinds(cfg))
+        if shape == "train_4k":
+            calls = rec["kernel_calls"].get("flash_attention_fwd", 0)
+            want_calls = n_attn * (2 if cfg.remat else 1)
+            check(calls == want_calls, f"{label}: B6 reached {calls} times, "
+                  f"want {want_calls} ({n_attn} attention layers, remat "
+                  f"{cfg.remat})")
+    check(not failed, f"dry runs failed: {failed}")
+    print(f"dryrun: {len(DRYRUN_COMBOS)} combos in "
+          f"{time.perf_counter() - t0:.1f} s (in parallel) | {card}")
+
+
+ANALYSIS_LAYERS = TRAIN_LAYERS     # yi-9b at the training shape, 8 of 48
+PEAK_TOL = 0.10
+
+
+def analysis_phase(card):
+    """core/op_analysis.py on one card, no plan: yi-9b at full width cut to
+    ANALYSIS_LAYERS layers, batch 2 x 4096, Adam, remat (the training main
+    path's shape). One train step is traced on fake CUDA tensors, then the
+    same step runs for real under the analysis. Gates: equal flops and HBM
+    bytes; B6's custom-op calls equal its launches; the predicted peak
+    (argument + temp + output - alias) within PEAK_TOL of
+    torch.cuda.max_memory_allocated() over the step, less the bytes held
+    before the state was made. Prints (no gate) the H100 roofline time
+    beside a plain step's measured ms."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import op_analysis as oa
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.specs import fake_mode
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import trainer
+    _release_card()
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=ANALYSIS_LAYERS)
+    opt = make_optimizer("adam", lr=3e-4, grad_clip=1.0)
+    step = trainer.make_train_step(cfg, opt)
+    host = next(SyntheticLM(cfg.vocab_size, 4096, seed=0).batches(2, 1))
+    t0 = time.perf_counter()
+    with fake_mode() as mode:
+        fstate = trainer.init_state(cfg, opt, device="cuda")
+        fbatch = {k: torch.empty(v.shape, dtype=torch.int64, device="cuda")
+                  for k, v in host.items()}
+        fake = oa.analyze(step, fstate, fbatch)
+    del fstate, fbatch, mode
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = trainer.init_state(cfg, opt, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in host.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = kernels.launch_counts["flash_attention"]
+    t0 = time.perf_counter()
+    (state, metrics), an = oa.run(step, state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated() - base
+    launches = kernels.launch_counts["flash_attention"] - launches
+    real = an.result()
+    del metrics
+    check(math.isfinite(loss), f"analysis: loss {loss}")
+    check(fake["flops"] == real["flops"]
+          and fake["hbm_bytes"] == real["hbm_bytes"],
+          f"analysis: fake trace flops {fake['flops']} / bytes "
+          f"{fake['hbm_bytes']} != real run {real['flops']} / "
+          f"{real['hbm_bytes']}")
+    calls = real["kernel_calls"].get("flash_attention_fwd", 0)
+    check(calls == launches == fake["kernel_calls"].get(
+              "flash_attention_fwd", 0) == 2 * cfg.num_layers,
+          f"analysis: B6 calls {calls} (fake "
+          f"{fake['kernel_calls']}) vs launches {launches}")
+    mem = fake["memory"]
+    predicted = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                 + mem["output_size_in_bytes"] - mem["alias_size_in_bytes"])
+    err = predicted / measured - 1
+    print(f"analysis: yi-9b {cfg.num_layers} of 48 layers, 2 x 4096, Adam, "
+          f"remat: flops {fake['flops']:.6e} (real run {real['flops']:.6e}), "
+          f"HBM bytes {fake['hbm_bytes']:.6e} ({real['hbm_bytes']:.6e}); "
+          f"B6 calls {calls} == launches {launches}; fake trace {trace_s:.1f} "
+          f"s, real step under the analysis {real_s * 1e3:.1f} ms | {card}")
+    print(f"analysis: memory (fake) {json.dumps(mem)}; (real run) "
+          f"{json.dumps(real['memory'])}; predicted peak {predicted} B "
+          f"({predicted / 2**30:.3f} GiB) vs max_memory_allocated over the "
+          f"step less the bytes held before the state {measured} B "
+          f"({measured / 2**30:.3f} GiB): {err:+.2%} (tol "
+          f"{PEAK_TOL:.0%}) | {card}")
+    check(abs(err) <= PEAK_TOL, f"analysis: predicted peak {predicted} vs "
+          f"measured {measured} ({err:+.2%})")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    terms = cm.roofline_terms(fake["flops"], fake["hbm_bytes"], 0.0, 1,
+                              hw=cm.H100)
+    bound = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    print(f"analysis: roofline on the H100 entry {bound:.1f} ms (compute "
+          f"{terms['compute_s'] * 1e3:.1f} ms, memory "
+          f"{terms['memory_s'] * 1e3:.1f} ms) beside the step without the "
+          f"analysis {times[-1]:.1f} ms (first {times[0]:.1f} ms): "
+          f"{bound / times[-1]:.1%} of it | {card}")
+    del state, batch
+    _release_card()
+
+
 NO_SPILL = {"flash_attention": r"flash_fwd_bf16ILi(64|80|128)E",
             "matmul": r"matmul_(bf16_)?kernel",
             "paged_attention": r"paged_decode_tcILi(64|80|128|256)E"}
@@ -4626,6 +4842,10 @@ def main() -> int:
         lap("phi4-mini-3.8b serving and training")
         plan_phase(card)
         lap("sharding plans")
+        analysis_phase(card)
+        lap("op analysis")
+        dryrun_phase(card)
+        lap("dry run")
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()

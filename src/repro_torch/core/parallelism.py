@@ -309,6 +309,21 @@ def current_plan():
     return _ctx.get()
 
 
+def checkpoint(fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant) of fn(*args), whose
+    recomputation runs in the plan context of its forward pass: on the
+    card the autograd engine runs the backward pass, and with it the
+    recomputation, on a thread of its own, which the plan's context
+    variable does not reach (the recomputed attention then took every
+    head and row, and its shapes differed from the saved ones)."""
+    from torch.utils.checkpoint import checkpoint as ckpt
+    plan = current_plan()
+    if plan is None:
+        return ckpt(fn, *args, use_reentrant=False)
+    return ckpt(fn, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), plan_context(plan)))
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
@@ -337,7 +352,15 @@ def clean_spec(plan, shape, spec) -> P:
 
 def constrain(x, names):
     """Redistribute `x` to the logical spec of `names` if a plan context is
-    active and `x` is a DTensor; else `x` itself."""
+    active and `x` is a DTensor; else `x` itself. As the reference's
+    ``with_sharding_constraint``, whose transpose constrains the cotangent
+    to the same spec, the gradient reaching this point is put in the same
+    placements in the backward pass (`_ConstrainGrad`): a Megatron layer's
+    "f" and "g" (the all-reduce of a partial gradient sum before it
+    reaches the weights of the layer below). Without it DTensor carries
+    partial sums down the residual stream and, in each matmul's backward,
+    gathers a split weight or activation whole instead (every rank then
+    computes the whole layer's gradient)."""
     plan = _ctx.get()
     if plan is None or not is_dtensor(x):
         return x
@@ -348,12 +371,64 @@ def constrain(x, names):
         names = names[-x.ndim:]
     spec = clean_spec(plan, x.shape, plan.logical_spec(names))
     want = placements(spec, x.device_mesh, x.shape)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    if tuple(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    if x.requires_grad:
+        x = _ConstrainGrad.apply(x)
+    return x
+
+
+class _ConstrainGrad(torch.autograd.Function):
+    """Identity on a DTensor; its gradient is redistributed to the
+    forward value's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if is_dtensor(grad) and tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
 
 
 # ------------------------------------------------------------ DTensor glue
+def local_call(fn, args, names, outs):
+    """fn(*args) on each rank's own shards. Without DTensor arguments it is
+    fn(*args). Under a plan, through ``local_map``: each argument split as
+    `constrain` would split it by its logical `names` (a tuple per
+    argument; None for an argument passed as it is; a plain tensor with
+    names is taken as replicated, as DTensor's implicit replication takes
+    it), and each result placed by its (shape, names) in `outs`. The
+    recurrent scans use it: their per-head matmuls then run on plain local
+    tensors (DTensor in torch 2.11 refuses to flatten a batch and a split
+    head dim into a matmul's batch)."""
+    mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    plan = _ctx.get()
+
+    def pl(shape, n):
+        if n is None:
+            return None
+        spec = (clean_spec(plan, shape, plan.logical_spec(n))
+                if plan is not None else P())
+        return placements(spec, mesh, shape)
+    args = tuple(DTensor.from_local(a, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+                 if isinstance(a, torch.Tensor) and not is_dtensor(a)
+                 and n is not None else a for a, n in zip(args, names))
+    in_pl = tuple(pl(tuple(a.shape), n) if is_dtensor(a) else None
+                  for a, n in zip(args, names))
+    out_pl = tuple(pl(tuple(shape), n) for shape, n in outs)
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
 def placements(spec, mesh, shape=None) -> tuple:
     """DTensor placements of `spec` on the ``DeviceMesh`` `mesh`: Shard(d)
     on each mesh dim that entry d names, else Replicate(). A multi-axis
@@ -388,6 +463,16 @@ def placements(spec, mesh, shape=None) -> tuple:
     return tuple(out)
 
 
+def _local_offset(shape, mesh, placements) -> tuple:
+    """The global offset of this rank's shard of a DTensor of `shape` in
+    `placements` (host bookkeeping: ``core.op_analysis`` runs it outside
+    its modes)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return tuple(compute_local_shape_and_global_offset(
+        shape, mesh, placements)[1])
+
+
 def embedding(table, ids):
     """``table[ids]`` for a DTensor `table` (V, D) and `ids` (a DTensor or
     a plain tensor, taken as replicated), computed on each rank's local
@@ -400,8 +485,6 @@ def embedding(table, ids):
     (an ``index_put``) off DTensors, which torch 2.11 refuses under a
     sequence split."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     mesh = table.device_mesh
     if not is_dtensor(ids):
         ids = DTensor.from_local(ids, mesh, (Replicate(),) * mesh.ndim,
@@ -416,8 +499,7 @@ def embedding(table, ids):
     out_pl = tuple(Partial() if split0(t) else i for i, t in zip(i_pl, t_pl))
     local = table.redistribute(mesh, t_pl).to_local(grad_placements=t_grad)
     idx = ids.redistribute(mesh, i_pl).to_local()
-    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, t_pl)
-    lo, n = offset[0], local.shape[0]
+    lo, n = _local_offset(table.shape, mesh, t_pl)[0], local.shape[0]
     if n == table.shape[0]:
         out = local[idx]
     else:
@@ -442,8 +524,6 @@ def write_along(dst, dim, index, src):
         dst[lead + (index,)] = src
         return dst
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     mesh = dst.device_mesh
     drop = isinstance(index, int)
     want = []
@@ -459,9 +539,8 @@ def write_along(dst, dim, index, src):
                                  run_check=False)
     src = src.redistribute(mesh, want).to_local()
     local = dst.to_local()
-    _, offset = compute_local_shape_and_global_offset(dst.shape, mesh,
-                                                      dst.placements)
-    lo, n = offset[dim], local.shape[dim]
+    lo, n = _local_offset(dst.shape, mesh, dst.placements)[dim], \
+        local.shape[dim]
     if drop:
         if lo <= index < lo + n:
             local[lead + (index - lo,)] = src

@@ -1,13 +1,21 @@
 """GQA-aware flash attention over (B, S, H, hd) layouts, with its gradient.
 
 ``flash_attention`` dispatches by device: a CPU tensor takes the plain
-version (``ref``); a CUDA tensor launches the hand-written kernel or
-raises — there is no fallback. Launches count under
-``repro_torch.kernels.launch_counts["flash_attention"]``. The source holds
-two kernels and picks one by dtype: bf16 runs both products on the tensor
-cores (bf16 in, f32 accumulate; the probabilities rounded to bf16 before
-p·v, as the reference's model path rounds them), f32 on the CUDA cores in
-IEEE f32, so the f32 training parity holds losses within 1e-4 a step.
+version (``ref``); a CUDA tensor launches the hand-written kernel through
+the custom op ``torch.ops.repro_torch.flash_attention_fwd`` or raises —
+there is no fallback. Launches count under
+``repro_torch.kernels.launch_counts["flash_attention"]``. The op's fake
+implementation gives the shapes of (out, lse) to fake and meta tensors,
+which have no data: a dry run (``core.op_analysis``,
+``launch/dryrun.py``) traces the card's path through it without launching
+anything; no real tensor ever takes it. Its FLOPs are registered with
+``torch.utils.flop_counter`` as the function's work, 4·B·H·S·S·hd (the
+full square, as the plain version and the reference count it). The
+source holds two kernels and picks one by dtype: bf16 runs both products
+on the tensor cores (bf16 in, f32 accumulate; the probabilities rounded to
+bf16 before p·v, as the reference's model path rounds them), f32 on the
+CUDA cores in IEEE f32, so the f32 training parity holds losses within
+1e-4 a step.
 
 The forward runs inside ``FlashAttention``, a ``torch.autograd.Function``
 whose backward is PyTorch code (``attention_backward``) that recomputes the
@@ -19,6 +27,7 @@ backward is the counterpart of that autodiff.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
@@ -61,7 +70,15 @@ def _forward_plain(q, k, v, scale, causal, window):
                                window=window)
 
 
-def _forward_kernel(q, k, v, scale, causal, window):
+@torch.library.custom_op(
+    "repro_torch::flash_attention_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, float scale, bool causal, "
+           "int? window) -> (Tensor, Tensor)")
+def flash_attention_fwd(q, k, v, scale, causal, window):
+    """The forward kernel on CUDA tensors: (out (B, S, H, hd) in q's dtype,
+    lse (B, H, S) f32). Launches the kernel or raises; a CPU tensor has no
+    implementation here (``flash_attention`` sends it to the plain
+    version)."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary (the "
@@ -72,6 +89,26 @@ def _forward_kernel(q, k, v, scale, causal, window):
     flash_attention_cuda(q, k, v, out, lse, scale, causal, window)
     kernels.launch_counts["flash_attention"] += 1
     return out, lse
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, scale, causal, window):
+    B, S, H, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B, H, S), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def flash_attention_flops(q_shape, k_shape, *args, out_shape=None,
+                          **kwargs) -> int:
+    """Both products over every (query, key) pair: 4·B·H·S·Sk·hd."""
+    B, S, H, hd = q_shape
+    return 4 * B * H * S * k_shape[1] * hd
+
+
+def _forward_kernel(q, k, v, scale, causal, window):
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, scale, causal,
+                                                     window)
 
 
 def attention_backward(q, k, v, out, lse, dout, *, scale, causal=True,

@@ -2,10 +2,13 @@
 
 `make_dp_group` is the default process group (a group of ranks takes the
 place of a JAX mesh's "data" axis in the paper mode); `make_host_mesh`
-lays a ``DeviceMesh`` over it for the sharding plans; and
+lays a ``DeviceMesh`` over it for the sharding plans;
 `make_production_mesh` gives the reference's production mesh shapes as an
-``AbstractMesh`` (axis sizes only: no run here has 256 ranks). Nothing here
-runs at import time."""
+``AbstractMesh`` (axis sizes only, for the plans' rules); and
+`make_dryrun_mesh` gives them as a ``DeviceMesh`` of rank 0 in a "fake"
+process group of 256 (or 512) ranks, where collectives move nothing: the
+dry run (``launch/dryrun.py``) traces one rank's program on it. Nothing
+here runs at import time."""
 from __future__ import annotations
 
 import atexit
@@ -63,6 +66,41 @@ def make_production_mesh(*, multi_pod: bool = False):
     if multi_pod:
         return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
     return AbstractMesh((16, 16), ("data", "model"))
+
+
+def make_fake_mesh(shape, axes, device="cuda"):
+    """A ``DeviceMesh`` of `shape` named `axes` seen from rank 0 of a
+    "fake" process group of prod(shape) ranks (``torch.testing``'s
+    ``FakeStore`` and backend: every collective returns at once and moves
+    nothing; a dry run traces one rank's program on it). Raises if a
+    default group exists already: a process holds one."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists already; the "
+                           "fake group of a dry run needs a process of its "
+                           "own")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the dry run traces the card's path by default "
+                           "and this machine has no card; pass "
+                           "device='cpu' to trace the CPU path")
+    world = 1
+    for s in shape:
+        world *= s
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    return init_device_mesh(device.type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_dryrun_mesh(multi_pod: bool = False, device="cuda"):
+    """The production mesh as a ``DeviceMesh`` of rank 0 in a fake group:
+    16x16 = 256 ranks ('data', 'model'), or 2x16x16 = 512 ('pod', 'data',
+    'model') for `multi_pod` (`make_fake_mesh`)."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    return make_fake_mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                          device)
 
 
 def make_host_mesh(shape=(1,), axes=("data",), device="cuda", **group_kw):

@@ -174,8 +174,8 @@ def attention_train(params, x, positions, cfg, *, window=None,
         chunk = S if impl == "naive" else cfg.attn_chunk
 
         def attend(q, k, v):
-            return _attend_full(q, k, v, h // hkv, 1.0 / np.sqrt(hd), chunk,
-                                window)
+            return _attend_full(q, k, v, q.shape[2] // k.shape[2],
+                                1.0 / np.sqrt(hd), chunk, window)
     out = _on_local_heads(attend, q, k, v)
     return out.reshape(B, S, h * hd) @ params["wo"]
 
@@ -183,25 +183,89 @@ def attention_train(params, x, positions, cfg, *, window=None,
 def _on_local_heads(fn, q, k, v):
     """fn(q, k, v) -> (B, S, H, hd); on DTensors (a sharding plan) it runs
     through ``local_map`` on each rank's own rows and heads: the batch
-    split over the plan's batch axes and the heads over its tensor axes
-    where they divide (the query and the kv heads alike), each replicated
-    otherwise. So a kernel only ever sees plain local tensors."""
+    split over the plan's batch axes, the query and kv heads over its
+    tensor axes where both divide. Where only the query heads divide (GQA
+    with fewer kv heads than tensor ranks: yi-9b's 4 on a 16-way 'model'
+    axis) the query heads split and each rank takes the kv heads its own
+    query heads read from the replicated K/V, as GSPMD splits the
+    reference's attention; their gradient is a partial sum over the tensor
+    axes. Otherwise the heads are replicated. So a kernel only ever sees
+    plain local tensors. The gradients leaving `fn` for q, k and v are
+    made contiguous: the attention backward gives them permuted, and
+    DTensor views a gradient's local tensor where its global one is
+    contiguous (a split-head MHA layer's projection backward failed on
+    that view)."""
     if not par.is_dtensor(q):
         return fn(q, k, v)
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     plan = par.current_plan()
     mesh = q.device_mesh
-    spec = par.P()
-    if plan is not None:
-        heads = plan.tensor_axes or None
+
+    def want(heads, t):
+        # a dim of size 1 in either stays whole (see par.placements)
+        shape = [min(a, b) for a, b in zip(q.shape[:2], k.shape[:2])]
+        shape += list(t.shape[2:])
+        if plan is None:
+            return par.placements(par.P(), mesh, shape)
+        spec = par.clean_spec(plan, t.shape,
+                              par.P(plan.batch_axes or None, None, heads))
+        return par.placements(spec, mesh, shape)
+
+    heads = (plan.tensor_axes or None) if plan is not None else None
+    kv = _kv_heads_of_rank(plan, mesh, heads, q.shape[2], k.shape[2])
+    if kv is None:
         if heads and not par._divisible(k.shape[2], heads, plan.shape):
             heads = None
-        spec = par.clean_spec(plan, q.shape,
-                              par.P(plan.batch_axes or None, None, heads))
-    want = par.placements(spec, mesh, [min(a, b) for a, b in
-                                       zip(q.shape, k.shape)])
-    return local_map(fn, out_placements=list(want), in_placements=(want,) * 3,
+        pl = want(heads, k)
+
+        def local(q, k, v):
+            return fn(*(_ContiguousGrad.apply(t) for t in (q, k, v)))
+        return local_map(local, out_placements=list(pl),
+                         in_placements=(pl,) * 3, device_mesh=mesh,
+                         redistribute_inputs=True)(q, k, v)
+    lo, hi = kv
+    q_pl, kv_pl = want(heads, q), want(None, k)
+    kv_grad = tuple(Partial() if a != b else b for a, b in zip(q_pl, kv_pl))
+
+    def local_gqa(q, k, v):
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return fn(q, k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous())
+    return local_map(local_gqa, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _kv_heads_of_rank(plan, mesh, heads, H, Hkv):
+    """(lo, hi): the kv heads that this rank's query heads read when the
+    query heads split over the tensor axes `heads` and the kv heads do not
+    (each rank's block of H / tp query heads maps onto whole kv heads);
+    None otherwise."""
+    if not heads or par._divisible(Hkv, heads, plan.shape) \
+            or not par._divisible(H, heads, plan.shape):
+        return None
+    h_loc, rep = H // plan.axis_size(heads), H // Hkv
+    if h_loc % rep and rep % h_loc:
+        return None
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    r = 0
+    for a in heads:
+        r = r * mesh.size(names.index(a)) + coord[names.index(a)]
+    return r * h_loc // rep, ((r + 1) * h_loc - 1) // rep + 1
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity; its gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 
 
 def _chunked_attention(q, k, v, n_rep, scale, chunk, window):
@@ -281,7 +345,8 @@ def attention_prefill(params, x, cache, cfg, *, window=None):
         k = dequantize_kv(qk, sk).to(k.dtype)
         v = dequantize_kv(qv, sv).to(v.dtype)
     out = _on_local_heads(
-        lambda q, k, v: _attend_full(q, k, v, h // hkv, 1.0 / np.sqrt(hd),
+        lambda q, k, v: _attend_full(q, k, v, q.shape[2] // k.shape[2],
+                                     1.0 / np.sqrt(hd),
                                      cfg.attn_chunk, window), q, k, v)
     out = out.reshape(B, S, h * hd) @ params["wo"]
 
@@ -325,7 +390,8 @@ def attention_decode(params, x, cache, index, cfg, *, window=None):
     scale = 1.0 / np.sqrt(hd)
 
     def attend(q, k, v):
-        kk, vv = _repeat_kv(k, h // hkv), _repeat_kv(v, h // hkv)
+        rep = q.shape[2] // k.shape[2]     # this rank's heads' ratio
+        kk, vv = _repeat_kv(k, rep), _repeat_kv(v, rep)
         s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
         s = torch.where(valid[None, None, None, :], s, NEG_INF)
         p = torch.softmax(s, dim=-1).to(x.dtype)

@@ -26,11 +26,13 @@ any Pallas kernel.
 Under a sharding plan (``core.parallelism``) the layer takes DTensors.
 `moe_apply_ep` is the reference's expert-parallel path: each rank routes
 its data shard's tokens to its own slice of the experts at the per-shard
-capacity, and the partial outputs are summed over the tensor axes. Where
-it does not apply (the dp plan, or experts that do not divide the tensor
-axes), `moe_apply` and `load_balance_loss` gather their inputs and run on
-every rank over the whole batch, so capacity stays global, as the
-reference's GSPMD step keeps it.
+capacity, and the partial outputs are summed over the tensor axes.
+`moe_apply` (the serving verbs' MoE, and training's where the experts do
+not divide the tensor axes) keeps the capacity global, as the reference's
+GSPMD step keeps it: where the tensor axes divide the experts each rank
+routes the whole batch and runs its own experts, and the partial outputs
+are summed; otherwise it gathers its inputs and runs on every rank, as
+`load_balance_loss` does.
 """
 from __future__ import annotations
 
@@ -108,30 +110,93 @@ def _replicated(fn):
     return run
 
 
-@_replicated
-def moe_apply(params, x, cfg):
-    """x (B, S, D) -> (B, S, D). params: {"router" (D, E) f32, "w_gate",
-    "w_in" (E, D, F), "w_out" (E, F, D)}."""
+def _moe(params, x, cfg, lo=0, n=None):
+    """x (B, S, D) -> (B, S, D) at the global capacity, as run by the
+    experts lo .. lo + n (all of them by default), whose weights `params`
+    holds: the other experts' assignments add nothing."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
+    n = E if n is None else n
     T = B * S
     C = capacity(T, cfg)
     xt = x.reshape(T, D)
     _, top_p, top_e = _route(params, xt, cfg)
     expert, slot, keep = _slots(top_e.reshape(-1), E, C)
+    if n < E:                           # this rank's experts only
+        keep = keep & (expert >= lo) & (expert < lo + n)
+        expert = torch.where(keep, expert - lo, 0)
+        slot = torch.where(keep, slot, C)
 
     # dispatch: one writer per kept (expert, slot); the dropped rows all
     # land on the drop slot C, which is cut off
-    buf = x.new_zeros((E, C + 1, D)).index_put(
+    buf = x.new_zeros((n, C + 1, D)).index_put(
         (expert, slot), torch.repeat_interleave(xt, K, dim=0))
     y = _experts(params, buf[:, :C])
 
     # combine: each token's K rows through the inverse map, summed in a
     # fixed order (the zero row C stands in for a dropped assignment)
-    y = torch.cat([y, y.new_zeros((E, 1, D))], dim=1)
+    y = torch.cat([y, y.new_zeros((n, 1, D))], dim=1)
     w = (top_p.reshape(-1) * keep).to(y.dtype)
     rows = y[expert, slot] * w[:, None]                           # (T·K, D)
     return torch.sum(rows.reshape(T, K, D), dim=1).reshape(B, S, D)
+
+
+def moe_apply(params, x, cfg):
+    """x (B, S, D) -> (B, S, D). params: {"router" (D, E) f32, "w_gate",
+    "w_in" (E, D, F), "w_out" (E, F, D)}. Under a plan whose tensor axes
+    divide the experts, every rank routes the whole batch at the global
+    capacity (the same slots as without a plan) and runs its own experts
+    only; the partial outputs are summed over the tensor axes, as GSPMD
+    splits the reference's experts. Otherwise the whole layer runs on
+    every rank (`_replicated`)."""
+    plan = par.current_plan()
+    if par.is_dtensor(x) and ep_applicable(cfg, plan):
+        return _moe_split(params, x, cfg, plan)
+    return _replicated(_moe)(params, x, cfg)
+
+
+def _moe_split(params, x, cfg, plan):
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    n = cfg.num_experts // plan.axis_size(plan.tensor_axes)
+    w_pl = par.placements(par.P(plan.tensor_axes), mesh)
+    # every data rank runs the same whole batch: a gradient is a partial
+    # sum over the tensor axes only
+    t = plan.tensor_axes
+    local = {"router": _local(params["router"], rep, t)}
+    local.update({k: _local(params[k], w_pl, t)
+                  for k in ("w_gate", "w_in", "w_out")})
+    out = _moe(local, _local(x, rep, t), cfg, _ep_rank(mesh, plan) * n, n)
+    out = _SumOverGroups.apply(out, *(mesh.get_group(a)
+                                      for a in plan.tensor_axes))
+    return DTensor.from_local(out, mesh, rep, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def _local(t, want, partial=None):
+    """The rank's tensor of the DTensor `t` redistributed to `want`. The
+    gradient of a value replicated over a mesh dim named in `partial`
+    (default: every dim) is each rank's partial contribution there: every
+    rank runs other experts / rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    names = t.device_mesh.mesh_dim_names
+    grad = tuple(Partial() if isinstance(p, Replicate)
+                 and (partial is None or names[i] in partial) else p
+                 for i, p in enumerate(want))
+    return t.redistribute(t.device_mesh, want).to_local(grad_placements=grad)
+
+
+def _ep_rank(mesh, plan) -> int:
+    """This rank's index over the plan's tensor axes, major first, as the
+    experts' Shard splits them."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    r = 0
+    for a in plan.tensor_axes:
+        i = names.index(a)
+        r = r * mesh.size(i) + coord[i]
+    return r
 
 
 @_replicated
@@ -186,40 +251,24 @@ def moe_apply_ep(params, x, cfg, plan):
     axes. Drops can differ from the global-capacity `moe_apply` (the
     reference's documented approximation). x and params are DTensors on the
     plan's mesh; returns x's shape, split over the batch axes."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Replicate
     mesh = x.device_mesh
-    names = list(mesh.mesh_dim_names)
     t_axes = plan.tensor_axes
     E, K = cfg.num_experts, cfg.experts_per_token
-    ep = plan.axis_size(t_axes)
-    E_loc = E // ep
+    E_loc = E // plan.axis_size(t_axes)
     x_spec = par.clean_spec(plan, x.shape, par.P(plan.batch_axes or None))
     x_pl = par.placements(x_spec, mesh, x.shape)
     w_pl = par.placements(par.P(t_axes), mesh)
     rep = (Replicate(),) * mesh.ndim
-
-    def local(t, want):
-        # the gradient of a value replicated over a mesh dim is each rank's
-        # partial contribution there: every rank runs other experts / rows
-        grad = tuple(Partial() if isinstance(p, Replicate) else p
-                     for p in want)
-        return t.redistribute(mesh, want).to_local(grad_placements=grad)
-
-    router = local(params["router"], rep)
-    w = {k: local(params[k], w_pl) for k in ("w_gate", "w_in", "w_out")}
-    xl = local(x, x_pl)
+    router = _local(params["router"], rep)
+    w = {k: _local(params[k], w_pl) for k in ("w_gate", "w_in", "w_out")}
+    xl = _local(x, x_pl)
     B, S, D = xl.shape
     T = B * S
     C = capacity(T, cfg)
     xt = xl.reshape(T, D)
     _, top_p, top_e = _route({"router": router}, xt, cfg)
-
-    coord = mesh.get_coordinate()
-    ep_rank = 0
-    for a in t_axes:                  # major first, as the experts' Shard
-        i = names.index(a)
-        ep_rank = ep_rank * mesh.size(i) + coord[i]
-    lo = ep_rank * E_loc
+    lo = _ep_rank(mesh, plan) * E_loc
     flat_e = top_e.reshape(-1)
     mine = (flat_e >= lo) & (flat_e < lo + E_loc)
     # rank within its local expert, among this rank's assignments only

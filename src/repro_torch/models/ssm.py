@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import parallelism as par
 from repro_torch.models import layers as L
 
 CHUNK = 32  # within-chunk dense block length
@@ -115,20 +116,29 @@ def rwkv6_mix(params, x, cfg, state=None):
         return t.reshape(B, S, H, hd).transpose(1, 2)
     r, k, v, logw = heads(r), heads(k), heads(v), heads(logw)
     u = params["u"].reshape(H, hd)
-
-    Sc = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-          if state is None else state["S"])
     C = min(CHUNK, S)
     if S % C:
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"chunk {C}")
-    ys = []
-    for c0 in range(0, S, C):
-        sl = slice(c0, c0 + C)
-        y, Sc = _run_chunk(_wkv_chunk, r[:, :, sl], k[:, :, sl], v[:, :, sl],
-                           logw[:, :, sl], u, Sc)
-        ys.append(y)
-    y = torch.cat(ys, dim=2).transpose(1, 2)         # (B, S, H, hd) f32
+
+    def scan(r, k, v, logw, u, Sc):                  # on local heads
+        if Sc is None:
+            Sc = torch.zeros(r.shape[:2] + (hd, hd), dtype=torch.float32,
+                             device=r.device)
+        ys = []
+        for c0 in range(0, S, C):
+            sl = slice(c0, c0 + C)
+            y, Sc = _run_chunk(_wkv_chunk, r[:, :, sl], k[:, :, sl],
+                               v[:, :, sl], logw[:, :, sl], u, Sc)
+            ys.append(y)
+        return torch.cat(ys, dim=2), Sc
+
+    bh = ("batch", "heads", None, None)
+    Sc = None if state is None else state["S"]
+    y, Sc = par.local_call(scan, (r, k, v, logw, u, Sc),
+                           (bh, bh, bh, bh, ("heads", None), bh),
+                           ((r.shape, bh), ((B, H, hd, hd), bh)))
+    y = y.transpose(1, 2)                            # (B, S, H, hd) f32
 
     # per-head group norm (population variance, as jnp.var) + gating
     mean = torch.mean(y, dim=-1, keepdim=True)
@@ -251,19 +261,32 @@ def mamba2_mix(params, x, cfg, state=None):
     log_a = dtv * A                                           # (B,S,H) <= 0
 
     xh = xc.reshape(B, S, H, hd)
-    Sc = (torch.zeros((B, H, hd, ds), dtype=torch.float32, device=x.device)
-          if state is None else state["S"])
     C = min(CHUNK, S)
     if S % C:
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"chunk {C}")
-    ys = []
-    for c0 in range(0, S, C):
-        sl = slice(c0, c0 + C)
-        y, Sc = _run_chunk(_ssd_step, xh[:, sl], Bm[:, sl], Cm[:, sl],
-                           log_a[:, sl], dtv[:, sl], Sc)
-        ys.append(y)
-    y = torch.cat(ys, dim=2).transpose(1, 2)                  # (B,S,H,hd)
+
+    def scan(xh, Bm, Cm, log_a, dtv, Sc):            # on local heads
+        if Sc is None:
+            Sc = torch.zeros((xh.shape[0], xh.shape[2], hd, ds),
+                             dtype=torch.float32, device=xh.device)
+        ys = []
+        for c0 in range(0, S, C):
+            sl = slice(c0, c0 + C)
+            y, Sc = _run_chunk(_ssd_step, xh[:, sl], Bm[:, sl], Cm[:, sl],
+                               log_a[:, sl], dtv[:, sl], Sc)
+            ys.append(y)
+        return torch.cat(ys, dim=2), Sc
+
+    bh = ("batch", "heads", None, None)
+    seq_h = ("batch", None, "heads")
+    Sc = None if state is None else state["S"]
+    y, Sc = par.local_call(
+        scan, (xh, Bm, Cm, log_a, dtv, Sc),
+        (seq_h + (None,), ("batch", None, None), ("batch", None, None),
+         seq_h, seq_h, bh),
+        (((B, H, S, hd), bh), ((B, H, hd, ds), bh)))
+    y = y.transpose(1, 2)                                     # (B,S,H,hd)
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(B, S, d_inner)
     # gated RMSNorm

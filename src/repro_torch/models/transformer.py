@@ -257,12 +257,14 @@ def logits(cfg: ModelConfig, params, hidden):
 
 
 def _embed_tokens(cfg, params, tokens):
+    """The scaled token embeddings, in the residual stream's placements
+    under a plan (a vocab-split table's lookup is a partial sum)."""
     table = params["embed"]["table"]
     x = (par.embedding(table, tokens) if par.is_dtensor(table)
          else L.embed(params["embed"], tokens))
     if cfg.family != "ssm":
         x = x * float(np.sqrt(cfg.d_model))
-    return x
+    return _residual(x)
 
 
 def _window(kind, cfg):
@@ -326,7 +328,7 @@ def _apply_layer_train(kind, lp, x, positions, cfg):
 
 def _checkpointed(fn):
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return par.checkpoint(fn, *args)
     return run
 
 
@@ -582,12 +584,19 @@ def _attn_block(p, h_in, attn_out, cfg):
     """Residual + MLP or MoE tail shared by every attention-layer dispatch
     of the serving steps. The MoE sees the step's whole padded batch
     (inactive slots, padding rows and segments included), as the
-    reference's does: its capacity counts them."""
-    x = h_in + attn_out
+    reference's does: its capacity counts them. Under a plan each
+    sublayer's output joins the residual stream's placements
+    (`_residual`), as in training: left a partial sum, DTensor would
+    gather the next layer's split weights whole instead. (The recurrent
+    layers' decode leaves its residual as DTensor places it: their
+    column-split output projections split it over the model width, as
+    GSPMD keeps it, and their replicated channel-mix weights then run on
+    each rank's share of it.)"""
+    x = h_in + _residual(attn_out)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if "moe" in p:
-        return x + M.moe_apply(p["moe"], h, cfg)
-    return x + L.swiglu(p["mlp"], h)
+        return x + _residual(M.moe_apply(p["moe"], h, cfg))
+    return x + _residual(L.swiglu(p["mlp"], h))
 
 
 def _layers(cfg, params, pool, draft):

@@ -241,6 +241,18 @@ dlp = par.shard_tree(lp, plan.param_specs({{"moe": lp}})["moe"], mesh)
 dx = par.shard_tree({{"x": x}}, {{"x": par.P("data")}}, mesh)["x"]
 with par.plan_context(plan):
     out["ep/fwd"] = par.full(M.moe_apply_ep(dlp, dx, moe, plan)).numpy()
+    # the serving verbs' MoE: each rank's own experts at the global capacity
+    out["moe_apply/fwd"] = par.full(M.moe_apply(dlp, dx, moe)).numpy()
+# and its gradients
+glp = {{k: v.detach().requires_grad_() for k, v in dlp.items()}}
+gx = dx.detach().requires_grad_()
+ct = par.shard_tree({{"c": torch.from_numpy(z["ep_ct"])}},
+                    {{"c": par.P("data")}}, mesh)["c"]
+with par.plan_context(plan):
+    (M.moe_apply(glp, gx, moe) * ct).sum().backward()
+out["moe_apply/dx"] = par.full(gx.grad).numpy()
+for k, v in glp.items():
+    out["moe_apply/d" + k] = par.full(v.grad).numpy()
 # gradients at capacity factor 8 (nothing dropped) against moe_apply's
 wide = dataclasses.replace(moe, capacity_factor=8.0)
 dlp = {{k: v.detach().requires_grad_() for k, v in dlp.items()}}
@@ -434,6 +446,28 @@ def test_moe_apply_ep_gradients_equal_moe_apply(runs):
         _close(got["ep/dx"], x.grad.numpy())
         for k, v in lp.items():
             _close(got["ep/d" + k], v.grad.numpy(), err_msg=k)
+
+
+def test_moe_apply_under_a_plan_equals_moe_apply(runs):
+    """Under dp_tp the serving verbs' `moe_apply` runs each rank's own
+    experts over the whole batch at the global capacity (an overflow
+    drops as without a plan) and sums their outputs: the unplanned
+    layer's output and gradients."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe as M
+    arrays, _, ranks = runs
+    cfg = dataclasses.replace(reduced(get_config("qwen3-moe-30b-a3b")),
+                              dtype="float32", capacity_factor=1.0)
+    lp = {k[3:]: torch.from_numpy(v.copy()).requires_grad_()
+          for k, v in arrays.items() if k.startswith("ep/")}
+    x = torch.from_numpy(arrays["ep_x"]).requires_grad_()
+    y = M.moe_apply(lp, x, cfg)
+    (y * torch.from_numpy(arrays["ep_ct"])).sum().backward()
+    for got in ranks:
+        _close(got["moe_apply/fwd"], y.detach().numpy())
+        _close(got["moe_apply/dx"], x.grad.numpy())
+        for k, v in lp.items():
+            _close(got["moe_apply/d" + k], v.grad.numpy(), err_msg=k)
 
 
 def test_pipeline_matches_jax_and_sequential(runs):
