@@ -198,11 +198,11 @@ Phases, in order; any failure exits non-zero before the final ok line:
      x 4096) and qwen3-moe-30b-a3b (2 layers, 1 x 4096, expert
      parallelism engaged) trained under dp_tp in turns with the unplanned
      step (step ms, peak GiB, B6 twice per attention layer a step in
-     both); yi-9b served at full depth (48 layers, bf16, 8 requests x 32
-     new) under Engine(plan=dp_tp) in turns with the unplanned engine
-     (tokens/s, TPOT p50, a profile's busy share; B1 == decode steps x
-     48), and in f32 at 2 layers with tokens equal to the unplanned
-     engine's.
+     both); yi-9b served at full width (16 of 48 layers, bf16, 8
+     requests x 32 new) under Engine(plan=dp_tp) in turns with the
+     unplanned engine (tokens/s, TPOT p50, a profile's busy share; B1 ==
+     decode steps x 16), and in f32 at 2 layers with tokens equal to the
+     unplanned engine's.
 
  10. the dry run (A15's op analysis, A16's launch scripts). yi-9b at full
      width cut to 8 of 48 layers, batch 2 x 4096, Adam, remat: one train
@@ -215,6 +215,17 @@ Phases, in order; any failure exits non-zero before the final ok line:
      processes started together: yi-9b train_4k (ok, B6 reached twice per
      attention layer, none launched), rwkv6-7b decode_32k (ok, fits the
      card), phi4-mini-3.8b long_500k (skipped), each record printed.
+
+ 11. the examples (A16): examples/quickstart_torch.py, serve_demo_torch.py
+     and compression_comparison_torch.py --ranks 1 on the card at the
+     reference's sizes, pipeline_training_torch.py --device cpu (4 gloo
+     ranks on the host; its 4-card run needs 4 cards), started together
+     with the dry runs of 10 (dryrun_and_examples_phase: seven processes,
+     each with a time limit). Each must exit 0, print its reference lines
+     (serve_demo keeps the reference's assertions: the pools drain, the prefix cache hits, speculation accepts drafts,
+     outputs bit-identical across waves) and launch its kernels, counted
+     from 0 in its own process: B6 in quickstart; B1, B4 and B6 in
+     serve_demo; B9 in the compression comparison.
 
 The last lines are the kernels JSON line, the card line, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -4358,14 +4369,18 @@ def _plan_train_turns(card, mesh, arch, layers, batch, seq):
     _release_card()
 
 
+PLAN_SERVE_LAYERS = 16   # of yi-9b's 48: the plan's cost is per layer
+
+
 def _plan_serve(card, mesh):
-    """(c) yi-9b at full depth (48 layers, bf16) through the Engine
-    unplanned and with Engine(plan=dp_tp) on the (1, 1) mesh, in turns
-    unplanned, dp_tp, dp_tp, unplanned: 8 mixed requests with 32 new tokens
-    each; tokens/s and TPOT p50 of each (step_timing), B1 == decode steps x
-    48 in both, bf16 token agreement printed; the device busy share of
-    both from a profile of 4 engine steps. Then yi-9b in f32 cut to 2
-    layers: the planned engine's tokens equal the unplanned engine's."""
+    """(c) yi-9b at full width cut to PLAN_SERVE_LAYERS layers (bf16)
+    through the Engine unplanned and with Engine(plan=dp_tp) on the (1, 1)
+    mesh, in turns unplanned, dp_tp, dp_tp, unplanned: 8 mixed requests
+    with 32 new tokens each; tokens/s and TPOT p50 of each (step_timing),
+    B1 == decode steps x layers in both, bf16 token agreement printed; the
+    device busy share of both from a profile of 4 engine steps. Then yi-9b
+    in f32 cut to 2 layers: the planned engine's tokens equal the
+    unplanned engine's."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import parallelism as par
@@ -4373,7 +4388,8 @@ def _plan_serve(card, mesh):
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.workloads import mixed_workload
     _release_card()
-    cfg = get_config("yi-9b")
+    cfg = dataclasses.replace(get_config("yi-9b"),
+                              num_layers=PLAN_SERVE_LAYERS)
     params = T.init_params(cfg, seed=0, device="cuda")
     ecfg = EngineConfig(block_size=16, num_blocks=1024, max_blocks_per_seq=128,
                         max_slots=8, prefill_chunk=256, step_timing=True)
@@ -4461,60 +4477,91 @@ def plan_phase(card):
 DRYRUN_COMBOS = (("yi-9b", "train_4k", "ok"),
                  ("rwkv6-7b", "decode_32k", "fits"),
                  ("phi4-mini-3.8b", "long_500k", "skipped"))
-DRYRUN_TIMEOUT = 420
+SUBPROCESS_TIMEOUT = 600
 
 
-def dryrun_phase(card):
-    """``python -m repro_torch.launch.dryrun`` on the card (device cuda),
-    one process per combo (the fake group is process-wide), all started
-    together: yi-9b train_4k under dp_tp on the 16 x 16 mesh (status ok,
-    256 chips, B6's custom op reached once a forward per attention layer:
-    twice with remat), rwkv6-7b decode_32k (ok, fits the card's memory)
-    and phi4-mini-3.8b long_500k (skipped: full attention); each ok
-    record's ``launches`` (the kernels its trace launched) all 0. The 2 x
-    16 x 16 multi-pod mesh is left out: DTensor's sharding propagation
+def _run_together(cmds, timeout):
+    """Each of `cmds` (argument lists) as a subprocess from the repository
+    root, all started together, each writing to a log of its own; what
+    still runs `timeout` s after the start is killed. Returns (exit code,
+    None if killed; seconds from the start to its end; its output) for
+    each."""
+    import os
+    import tempfile
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-") as tmp:
+        logs = [open(Path(tmp) / f"{i}.log", "w+") for i in range(len(cmds))]
+        procs = [subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                  env=env, cwd=ROOT)
+                 for cmd, log in zip(cmds, logs)]
+        ends = [None] * len(procs)
+        try:
+            while None in ends and time.perf_counter() - t0 < timeout:
+                for i, proc in enumerate(procs):
+                    if ends[i] is None and proc.poll() is not None:
+                        ends[i] = time.perf_counter() - t0
+                time.sleep(0.2)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        results = []
+        for proc, log, end in zip(procs, logs, ends):
+            log.seek(0)
+            results.append((None if end is None else proc.returncode, end,
+                            log.read()))
+            log.close()
+    return results
+
+
+def dryrun_and_examples_phase(card):
+    """Phases 10 and 11, their subprocesses all started together (each
+    waits on processes; the host's cores are shared and no kernel is
+    timed), each with a time limit of SUBPROCESS_TIMEOUT s."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        records = [Path(tmp) / f"{arch}__{shape}.json"
+                   for arch, shape, _ in DRYRUN_COMBOS]
+        cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", "single", "--plan",
+                 "dp_tp", "--device", "cuda", "--out", str(path)]
+                for (arch, shape, _), path in zip(DRYRUN_COMBOS, records)]
+        cmds += [[sys.executable, str(ROOT / "examples" / f"{name}_torch.py"),
+                  *argv] for name, argv, _, _ in EXAMPLES]
+        results = _run_together(cmds, SUBPROCESS_TIMEOUT)
+        failed = _check_dryruns(card, records, results[:len(DRYRUN_COMBOS)])
+    failed += _check_examples(card, results[len(DRYRUN_COMBOS):])
+    check(not failed, f"dry runs or examples failed: {failed}")
+    print(f"dryrun and examples: {len(cmds)} processes in "
+          f"{time.perf_counter() - t0:.1f} s (in parallel) | {card}")
+
+
+def _check_dryruns(card, records, results):
+    """Phase 10: ``python -m repro_torch.launch.dryrun`` on the card
+    (device cuda), one process per combo (the fake group is
+    process-wide): yi-9b train_4k under dp_tp on the 16 x 16 mesh (status
+    ok, 256 chips, B6's custom op reached once a forward per attention
+    layer: twice with remat), rwkv6-7b decode_32k (ok, fits the card's
+    memory) and phi4-mini-3.8b long_500k (skipped: full attention); each
+    ok record's ``launches`` (the kernels its trace launched) all 0. The 2
+    x 16 x 16 multi-pod mesh is left out: DTensor's sharding propagation
     over its three mesh dims made one decode trace take 392 s on a CPU
     (33x the 16 x 16 mesh's). Prints each record's roofline terms, memory
-    needed and trace time."""
-    import tempfile
-    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
-        _dryrun_combos(card, Path(tmp))
-
-
-def _dryrun_combos(card, out):
-    import os
-
+    needed and trace time; returns the combos that failed."""
     from repro_torch.configs import get_config
     from repro_torch.models import state_providers as SP
     from repro_torch.models import transformer as T
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    t0 = time.perf_counter()
-    procs = []
-    for arch, shape, _ in DRYRUN_COMBOS:
-        path = out / f"{arch}__{shape}.json"
-        log = open(out / f"{arch}__{shape}.log", "w")
-        procs.append((path, log, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "single", "--plan", "dp_tp",
-             "--device", "cuda", "--out", str(path)], stdout=log,
-            stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
-    rcs = []
-    try:
-        for _, log, proc in procs:
-            rcs.append(proc.wait(timeout=DRYRUN_TIMEOUT))
-    finally:
-        for _, log, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
     failed = []
-    for (arch, shape, want), (path, log, _), rc in zip(
-            DRYRUN_COMBOS, procs, rcs):
+    for (arch, shape, want), path, (rc, secs, text) in zip(
+            DRYRUN_COMBOS, records, results):
         label = f"dryrun {arch} {shape} single dp_tp"
         if rc != 0:
-            print(f"{label}: exited {rc}:\n"
-                  f"{Path(log.name).read_text()[-3000:]}")
+            status = (f"killed at the {SUBPROCESS_TIMEOUT} s limit"
+                      if rc is None else f"exited {rc}")
+            print(f"{label}: {status}:\n{text[-3000:]}")
             failed.append(label)
             continue
         rec = json.loads(path.read_text())
@@ -4537,8 +4584,8 @@ def _dryrun_combos(card, out):
               f"({rec['dominant']}); MODEL_FLOPS / counted "
               f"{ratio}; HBM needed {rec['hbm_needed_per_device']} B "
               f"(fits {rec['fits_hbm']}; memory {json.dumps(rec['memory'])}); "
-              f"kernel calls {rec['kernel_calls']}; trace {rec['trace_s']} s "
-              f"| {card}")
+              f"kernel calls {rec['kernel_calls']}; trace {rec['trace_s']} s, "
+              f"ended {secs:.1f} s after the start | {card}")
         check(ratio is not None and math.isfinite(ratio) and ratio > 0,
               f"{label}: useful_flops_ratio {ratio}")
         if want == "fits":
@@ -4553,9 +4600,7 @@ def _dryrun_combos(card, out):
             check(calls == want_calls, f"{label}: B6 reached {calls} times, "
                   f"want {want_calls} ({n_attn} attention layers, remat "
                   f"{cfg.remat})")
-    check(not failed, f"dry runs failed: {failed}")
-    print(f"dryrun: {len(DRYRUN_COMBOS)} combos in "
-          f"{time.perf_counter() - t0:.1f} s (in parallel) | {card}")
+    return failed
 
 
 ANALYSIS_LAYERS = TRAIN_LAYERS     # yi-9b at the training shape, 8 of 48
@@ -4670,6 +4715,83 @@ TC_KERNELS = {"flash_attention": (r"flash_fwd_bf16ILi(\d+)E", "width"),
                   "width, pool, mode")}
 TC_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8", "0": "full",
             "1": "ring", "bf16_": "bf16", "": "f32"}
+
+
+# ------------------------------------------------ phase 11: the examples
+# (example, arguments, lines it must print, kernels that must launch): the
+# three card runs at the reference's sizes; the pipeline on 4 gloo ranks on
+# the host (its 4-card run needs a machine with 4 cards)
+EXAMPLES = (
+    ("quickstart", (), ("arch=yi-9b-reduced params=", "step  90  loss ",
+                        "checkpoint roundtrip ok (step 100)",
+                        "greedy continuation: ["), ("B6",)),
+    ("serve_demo", (), (
+        "legacy static batch: copy accuracy",
+        "engine (mixed lengths x4): copy accuracy",
+        "engine replay with prefix caching:", "outputs bit-identical",
+        "distinct step signatures:", "(TTFTs match live)",
+        'engine_request_ttft_seconds{quantile="0.5"}',
+        "engine oversubscription wave x4:",
+        "was evicted mid-flight and resumed",
+        "engine speculative wave (n-gram self-drafting, k=6) x4:",
+        "engine hybrid wave (mamba2 slabs + paged shared attention) x4: "
+        "outputs bit-identical to serve.generate"), ("B1", "B4", "B6")),
+    ("compression_comparison", ("--ranks", "1"), (
+        "1 data-parallel rank(s), nccl, 60 batches", "none     first5=",
+        "int8     first5=", "onebit   first5=", "topk     first5="),
+     ("B9",)),
+    ("pipeline_training", ("--device", "cpu"), (
+        "ran 4 stages on 4 gloo ranks on the host",
+        "pipeline output matches sequential: maxerr=",
+        "stages=4 microbatches=8: 11 rounds"), ()),
+)
+
+
+def _launches(line):
+    """{"B1": n, ...} of an example's last line, ``kernels: B1=n ...``."""
+    check(line.startswith("kernels: "), f"no launch line: {line!r}")
+    return {k: int(v) for k, v in
+            (kv.split("=") for kv in line.split()[1:])}
+
+
+def _check_examples(card, results):
+    """Phase 11: the four ``examples/*_torch.py``: quickstart, serve_demo
+    and compression_comparison --ranks 1 on the card at the reference's
+    sizes, pipeline_training with --device cpu (4 gloo ranks on the host;
+    its 4-card run needs a machine with 4 cards). Each must exit 0, print
+    its reference lines and launch its kernels (B6 in quickstart; B1, B4
+    and B6 in serve_demo; B9 in the compression comparison), counted from
+    0 in its own process. Returns the examples that failed."""
+    failed = []
+    for (name, argv, lines, kernels), (rc, secs, text) in zip(EXAMPLES,
+                                                               results):
+        label = f"example {name}_torch.py {' '.join(argv)}".rstrip()
+        missing = [ln for ln in lines if ln not in text]
+        if rc != 0 or missing:
+            status = (f"killed at the {SUBPROCESS_TIMEOUT} s limit"
+                      if rc is None else f"exited {rc}")
+            print(f"{label}: {status}, missing {missing}:\n{text[-3000:]}")
+            failed.append(label)
+            continue
+        out = [ln for ln in text.splitlines() if ln.strip()
+               and "Warning" not in ln and "warn(" not in ln]
+        counts = _launches(out[-1])
+        print(f"{label}: ok, ended {secs:.1f} s after the start; "
+              f"{out[-1]} | {card}")
+        for ln in out[:-1]:
+            if ln.startswith(("step ", "legacy", "engine", "none ", "int8 ",
+                              "onebit ", "topk ", "ran ", "pipeline",
+                              "stages=", "distinct", "JSONL", "checkpoint",
+                              "greedy", "1 data")):
+                print(f"  {ln}")
+        idle = [k for k in kernels if counts.get(k, 0) <= 0]
+        if idle:
+            print(f"{label}: kernels {idle} never launched")
+            failed.append(label)
+    print("example pipeline_training_torch.py ran its 4 stages on gloo "
+          "ranks on the host; its 4-card run waits for a machine with 4 "
+          "cards")
+    return failed
 
 
 def _ptxas_kernels(text):
@@ -4844,8 +4966,8 @@ def main() -> int:
         lap("sharding plans")
         analysis_phase(card)
         lap("op analysis")
-        dryrun_phase(card)
-        lap("dry run")
+        dryrun_and_examples_phase(card)
+        lap("dry run and examples")
     except Exception as exc:  # noqa: BLE001 — report any phase's failure
         import traceback
         traceback.print_exc()

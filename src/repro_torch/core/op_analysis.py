@@ -33,7 +33,9 @@ unrolled by running it, so trip counts multiply by construction. Per op:
                      state in place); ``temp_size_in_bytes``: the peak of
                      live bytes beyond the arguments, less the new results,
                      so argument + temp + output − alias is the predicted
-                     peak.
+                     peak. With call sites, ``top_ops(metric="peak_bytes")``
+                     is what is live at that peak, by the op, result shape
+                     and call site that made each storage.
 
 DTensor ops are left to the subclass (the mode returns ``NotImplemented``),
 which issues the local ops and collectives that one rank runs: the numbers
@@ -268,9 +270,12 @@ class OpAnalysis(TorchDispatchMode):
         self.kernel_calls = defaultdict(int)
         self.rows = defaultdict(lambda: [0.0, 0.0, 0])
         self._lock = threading.RLock()
-        self._live = {}              # id(storage) -> (weakref, nbytes)
+        self._live = {}              # id(storage) -> (weakref, nbytes, row)
         self._live_bytes = 0
         self._peak = 0
+        self._held = defaultdict(lambda: [0, 0])   # row -> live bytes, count
+        self._at_peak = {}           # self._held when live bytes peaked
+        self._peak_unseen = False    # a new peak, not yet in self._at_peak
         self._args = {}              # id(storage) -> nbytes
         self._outputs = None
         self._mark = None
@@ -319,9 +324,22 @@ class OpAnalysis(TorchDispatchMode):
         with self._lock:
             entry = self._live.pop(key, None)
             if entry is not None:
+                self._see_peak()
                 self._live_bytes -= entry[1]
+                if entry[2] is not None:
+                    held = self._held[entry[2]]
+                    held[0] -= entry[1]
+                    held[1] -= 1
 
-    def _track(self, t) -> None:
+    def _see_peak(self):
+        """Keep what is live at a new peak: called at the first free after
+        it (only allocations came between) and when the rows are read."""
+        if self._peak_unseen:
+            self._at_peak = {k: tuple(v) for k, v in self._held.items()
+                             if v[1]}
+            self._peak_unseen = False
+
+    def _track(self, t, row=None) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._args or key in self._live:
@@ -329,9 +347,15 @@ class OpAnalysis(TorchDispatchMode):
         n = st.nbytes()
         with self._lock:
             ref = weakref.ref(st, lambda r, k=key: self._freed(k))
-            self._live[key] = (ref, n)
+            self._live[key] = (ref, n, row)
             self._live_bytes += n
-            self._peak = max(self._peak, self._live_bytes)
+            if row is not None:
+                held = self._held[row]
+                held[0] += n
+                held[1] += 1
+            if self._live_bytes > self._peak:
+                self._peak = self._live_bytes
+                self._peak_unseen = row is not None
 
     # ---------------------------------------------------------------- cost
     def _record(self, func, args, kwargs, out) -> None:
@@ -350,13 +374,13 @@ class OpAnalysis(TorchDispatchMode):
             sent = sum(tensor_bytes(t) for t in (outs or ins))
             self.collective_bytes[coll] += sent
             self.collective_counts[coll] += 1
+        key = (name, shape_text(outs[0]) if outs else "",
+               _call_site() if self.sites else "")
         for t in outs:
-            self._track(t)
+            self._track(t, key if self.sites else None)
         self.flops += flops
         self.hbm_bytes += nbytes
         if flops or nbytes:
-            key = (name, shape_text(outs[0]) if outs else "",
-                   _call_site() if self.sites else "")
             row = self.rows[key]
             row[0] += flops
             row[1] += nbytes
@@ -429,10 +453,20 @@ class OpAnalysis(TorchDispatchMode):
         """Rows (cost, op, name, shape, hint), costliest first: each op,
         result shape and call site summed over its calls (the eager
         counterpart of the reference's trip-weighted instructions); name
-        is the number of calls. ``n=None`` gives every row."""
-        col = {"flops": 0, "hbm_bytes": 1}[metric]
-        rows = [(v[col], op, f"x{v[2]}", shape, hint)
-                for (op, shape, hint), v in self.rows.items() if v[col]]
+        is the number of calls. ``metric="peak_bytes"`` (made with
+        ``sites=True``): the bytes of each row's storages live at the
+        memory peak (beyond the arguments), name their number. ``n=None``
+        gives every row."""
+        if metric == "peak_bytes":
+            with self._lock:
+                self._see_peak()
+                rows = [(float(b), op, f"x{c}", shape, hint)
+                        for (op, shape, hint), (b, c)
+                        in self._at_peak.items()]
+        else:
+            col = {"flops": 0, "hbm_bytes": 1}[metric]
+            rows = [(v[col], op, f"x{v[2]}", shape, hint)
+                    for (op, shape, hint), v in self.rows.items() if v[col]]
         rows.sort(key=lambda r: -r[0])
         return rows if n is None else rows[:n]
 

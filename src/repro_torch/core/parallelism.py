@@ -425,8 +425,43 @@ def local_call(fn, args, names, outs):
     in_pl = tuple(pl(tuple(a.shape), n) if is_dtensor(a) else None
                   for a, n in zip(args, names))
     out_pl = tuple(pl(tuple(shape), n) for shape, n in outs)
+    split = {d for p in out_pl for d, q in enumerate(p) if q.is_shard()}
+    args = tuple(_summed_grad(a.redistribute(mesh, p), split)
+                 if p is not None and a.requires_grad else a
+                 for a, p in zip(args, in_pl))
     return local_map(fn, out_placements=out_pl, in_placements=in_pl,
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _summed_grad(x, split):
+    """`x` (a DTensor argument of ``local_call``), whose gradient is summed
+    over each mesh dim of `split` (where the results are split) on which
+    `x` is replicated: every rank's share of the results read all of `x`,
+    so each rank's gradient is a partial sum. ``local_map`` would take it
+    as replicated (each rank keeping only its own share)."""
+    dims = tuple(d for d in sorted(split) if x.placements[d].is_replicate())
+    return _SummedGrad.apply(x, dims) if dims else x
+
+
+class _SummedGrad(torch.autograd.Function):
+    """Identity on a DTensor; its gradient's mesh dims `dims` are taken as
+    partial sums and reduced (an all-reduce each)."""
+
+    @staticmethod
+    def forward(ctx, x, dims):
+        ctx.dims = dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial
+        want = tuple(grad.placements)
+        partial = tuple(Partial() if d in ctx.dims else q
+                        for d, q in enumerate(want))
+        grad = DTensor.from_local(grad.to_local(), grad.device_mesh,
+                                  partial, run_check=False,
+                                  shape=grad.shape, stride=grad.stride())
+        return grad.redistribute(grad.device_mesh, want), None
 
 
 def placements(spec, mesh, shape=None) -> tuple:

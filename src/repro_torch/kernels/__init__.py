@@ -20,3 +20,25 @@ launch_counts: dict = {
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+# each TPU kernel's number (ROADMAP §B) -> the counts of its port's launches
+# (B3, the int8 dequant, runs inside B1/B2/B4/B5: their `_int8` launches)
+KERNEL_COUNTS = {
+    "B1": ("paged_attention", "paged_attention_int8"),
+    "B2": ("paged_ring", "paged_ring_int8"),
+    "B4": ("paged_verify", "paged_verify_int8"),
+    "B5": ("paged_ring_verify", "paged_ring_verify_int8"),
+    "B6": ("flash_attention",),
+    "B7": ("matmul",),
+    "B8": ("quantize_nearest",),
+    "B9": ("quantize_stochastic",)}
+
+
+def launch_line(counts=None) -> str:
+    """One line of every kernel's launches, ``kernels: B1=n ...``, from
+    `counts` (another process's ``launch_counts``) or this process's."""
+    counts = launch_counts if counts is None else counts
+    return "kernels: " + " ".join(
+        f"{b}={sum(counts[n] for n in names)}"
+        for b, names in KERNEL_COUNTS.items())

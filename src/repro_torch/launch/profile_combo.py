@@ -1,10 +1,11 @@
 """§Perf profiler: trace one combo on the fake production mesh and print
 the per-op top rows by HBM traffic or FLOPs (summed over each op's calls,
-per device) and the collectives — the evidence for each hypothesis (the
+per device), or by the bytes each holds at the memory peak, and the
+collectives — the evidence for each hypothesis (the
 port's counterpart of ``repro.launch.profile_combo``).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_combo --arch rwkv6-7b \\
-      --shape train_4k --plan dp_tp --metric hbm_bytes [--device cpu]
+      --shape train_4k --plan dp_tp --metric peak_bytes [--device cpu]
 """
 import argparse
 
@@ -20,7 +21,7 @@ def main(argv=None):
     ap.add_argument("--shape", required=True, choices=list(SHAPES))
     ap.add_argument("--plan", default="dp_tp", choices=par.PLANS)
     ap.add_argument("--metric", default="hbm_bytes",
-                    choices=("hbm_bytes", "flops"))
+                    choices=("hbm_bytes", "flops", "peak_bytes"))
     ap.add_argument("--n", type=int, default=20)
     ap.add_argument("--collectives", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -32,9 +33,11 @@ def main(argv=None):
                                  device=args.device, sites=True)
     total = analysis.result()
     print(f"total flops={total['flops']:.3e} hbm={total['hbm_bytes']:.3e} "
-          f"coll={total['total_collective_bytes']:.3e}")
-    print(f"--- top {args.n} by {args.metric} (summed over calls, per "
-          f"device) ---")
+          f"coll={total['total_collective_bytes']:.3e} "
+          f"temp={total['memory']['temp_size_in_bytes']:.4e}")
+    how = ("live at the memory peak" if args.metric == "peak_bytes"
+           else "summed over calls")
+    print(f"--- top {args.n} by {args.metric} ({how}, per device) ---")
     for cost, op, name, shape, hint in analysis.top_ops(args.n, args.metric):
         print(f"{cost:12.4e}  {op:18s} {name:>6s} {shape:28s} {hint}")
     if args.collectives:

@@ -162,7 +162,14 @@ def rwkv6_channel_mix(params, x, cfg, state=None):
     k = (xk @ params["cm_k"].to(xk.dtype)).float()
     vv = torch.square(torch.relu(k)).to(x.dtype)
     v = vv @ params["cm_v"]
-    return r.to(x.dtype) * v, x[:, -1:]
+    r = r.to(x.dtype)
+    if r.requires_grad:
+        # training under a plan takes cm_r split by column: r joins x's
+        # placements before it scales v's partial sums, so the backward
+        # pass takes dv whole and keeps the (B, S, d_ff) gradient split
+        # over d_ff (a forward alone needs no such gather)
+        r = par.constrain(r, ("batch", None, None))
+    return r * v, x[:, -1:]
 
 
 def rwkv6_state_spec(cfg):

@@ -296,6 +296,17 @@ def _whole_seq(h):
     return par.constrain(h, ("batch", None, None))
 
 
+def _split_columns(p, names):
+    """`p` with each replicated weight of `names` split over the tensor
+    axes along its output columns under a plan (each rank's slice of a
+    replicated tensor: no communication). Over a whole sequence GSPMD
+    partitions the reference's products with a replicated weight over the
+    model axis; DTensor runs them whole on every rank (rwkv6's cm_r and
+    decay LoRA: 1.35x the reference's FLOPs a rank). A no-op without a
+    plan."""
+    return {**p, **{k: par.constrain(p[k], (None, "heads")) for k in names}}
+
+
 def _apply_layer_train(kind, lp, x, positions, cfg):
     """One layer over a full sequence. Attention kinds: x + attention, then
     x + MLP or MoE (whose load-balancing loss is the aux); rwkv: x + time
@@ -316,9 +327,10 @@ def _apply_layer_train(kind, lp, x, positions, cfg):
             return x + _residual(y), M.load_balance_loss(lp["moe"], h, cfg)
         return x + _residual(L.swiglu(lp["mlp"], h)), 0.0
     if kind == "rwkv":
-        x = x + _residual(S.rwkv6_mix(lp["rwkv"], h, cfg)[0])
+        p = _split_columns(lp["rwkv"], ("w_lora_b", "cm_r"))
+        x = x + _residual(S.rwkv6_mix(p, h, cfg)[0])
         h = _whole_seq(L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
-        return x + _residual(S.rwkv6_channel_mix(lp["rwkv"], h, cfg)[0]), 0.0
+        return x + _residual(S.rwkv6_channel_mix(p, h, cfg)[0]), 0.0
     if kind == "mamba":
         x = x + _residual(S.mamba2_mix(lp["mamba"], h, cfg)[0])
         h = _whole_seq(L.rmsnorm(lp["ln2"], x, cfg.norm_eps))

@@ -12,8 +12,9 @@ have to cover).
 This module is the one place the serving signals live (time-to-first-token,
 queue wait, per-step host/device time, step-call signatures); the engine
 and block pool publish into it instead of keeping ad-hoc ``stats`` dicts.
-The reference's exporters (JSONL event log, Prometheus text) are not
-ported yet.
+Two exporters read it: a JSON Lines event log (``Telemetry.export_jsonl``,
+parsed back into timelines by ``replay_jsonl``) and a Prometheus text
+snapshot (``MetricsRegistry.prometheus_text``).
 
 Three pieces, composable but independently usable:
 
@@ -28,9 +29,9 @@ Three pieces, composable but independently usable:
     per-phase latency are *derived* (``derive_timeline``) rather than
     guessed.
   * ``RecompileTracker`` — wraps the engine's step functions and counts unique
-    (function, arg shapes/dtypes) trace keys: the number of distinct
-    compiled step variants a serving run dispatched, the precursor metric
-    for AOT-compiled prefill buckets.
+    (function, arg shapes/dtypes) signatures: the number of distinct step
+    variants a serving run dispatched (``unique`` per function, ``total``
+    over all), the set a graph capture per bucket would have to cover.
 
 ``Telemetry`` bundles the three behind one ``enabled`` switch
 (``EngineConfig.telemetry``): when disabled every record call is a cheap
@@ -44,6 +45,7 @@ Metric naming scheme (the reference's engine README, Telemetry section):
 """
 from __future__ import annotations
 
+import json
 import math
 import time
 from typing import Callable, NamedTuple, Optional
@@ -229,6 +231,26 @@ class MetricsRegistry:
             else:
                 out[name] = m.value
         return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text-format snapshot. Histograms are exported as
+        summaries (quantile-labelled samples + ``_sum``/``_count``)."""
+        lines = []
+        for name, m in self._metrics.items():
+            if m.help:
+                lines.append(f"# HELP {name} {m.help}")
+            if m.kind == "histogram":
+                lines.append(f"# TYPE {name} summary")
+                if m.count:
+                    for q in (0.5, 0.9, 0.99):
+                        lines.append(
+                            f'{name}{{quantile="{q}"}} {m.quantile(q * 100)}')
+                lines.append(f"{name}_sum {m.sum}")
+                lines.append(f"{name}_count {m.count}")
+            else:
+                lines.append(f"# TYPE {name} {m.kind}")
+                lines.append(f"{name} {m.value}")
+        return "\n".join(lines) + "\n"
 
 
 # ----------------------------------------------------------------- tracing
@@ -421,8 +443,17 @@ class RecompileTracker:
         tracked.__wrapped__ = fn
         return tracked
 
+    def unique(self, name: str) -> int:
+        """Distinct signatures `name` was called with."""
+        return len(self.seen.get(name, ()))
+
     def variants(self) -> dict:
         return {name: len(keys) for name, keys in self.seen.items()}
+
+    @property
+    def total(self) -> int:
+        """Distinct (function, signature) pairs over every wrapped step."""
+        return sum(len(keys) for keys in self.seen.values())
 
 
 # ----------------------------------------------------------------- bundle
@@ -488,3 +519,39 @@ class Telemetry:
     # -- views -----------------------------------------------------------
     def request_timeline(self, rid) -> dict:
         return derive_timeline(self.tracer.request_events(rid))
+
+    # -- exporters -------------------------------------------------------
+    def export_jsonl(self, path) -> int:
+        """Write the event log as JSON Lines (one event per line). Returns
+        the number of events written. ``replay_jsonl`` parses it back into
+        per-request timelines."""
+        with open(path, "w") as f:
+            for ev in self.tracer.events:
+                row = {"t": ev.t, "rid": ev.rid, "event": ev.name}
+                if ev.data:
+                    row["data"] = ev.data
+                f.write(json.dumps(row) + "\n")
+        return len(self.tracer.events)
+
+    def prometheus_text(self) -> str:
+        return self.registry.prometheus_text()
+
+
+def replay_jsonl(path) -> dict:
+    """Parse a JSONL trace back into ``{rid: derived timeline}`` — the same
+    TTFT / queue-wait / decode-timeline view a live ``Telemetry`` computes,
+    so traces from a serving run can be analyzed offline."""
+    by_rid: dict = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            row = json.loads(line)
+            rid = row.get("rid")
+            if rid is None:
+                continue
+            by_rid.setdefault(rid, []).append(
+                Event(row["t"], rid, row["event"], row.get("data")))
+    return {rid: derive_timeline(sorted(evs, key=lambda e: e.t))
+            for rid, evs in by_rid.items()}

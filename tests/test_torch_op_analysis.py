@@ -187,6 +187,31 @@ def test_bytes_and_memory_of_a_hand_counted_function():
     assert out[0] is buf
 
 
+def test_peak_rows_are_what_is_live_at_the_peak():
+    """``top_ops(metric="peak_bytes")``: the storages live at the memory
+    peak by the op and call site that made them; they sum to temp plus the
+    new results (a tensor made and freed before the peak is not there)."""
+    x = torch.ones(64)                             # 256 B, an argument
+
+    def fn(x):
+        early = (x * 3.0).sum()                    # 256 B, freed
+        big = x.repeat(4)                          # 1 KiB
+        both = torch.cat([big, big])               # 2 KiB
+        return both.sum() + early                  # scalars
+
+    _, an = oa.run(fn, x, sites=True)
+    mem = an.result()["memory"]
+    rows = an.top_ops(None, "peak_bytes")
+    assert sum(r[0] for r in rows) == (mem["temp_size_in_bytes"]
+                                       + mem["output_size_in_bytes"]
+                                       - mem["alias_size_in_bytes"])
+    by_op = {r[1]: (r[0], r[2]) for r in rows}
+    assert by_op["aten.repeat"] == (1024.0, "x1")
+    assert by_op["aten.cat"] == (2048.0, "x1")
+    assert "aten.mul" not in by_op
+    assert rows == sorted(rows, key=lambda r: -r[0])
+
+
 @pytest.mark.parametrize("metric", ["flops", "hbm_bytes"])
 def test_top_ops_rows_sum_to_the_total(metric):
     cfg = ModelConfig(**{**TINY, "num_layers": 2})

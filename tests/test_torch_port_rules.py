@@ -1,8 +1,8 @@
 """Port rules: the PyTorch port stands alone beside the JAX reference.
 
-* Nothing under ``src/repro_torch/`` or in ``chip_smoke.py`` imports
-  ``jax`` or ``repro`` (AST scan), and importing the engine leaves both out
-  of ``sys.modules``.
+* Nothing under ``src/repro_torch/``, in ``chip_smoke.py`` or in the
+  examples' ``examples/*_torch.py`` imports ``jax`` or ``repro`` (AST
+  scan), and importing the engine leaves both out of ``sys.modules``.
 * Entry points default to the card: ``Engine(cfg, params)``,
   ``trainer.init_state``, the data-parallel group and the training launcher
   (also with ``--paper-mode``) with no device raise where there is no CUDA
@@ -36,7 +36,9 @@ pytestmark = pytest.mark.port
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+EXAMPLES = sorted((REPO / "examples").glob("*_torch.py"))
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + EXAMPLES)
 
 CFG_KW = dict(name="rules-t", family="dense", num_layers=2, d_model=64,
               num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
@@ -64,6 +66,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_repro():
     assert PORT.is_dir() and len(PORT_FILES) > 10
+    assert len(EXAMPLES) == 4, EXAMPLES
     offenders = [f"{p.relative_to(REPO)}:{line}: {mod}"
                  for p in PORT_FILES for line, mod in _imports(p)
                  if _banned(mod)]
