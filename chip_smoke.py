@@ -78,9 +78,10 @@ Phases, in order; any failure exits non-zero before the final ok line:
      with the plain quantizer (B9 launching only in the first).
   5. main paths — yi-9b at full width (48 layers, bf16, seeded random
      weights) through the port's Engine: mixed requests plus two
-     ~1000-token prompts, with bf16 and with int8 pools, then both pool
-     types at one fixed pool byte budget under oversubscription (the bf16
-     pool must preempt; peak resident sequences of each); then gemma3-12b
+     ~1000-token prompts, with bf16 and with int8 pools, then, cut to 16
+     of its 48 layers, both pool types in turns and at one fixed pool byte
+     budget under oversubscription (the bf16 pool must preempt; peak
+     resident sequences of each); then gemma3-12b
      at full width (48 layers: 40 ring-KV local, 8 global) served without
      speculation, with the n-gram drafter and with a replay drafter (k=4),
      plus two prompts that wrap the ring, and with int8 pools without
@@ -122,17 +123,18 @@ Phases, in order; any failure exits non-zero before the final ok line:
      seed 1) with its acceptance; yi-9b in f32 cut to 2 layers, where the
      sampled request's tokens with and without preemption and under
      speculation, and draft-model speculation against plain greedy, are
-     gated equal. Then rwkv6-7b (32 layers) and zamba2-2.7b (54 layers, hd
-     80) at full depth, bf16: 8 requests (prompts 32-128, 32 new) plainly,
-     with n-gram spec k = 4 and under oversubscription with one forced
-     preemption (rwkv6 resumes from its snapshot, zamba2 re-prefills):
-     finite logits, no leaked block, zamba2's B1 == decode steps x 9 and
-     B4 == verify steps x 9; tokens/s, TTFT, TPOT, per-step host and
+     gated equal. Then rwkv6-7b (32 layers, full depth) and zamba2-2.7b
+     (hd 80; 18 of its 54 layers, 3 of 9 superblocks), bf16: 8 requests
+     (prompts 32-128, 32 new) plainly, with n-gram spec k = 4 and under
+     oversubscription with one forced preemption (rwkv6 resumes from its
+     snapshot, zamba2 re-prefills): finite logits, no leaked block,
+     zamba2's B1 == decode steps x 3 and B4 == verify steps x 3 (one
+     shared attention a superblock); tokens/s, TTFT, TPOT, per-step host and
      device ms, peak memory and a profile of the decode window. bf16 token
      agreement between paths is reported, not gated (bf16 prefill, decode
      and K-row verify round differently; the f32 runs gate it). zamba2 is
      also served on int8 pools, plainly and with n-gram spec (the same
-     requests): B1+B3 == decode steps x 9, B4+B3 == verify steps x 9.
+     requests): B1+B3 == decode steps x 3, B4+B3 == verify steps x 3.
 
   7. the MoE family and recurrent training. Kernels: B2 and B5 (k = 4)
      at mixtral-8x7b's layout (32/8 heads, hd 128) on its 4096-token
@@ -1425,14 +1427,20 @@ def _match_share(label, base, other, against="the bf16-pool run",
           f"not gated{': ' + why if why else ''})")
 
 
+POOL_TURN_LAYERS = 16   # of yi-9b's 48: the pools in turns and the fixed
+                        # budget runs, whose cost is per layer (for the
+                        # smoke's time)
+
+
 def yi9b_int8_phase(card, rows, params, ecfg, prompts, news, bf16_outs):
     """yi-9b at full width with int8 pools (kv_quant) at the main phase's
-    settings and requests; then both pool types at one fixed pool byte
-    budget under OversubConfig(): bf16 with N blocks, int8 with
-    N·(2·hd·2) // (2·(hd + 4)) blocks. Traffic for the budget runs: the 8
-    mixed requests as batch class 1, then after one step the two long
-    prompts as interactive class 0, with 16 slots so the pool binds; the
-    bf16 pool must preempt."""
+    settings and requests; then, cut to POOL_TURN_LAYERS layers, the two
+    pool types in turns and at one fixed pool byte budget under
+    OversubConfig(): bf16 with N blocks, int8 with N·(2·hd·2) //
+    (2·(hd + 4)) blocks. Traffic for the budget runs: the 8 mixed
+    requests as batch class 1, then after one step the two long prompts
+    as interactive class 0, with 16 slots so the pool binds; the bf16 pool
+    must preempt."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.serving.engine import Engine, KVQuantConfig, OversubConfig
@@ -1454,6 +1462,10 @@ def yi9b_int8_phase(card, rows, params, ecfg, prompts, news, bf16_outs):
         "paged_attention_int8"]
     del eng
     _release_card()
+    # the host-ahead run and the profiles at full depth (below); the turns
+    # and the budget runs on the first POOL_TURN_LAYERS layers' weights
+    full, cfg = cfg, dataclasses.replace(cfg, num_layers=POOL_TURN_LAYERS)
+    L = cfg.num_layers
     # bf16 and int8 pools in turns within this process (bf16, int8, int8,
     # bf16), synchronized: the pool type's cost on the same requests
     turns = []
@@ -1466,10 +1478,11 @@ def yi9b_int8_phase(card, rows, params, ecfg, prompts, news, bf16_outs):
                      f"{r['step_ms']:.2f} ms")
         del eng
         _release_card()
-    print(f"yi-9b pools in turns: " + "; ".join(turns) + f" | {card}")
+    print(f"yi-9b pools in turns ({L} of {full.num_layers} layers): "
+          + "; ".join(turns) + f" | {card}")
     # the same requests host-ahead, then the profile, as for bf16 pools
-    fast = Engine(cfg, params, dataclasses.replace(ecfg, kv_quant=kvq,
-                                                   step_timing=False))
+    fast = Engine(full, params, dataclasses.replace(ecfg, kv_quant=kvq,
+                                                    step_timing=False))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for p, m in zip(prompts, news):
@@ -1506,7 +1519,8 @@ def yi9b_int8_phase(card, rows, params, ecfg, prompts, news, bf16_outs):
     check(budget["bf16"]["preemptions"] > 0,
           "fixed-budget bf16 run did not preempt")
     print(f"yi-9b fixed pool budget ({n_bf16} bf16 blocks = {n_int8} int8 "
-          f"blocks): peak resident sequences bf16 "
+          f"blocks; {L} of {full.num_layers} layers): peak resident "
+          f"sequences bf16 "
           f"{budget['bf16']['resident']}, int8 {budget['int8']['resident']}; "
           f"preemptions bf16 {budget['bf16']['preemptions']}, int8 "
           f"{budget['int8']['preemptions']} | {card}")
@@ -2239,9 +2253,15 @@ def f32_width_phase(card):
 RECURRENT_LENS = (32, 48, 64, 80, 96, 112, 128, 128)
 
 
+RECURRENT_LAYERS = {"rwkv6-7b": 32,      # full depth
+                    "zamba2-2.7b": 18}   # 3 of 9 superblocks: the host's
+                                         # token loops cost per layer
+
+
 def recurrent_main_phase(card, arch, kernel_rows=()):
     """rwkv6-7b (32 layers) or zamba2-2.7b (54 = 9 x (5 mamba2 + shared
-    attention), hd 80) at full depth and width, bf16, seeded random
+    attention), hd 80; cut to RECURRENT_LAYERS, for the smoke's time) at
+    full width, bf16, seeded random
     weights, through the port's Engine: 8 requests with prompts of 32-128
     tokens (one packed prefill: the recurrent layers' token loop) and 32 new
     tokens, served plainly, with n-gram speculation (k = 4) and under
@@ -2266,7 +2286,8 @@ def recurrent_main_phase(card, arch, kernel_rows=()):
                                             KVQuantConfig, OversubConfig,
                                             SpecConfig)
     _release_card()
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=RECURRENT_LAYERS[arch])
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -4473,10 +4494,22 @@ def plan_phase(card):
 
 # ------------------------------------------ phase 10: the dry run (A15/A16)
 # (arch, shape, what the record must show): the card's path traced on fake
-# tensors on rank 0 of a fake 256-rank group (the 16 x 16 mesh), dp_tp
-DRYRUN_COMBOS = (("yi-9b", "train_4k", "ok"),
+# tensors on rank 0 of a fake 256-rank group (the 16 x 16 mesh), dp_tp.
+# phi4-mini's 24 query heads and mixtral's 8 experts do not divide the
+# 16-way 'model' axis; mixtral's record ("reference") is held to
+# MODEL_FLOPS / counted >= MIN_MOE_RATIO and to at most REF_HBM_TOL times
+# the HBM a device that the reference's own record needs,
+# MIXTRAL_REF_HBM (`python -m repro.launch.dryrun --arch mixtral-8x7b
+# --shape train_4k --mesh single --plan dp_tp`, JAX on the CPU: 0.575 of
+# MODEL_FLOPS counted, and it does not fit the card's memory either)
+DRYRUN_COMBOS = (("mixtral-8x7b", "train_4k", "reference"),
+                 ("phi4-mini-3.8b", "train_4k", "ok"),
+                 ("yi-9b", "train_4k", "ok"),
                  ("rwkv6-7b", "decode_32k", "fits"),
                  ("phi4-mini-3.8b", "long_500k", "skipped"))
+MIXTRAL_REF_HBM = 109_926_633_984
+REF_HBM_TOL = 1.10
+MIN_MOE_RATIO = 0.40
 SUBPROCESS_TIMEOUT = 600
 
 
@@ -4542,10 +4575,13 @@ def dryrun_and_examples_phase(card):
 def _check_dryruns(card, records, results):
     """Phase 10: ``python -m repro_torch.launch.dryrun`` on the card
     (device cuda), one process per combo (the fake group is
-    process-wide): yi-9b train_4k under dp_tp on the 16 x 16 mesh (status
-    ok, 256 chips, B6's custom op reached once a forward per attention
-    layer: twice with remat), rwkv6-7b decode_32k (ok, fits the card's
-    memory) and phi4-mini-3.8b long_500k (skipped: full attention); each
+    process-wide): yi-9b and phi4-mini-3.8b train_4k under dp_tp on the
+    16 x 16 mesh (status ok, 256 chips, B6's custom op reached once a
+    forward per attention layer: twice with remat), mixtral-8x7b train_4k
+    (ok, B6 as those, MODEL_FLOPS / counted at least MIN_MOE_RATIO and
+    HBM needed within REF_HBM_TOL of the reference's record),
+    rwkv6-7b decode_32k (ok, fits the card's memory) and phi4-mini-3.8b
+    long_500k (skipped: full attention); each
     ok record's ``launches`` (the kernels its trace launched) all 0. The 2
     x 16 x 16 multi-pod mesh is left out: DTensor's sharding propagation
     over its three mesh dims made one decode trace take 392 s on a CPU
@@ -4591,6 +4627,13 @@ def _check_dryruns(card, records, results):
         if want == "fits":
             check(rec["fits_hbm"] is True, f"{label}: needs "
                   f"{rec['hbm_needed_per_device']} B of the card's")
+        if want == "reference":
+            check(ratio >= MIN_MOE_RATIO, f"{label}: MODEL_FLOPS / counted "
+                  f"{ratio} < {MIN_MOE_RATIO}")
+            check(rec["hbm_needed_per_device"]
+                  <= REF_HBM_TOL * MIXTRAL_REF_HBM,
+                  f"{label}: needs {rec['hbm_needed_per_device']} B, more "
+                  f"than {REF_HBM_TOL} x the reference's {MIXTRAL_REF_HBM}")
         cfg = get_config(arch)
         n_sb, _ = SP.superblock_layout(cfg)
         n_attn = n_sb * sum(k in T._ATTN_KINDS for k in SP.layer_kinds(cfg))

@@ -554,8 +554,7 @@ def write_along(dst, dim, index, src):
     tensor of distinct positions) that fall in its own shard. A plain `dst`
     is written as it is."""
     lead = (slice(None),) * dim
-    if not is_dtensor(dst) or not any(
-            getattr(p, "dim", None) == dim for p in dst.placements):
+    if not is_dtensor(dst):
         dst[lead + (index,)] = src
         return dst
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -569,6 +568,12 @@ def write_along(dst, dim, index, src):
             want.append(Shard(p.dim - 1))
         else:
             want.append(p)
+    if not any(getattr(p, "dim", None) == dim for p in dst.placements):
+        # `src` in the placements of the rows it lands in
+        if is_dtensor(src) and tuple(src.placements) != tuple(want):
+            src = src.redistribute(mesh, want)
+        dst[lead + (index,)] = src
+        return dst
     if not is_dtensor(src):
         src = DTensor.from_local(src, mesh, (Replicate(),) * mesh.ndim,
                                  run_check=False)

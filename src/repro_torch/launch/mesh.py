@@ -72,14 +72,12 @@ def make_fake_mesh(shape, axes, device="cuda"):
     """A ``DeviceMesh`` of `shape` named `axes` seen from rank 0 of a
     "fake" process group of prod(shape) ranks (``torch.testing``'s
     ``FakeStore`` and backend: every collective returns at once and moves
-    nothing; a dry run traces one rank's program on it). Raises if a
-    default group exists already: a process holds one."""
+    nothing; a dry run traces one rank's program on it). A process holds
+    one default group: a later call lays its mesh over the same fake group
+    (meshes (2, 4) and (1, 8) share 8 ranks) and raises if the default
+    group is another one or of another size."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    if dist.is_initialized():
-        raise RuntimeError("a default process group exists already; the "
-                           "fake group of a dry run needs a process of its "
-                           "own")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the dry run traces the card's path by default "
@@ -88,8 +86,14 @@ def make_fake_mesh(shape, axes, device="cuda"):
     world = 1
     for s in shape:
         world *= s
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=world)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != world:
+            raise RuntimeError("a default process group exists already; the "
+                               "fake group of a dry run needs a process of "
+                               "its own")
+    else:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
     return init_device_mesh(device.type, tuple(shape),
                             mesh_dim_names=tuple(axes))
 

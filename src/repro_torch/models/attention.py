@@ -63,26 +63,15 @@ def _scatter(kv, bids, offs, k, v, quantized=None):
         kv["v"][bids, offs] = v
 
 
-def _split_heads(x, n, hd):
-    if par.is_dtensor(x):
-        x = _whole_heads(x, n)
+def _split_heads(x, n, hd, pl=None):
+    """(..., n·hd) -> (..., n, hd). A DTensor is first put in the
+    placements `pl` (its attention layout, `_head_layout`), which split
+    its last dim into whole heads only: DTensor cannot view a dim split
+    within a head as (n, hd), nor, in the backward pass, the gradient of
+    one."""
+    if pl is not None and par.is_dtensor(x) and tuple(x.placements) != pl:
+        x = x.redistribute(x.device_mesh, pl)
     return x.reshape(x.shape[:-1] + (n, hd))
-
-
-def _whole_heads(x, n):
-    """A DTensor (..., n·hd) whose last dim splits into whole heads: kept
-    when one mesh dim shards it and divides the n heads; otherwise that dim
-    is gathered (DTensor cannot view a dim split over two mesh dims, or
-    within a head, as (n, hd))."""
-    from torch.distributed.tensor import Replicate, Shard
-    last = x.ndim - 1
-    dims = [i for i, p in enumerate(x.placements)
-            if isinstance(p, Shard) and p.dim in (-1, last)]
-    if not dims or (len(dims) == 1 and n % x.device_mesh.size(dims[0]) == 0):
-        return x
-    want = [Replicate() if i in dims else p
-            for i, p in enumerate(x.placements)]
-    return x.redistribute(x.device_mesh, want)
 
 
 def _repeat_kv(k, n_rep):
@@ -101,9 +90,12 @@ def _repeat_kv(k, n_rep):
 
 def _project_qkv(params, x, positions, cfg):
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = _split_heads(x @ params["wq"], h, hd)
-    k = _split_heads(x @ params["wk"], hkv, hd)
-    v = _split_heads(x @ params["wv"], hkv, hd)
+    q_pl = kv_pl = None
+    if par.is_dtensor(x):
+        q_pl, kv_pl, _ = _head_layout(x.device_mesh, x.shape[:2], h, hkv, hd)
+    q = _split_heads(x @ params["wq"], h, hd, q_pl)
+    k = _split_heads(x @ params["wk"], hkv, hd, kv_pl)
+    v = _split_heads(x @ params["wv"], hkv, hd, kv_pl)
     if cfg.rope_mode == "standard":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -164,9 +156,9 @@ def attention_train(params, x, positions, cfg, *, window=None,
     A CUDA tensor runs the flash-attention kernel (`impl` is not read); a
     CPU tensor takes the reference's `impl`: "naive" or "chunked" (query
     chunks of ``cfg.attn_chunk``)."""
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(params, x, positions, cfg)
-    B, S = x.shape[0], x.shape[1]
+    S = x.shape[1]
     if x.is_cuda:
         def attend(q, k, v):
             return flash_attention(q, k, v, causal=True, window=window)
@@ -177,71 +169,99 @@ def attention_train(params, x, positions, cfg, *, window=None,
             return _attend_full(q, k, v, q.shape[2] // k.shape[2],
                                 1.0 / np.sqrt(hd), chunk, window)
     out = _on_local_heads(attend, q, k, v)
-    return out.reshape(B, S, h * hd) @ params["wo"]
+    return _merge_heads(out) @ params["wo"]
+
+
+def _merge_heads(x):
+    """(B, S, H, hd) -> (B, S, H·hd). On a DTensor the gradient reaching
+    the merged tensor is put back in its placements first, which split it
+    into whole heads: the output projection's backward gives it split as
+    that weight's rows, within a head where the heads do not divide the
+    tensor axes."""
+    out = x.reshape(x.shape[:2] + (x.shape[2] * x.shape[3],))
+    if par.is_dtensor(out) and out.requires_grad:
+        out = par._ConstrainGrad.apply(out)
+    return out
 
 
 def _on_local_heads(fn, q, k, v):
     """fn(q, k, v) -> (B, S, H, hd); on DTensors (a sharding plan) it runs
-    through ``local_map`` on each rank's own rows and heads: the batch
-    split over the plan's batch axes, the query and kv heads over its
-    tensor axes where both divide. Where only the query heads divide (GQA
-    with fewer kv heads than tensor ranks: yi-9b's 4 on a 16-way 'model'
-    axis) the query heads split and each rank takes the kv heads its own
-    query heads read from the replicated K/V, as GSPMD splits the
-    reference's attention; their gradient is a partial sum over the tensor
-    axes. Otherwise the heads are replicated. So a kernel only ever sees
-    plain local tensors. The gradients leaving `fn` for q, k and v are
-    made contiguous: the attention backward gives them permuted, and
-    DTensor views a gradient's local tensor where its global one is
-    contiguous (a split-head MHA layer's projection backward failed on
-    that view)."""
+    through ``local_map`` on each rank's own rows and heads, in the layout
+    of `_head_layout`, so a kernel only ever sees plain local tensors.
+    Where the kv heads stay whole over the axes that split the query heads
+    (GQA with fewer kv heads than ranks: yi-9b's 4 on a 16-way 'model'
+    axis) each rank takes the kv heads its own query heads read, as GSPMD
+    splits the reference's attention; their gradient is a partial sum over
+    those axes. The gradients leaving `fn` for q, k and v are made
+    contiguous: the attention backward gives them permuted, and DTensor
+    views a gradient's local tensor where its global one is contiguous (a
+    split-head MHA layer's projection backward failed on that view)."""
     if not par.is_dtensor(q):
         return fn(q, k, v)
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
-    plan = par.current_plan()
     mesh = q.device_mesh
-
-    def want(heads, t):
-        # a dim of size 1 in either stays whole (see par.placements)
-        shape = [min(a, b) for a, b in zip(q.shape[:2], k.shape[:2])]
-        shape += list(t.shape[2:])
-        if plan is None:
-            return par.placements(par.P(), mesh, shape)
-        spec = par.clean_spec(plan, t.shape,
-                              par.P(plan.batch_axes or None, None, heads))
-        return par.placements(spec, mesh, shape)
-
-    heads = (plan.tensor_axes or None) if plan is not None else None
-    kv = _kv_heads_of_rank(plan, mesh, heads, q.shape[2], k.shape[2])
-    if kv is None:
-        if heads and not par._divisible(k.shape[2], heads, plan.shape):
-            heads = None
-        pl = want(heads, k)
-
-        def local(q, k, v):
-            return fn(*(_ContiguousGrad.apply(t) for t in (q, k, v)))
-        return local_map(local, out_placements=list(pl),
-                         in_placements=(pl,) * 3, device_mesh=mesh,
-                         redistribute_inputs=True)(q, k, v)
-    lo, hi = kv
-    q_pl, kv_pl = want(heads, q), want(None, k)
+    shape = [min(a, b) for a, b in zip(q.shape[:2], k.shape[:2])]
+    q_pl, kv_pl, kv = _head_layout(mesh, shape, q.shape[2], k.shape[2],
+                                   q.shape[3])
+    lo, hi = kv or (0, None)
     kv_grad = tuple(Partial() if a != b else b for a, b in zip(q_pl, kv_pl))
 
-    def local_gqa(q, k, v):
+    def local(q, k, v):
         q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
-        return fn(q, k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous())
-    return local_map(local_gqa, out_placements=list(q_pl),
+        if kv is not None:
+            k, v = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+        return fn(q, k, v)
+    return local_map(local, out_placements=list(q_pl),
                      in_placements=(q_pl, kv_pl, kv_pl),
                      in_grad_placements=(q_pl, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
+def _head_layout(mesh, bs, H, Hkv, hd):
+    """(q placements, k / v placements, kv heads (lo, hi) this rank reads)
+    of attention's (B, S, heads, hd) tensors under the current plan, bs
+    being (B, S). The query heads split over the longest leading run of
+    the plan's tensor axes whose size divides them (the projections'
+    columns split over those axes major first, so a rank's block of
+    columns holds whole heads and the re-layout moves data within the
+    remaining axes only); the batch splits over the plan's batch axes and
+    those remaining tensor axes, as many of them as divide it (attention
+    is independent per row: GSPMD splits the reference's so where the
+    heads do not divide). The kv heads split as the query heads where the
+    axes divide them; otherwise they stay whole there and each rank reads
+    the kv heads of its own query heads (None: all it holds). Without a
+    plan everything is replicated."""
+    plan = par.current_plan()
+    if plan is None:
+        rep = par.placements(par.P(), mesh)
+        return rep, rep, None
+    t, kv = plan.tensor_axes, None
+    heads = ()
+    for n in range(len(t), 0, -1):
+        if par._divisible(H, t[:n], plan.shape):
+            kv = _kv_heads_of_rank(plan, mesh, t[:n], H, Hkv)
+            if par._divisible(Hkv, t[:n], plan.shape) or kv is not None:
+                heads = t[:n]
+                break
+    rest, batch = t[len(heads):], ()
+    for n in range(len(rest), -1, -1):
+        if par._divisible(bs[0], plan.batch_axes + rest[:n], plan.shape):
+            batch = plan.batch_axes + rest[:n]
+            break
+    kv_heads = () if kv is not None else heads
+
+    def pl(h_axes, n):
+        spec = par.P(batch or None, None, h_axes or None, None)
+        return par.placements(spec, mesh, (bs[0], bs[1], n, hd))
+    return pl(heads, H), pl(kv_heads, Hkv), kv
+
+
 def _kv_heads_of_rank(plan, mesh, heads, H, Hkv):
     """(lo, hi): the kv heads that this rank's query heads read when the
     query heads split over the tensor axes `heads` and the kv heads do not
-    (each rank's block of H / tp query heads maps onto whole kv heads);
-    None otherwise."""
+    (each rank's block of H / |heads| query heads maps onto whole kv
+    heads); None otherwise."""
     if not heads or par._divisible(Hkv, heads, plan.shape) \
             or not par._divisible(H, heads, plan.shape):
         return None
@@ -335,7 +355,7 @@ def attention_prefill(params, x, cache, cfg, *, window=None):
     min(S, size) positions land, at their ring slots). An int8 cache makes
     the queries attend the round-tripped values, as the paged prefill reads
     its keys back from the int8 pool. Returns (out (B,S,D), cache)."""
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _project_qkv(params, x, rope_positions(positions, cfg), cfg)
@@ -348,7 +368,7 @@ def attention_prefill(params, x, cache, cfg, *, window=None):
         lambda q, k, v: _attend_full(q, k, v, q.shape[2] // k.shape[2],
                                      1.0 / np.sqrt(hd),
                                      cfg.attn_chunk, window), q, k, v)
-    out = out.reshape(B, S, h * hd) @ params["wo"]
+    out = _merge_heads(out) @ params["wo"]
 
     Sc = cache["k"].shape[1]
     keep = min(S, Sc)                       # ring slots are unique for the
@@ -366,7 +386,7 @@ def attention_decode(params, x, cache, index, cfg, *, window=None):
     the token's K/V in place (slot index % Sc in a ring) and attends every
     valid slot: slot <= index, or in a ring an age below min(index+1, Sc).
     Returns (out (B,1,D), cache)."""
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
     B = x.shape[0]
     positions = torch.full((B, 1), index, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, rope_positions(positions, cfg),
@@ -396,7 +416,7 @@ def attention_decode(params, x, cache, index, cfg, *, window=None):
         s = torch.where(valid[None, None, None, :], s, NEG_INF)
         p = torch.softmax(s, dim=-1).to(x.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", p, vv)
-    out = _on_local_heads(attend, q, k, v).reshape(B, 1, h * hd)
+    out = _merge_heads(_on_local_heads(attend, q, k, v))
     return out @ params["wo"], cache
 
 

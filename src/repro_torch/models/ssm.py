@@ -245,63 +245,106 @@ def _ssd_step(xh, Bm, Cm, log_a, dtv, S0):
                       dtv.transpose(1, 2), S0)
 
 
+def _in_proj(w, x, sizes):
+    """x @ w split into its column sections `sizes`, for a DTensor w (a
+    plan's column split). The sections do not fall on the bounds of that
+    split, so cutting x @ w gathers the (B, S, 2·d_inner + 2·ds + H)
+    product whole on every rank; where that product has more rows than
+    the weight (a prefill or a training step) each section is computed
+    instead from its own columns of the gathered weight, split over the
+    tensor axes where they divide."""
+    if x.numel() // x.shape[-1] <= w.shape[0]:
+        return torch.split(x @ w, list(sizes), dim=-1)
+    w = par.constrain(w, (None, None))
+    return [x @ par.constrain(piece, (None, "heads"))
+            for piece in torch.split(w, list(sizes), dim=-1)]
+
+
 def mamba2_mix(params, x, cfg, state=None):
     """Mamba2 block. x: (B,S,D) -> (y, new_state); state: {"S": (B,H,hd,ds)
-    f32, "conv": (B,3,conv_dim)} or None (zeros)."""
+    f32, "conv": (B,3,conv_dim)} or None (zeros). Under a plan the conv,
+    its float32 silu, the scan and the gate run through ``local_call`` on
+    each rank's own heads, where the tensor axes divide the heads, so
+    their float32 copies are the rank's share."""
     B, S, D = x.shape
     d_inner = 2 * D
     hd = cfg.ssm_head_dim
     H = d_inner // hd
     ds = cfg.ssm_state_dim
-
-    zxbcdt = x @ params["in_proj"]
-    z, xc, Bm, Cm, dt_raw = torch.split(
-        zxbcdt, [d_inner, d_inner, ds, ds, H], dim=-1)
-    conv_in = torch.cat([xc, Bm, Cm], dim=-1)
-    conv_prev = None if state is None else state["conv"]
-    conv_out, conv_carry = _causal_conv(conv_in, params["conv_w"], conv_prev)
-    conv_out = F.silu(conv_out.float())
-    xc, Bm, Cm = torch.split(conv_out, [d_inner, ds, ds], dim=-1)
-
-    dtv = F.softplus(dt_raw.float() + params["dt_bias"])      # (B,S,H)
-    A = -torch.exp(params["A_log"])                           # (H,) < 0
-    log_a = dtv * A                                           # (B,S,H) <= 0
-
-    xh = xc.reshape(B, S, H, hd)
     C = min(CHUNK, S)
     if S % C:
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"chunk {C}")
+    if state is None:
+        kk = params["conv_w"].shape[0]
+        prev = torch.zeros((B, kk - 1, d_inner + 2 * ds), dtype=x.dtype,
+                           device=x.device)
+        Sc = torch.zeros((B, H, hd, ds), dtype=torch.float32,
+                         device=x.device)
+    else:
+        prev, Sc = state["conv"], state["S"]
 
-    def scan(xh, Bm, Cm, log_a, dtv, Sc):            # on local heads
-        if Sc is None:
-            Sc = torch.zeros((xh.shape[0], xh.shape[2], hd, ds),
-                             dtype=torch.float32, device=xh.device)
+    def mix(z, xbc, log_a, dtv, w, Dh, prev, Sc):
+        # on a rank's own rows and heads: z (b,S,h·hd); xbc the conv's
+        # input, xc (b,S,h·hd) then B and C (shared by the heads), w and
+        # prev its taps and previous rows; log_a, dtv (b,S,h); Dh (h,); Sc
+        # (b,h,hd,ds)
+        b, n = z.shape[0], z.shape[-1]
+        conv, carry = _causal_conv(xbc, w, prev)
+        xc, Bm, Cm = torch.split(F.silu(conv.float()), [n, ds, ds], dim=-1)
+        xh = xc.reshape(b, S, -1, hd)
         ys = []
         for c0 in range(0, S, C):
             sl = slice(c0, c0 + C)
             y, Sc = _run_chunk(_ssd_step, xh[:, sl], Bm[:, sl], Cm[:, sl],
                                log_a[:, sl], dtv[:, sl], Sc)
             ys.append(y)
-        return torch.cat(ys, dim=2), Sc
+        y = torch.cat(ys, dim=2).transpose(1, 2)              # (b,S,h,hd)
+        y = y + Dh[None, None, :, None] * xh
+        return y.reshape(b, S, -1) * F.silu(z.float()), Sc, carry
 
-    bh = ("batch", "heads", None, None)
-    seq_h = ("batch", None, "heads")
-    Sc = None if state is None else state["S"]
-    y, Sc = par.local_call(
-        scan, (xh, Bm, Cm, log_a, dtv, Sc),
-        (seq_h + (None,), ("batch", None, None), ("batch", None, None),
-         seq_h, seq_h, bh),
-        (((B, H, S, hd), bh), ((B, H, hd, ds), bh)))
-    y = y.transpose(1, 2)                                     # (B,S,H,hd)
-    y = y + params["D"][None, None, :, None] * xh
-    y = y.reshape(B, S, d_inner)
-    # gated RMSNorm
-    y = y * F.silu(z.float())
+    def decay(dt_raw):
+        dtv = F.softplus(dt_raw.float() + params["dt_bias"])  # (B,S,H)
+        return dtv * -torch.exp(params["A_log"]), dtv         # log_a <= 0
+
+    if not par.is_dtensor(x):
+        z, xbc, dt_raw = torch.split(x @ params["in_proj"],
+                                     [d_inner, d_inner + 2 * ds, H], dim=-1)
+        y, Sc, carry = mix(z, xbc, *decay(dt_raw), params["conv_w"],
+                           params["D"], prev, Sc)
+    else:
+        z, xc, bc, dt_raw = _in_proj(params["in_proj"], x,
+                                     (d_inner, d_inner, 2 * ds, H))
+        # xc's channels split with the heads, B's and C's whole
+        plan = par.current_plan()
+        heads = "heads" if plan is not None and par._divisible(
+            H, plan.tensor_axes, plan.shape) else None
+        seq_h, seq = ("batch", None, heads), ("batch", None, None)
+        bh = ("batch", heads, None, None)
+
+        def local(z, xc, bc, log_a, dtv, w_x, w_bc, Dh, prev_x, prev_bc,
+                  Sc):
+            y, Sc, carry = mix(z, torch.cat([xc, bc], dim=-1), log_a, dtv,
+                               torch.cat([w_x, w_bc], dim=-1), Dh,
+                               torch.cat([prev_x, prev_bc], dim=-1), Sc)
+            return (y, Sc) + tuple(torch.split(
+                carry, [xc.shape[-1], 2 * ds], dim=-1))
+        cols = [d_inner, 2 * ds]
+        y, Sc, carry_x, carry_bc = par.local_call(
+            local, (z, xc, bc, *decay(dt_raw),
+                    *torch.split(params["conv_w"], cols, dim=-1),
+                    params["D"], *torch.split(prev, cols, dim=-1), Sc),
+            (seq_h, seq_h, seq, seq_h, seq_h, (None, heads), (None, None),
+             (heads,), seq_h, seq, bh),
+            (((B, S, d_inner), seq_h), ((B, H, hd, ds), bh),
+             ((B, prev.shape[1], d_inner), seq_h),
+             ((B, prev.shape[1], 2 * ds), seq)))
+        carry = torch.cat([par.constrain(carry_x, seq), carry_bc], dim=-1)
+    # gated RMSNorm (the gate applied on the local heads)
     var = torch.mean(y * y, dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps) * params["norm_scale"]
     out = y.to(x.dtype) @ params["out_proj"]
-    return out, {"S": Sc, "conv": conv_carry}
+    return out, {"S": Sc, "conv": carry}
 
 
 def mamba2_state_spec(cfg):

@@ -5,11 +5,13 @@ shape, as fake tensors (nothing allocated); ``shape_applicable`` alike;
 the reference's own dry-run smoke (rwkv6-7b decode_32k on the 16 x 16
 production mesh, phi4-mini-3.8b long_500k skipped) with ``device="cpu"``;
 per-device FLOPs of a reduced train step, prefill and decode step under
-dp_tp on a (2, 4) mesh against the reference's ``lower_combo`` +
-``analyze_compiled`` at 8 fake devices (10%), and their temporaries and
-HBM needed against its ``memory_analysis`` (at most 1.10x); and
-``results/make_tables.py`` rendering the port's records. Each fake-group run is a subprocess with a time limit (the group
-is process-wide); the JAX one runs beside it."""
+dp_tp on a (2, 4) mesh, and under tp on (2, 4), dp_tp on (1, 8) and dp
+on (2, 4) where the tensor ranks do not divide the heads or the experts,
+against the reference's ``lower_combo`` + ``analyze_compiled`` at 8 fake
+devices (10%), and their temporaries and HBM needed against its
+``memory_analysis`` (at most 1.10x); and ``results/make_tables.py``
+rendering the port's records. Each fake-group run is a subprocess with a
+time limit (the group is process-wide); the JAX one runs beside it."""
 import concurrent.futures
 import importlib.util
 import inspect
@@ -131,33 +133,56 @@ def test_reference_dry_run_smoke_and_tables(tmp_path):
 
 
 # train: dense GQA (yi-9b's 1 kv head: the query heads split, the kv
-# replicated), MHA (heads split), local-global, MoE and recurrent; the
-# serving kinds (forward + last-position logits, one dense-cache decode
+# replicated), MHA (heads split), local-global, MoE, recurrent and hybrid;
+# the serving kinds (forward + last-position logits, one dense-cache decode
 # step) of dense GQA, MoE (the serving verbs' MoE keeps the global
-# capacity) and recurrent, and the hybrid decode step
+# capacity) and recurrent, and the hybrid's prefill and decode step
 ARCHS_24 = ("yi-9b", "stablelm-3b", "gemma3-12b", "qwen3-moe-30b-a3b",
-            "rwkv6-7b")
+            "rwkv6-7b", "zamba2-2.7b")
 SERVING_24 = tuple((arch, kind) for arch in ("yi-9b", "qwen3-moe-30b-a3b",
-                                             "rwkv6-7b")
-                   for kind in ("prefill", "decode")) + (
-    ("zamba2-2.7b", "decode"),)
+                                             "rwkv6-7b", "zamba2-2.7b")
+                   for kind in ("prefill", "decode"))
 COMBOS_24 = tuple((arch, "train") for arch in ARCHS_24) + SERVING_24
 # and rwkv6's train step with remat on (the full configs' default), keyed
 # "rwkv6-7b/train+remat"
 REMAT_24 = (("rwkv6-7b", "train"),)
+# other (plan, mesh) pairs, keyed "arch/kind@plan(a,b)": tensor ranks that
+# do not divide the 4 query heads (tp on (2, 4): 8 ranks; dp_tp on (1, 8))
+# or the 4 experts (dp: no tensor axes; tp; dp_tp on (1, 8))
+PLAN_RUNS_24 = (
+    ("yi-9b", "train", "tp", (2, 4)), ("yi-9b", "prefill", "tp", (2, 4)),
+    ("yi-9b", "decode", "tp", (2, 4)), ("yi-9b", "train", "dp_tp", (1, 8)),
+    ("zamba2-2.7b", "prefill", "tp", (2, 4)),
+    ("qwen3-moe-30b-a3b", "train", "dp", (2, 4)),
+    ("qwen3-moe-30b-a3b", "prefill", "tp", (2, 4)),
+    ("mixtral-8x7b", "train", "dp_tp", (1, 8)),
+    ("mixtral-8x7b", "prefill", "dp_tp", (1, 8)))
 SHAPE_24 = (8, 128)          # global batch, sequence (the decode's cache)
-RUNS_24 = tuple((a, k, False) for a, k in COMBOS_24) + tuple(
-    (a, k, True) for a, k in REMAT_24)
+# (arch, kind, remat, plan, mesh shape) of each run
+RUNS_24 = tuple((a, k, False, "dp_tp", (2, 4)) for a, k in COMBOS_24) + tuple(
+    (a, k, True, "dp_tp", (2, 4)) for a, k in REMAT_24) + tuple(
+    (a, k, False, plan, mesh) for a, k, plan, mesh in PLAN_RUNS_24)
+
+
+def _key_24(arch, kind, remat=False, plan="dp_tp", mesh=(2, 4)):
+    key = f"{arch}/{kind}" + "+remat" * remat
+    if (plan, tuple(mesh)) != ("dp_tp", (2, 4)):
+        key += f"@{plan}({mesh[0]},{mesh[1]})"
+    return key
+
+
+PLAN_KEYS_24 = tuple(_key_24(a, k, False, plan, mesh)
+                     for a, k, plan, mesh in PLAN_RUNS_24)
+KEYS = tuple(_key_24(*r) for r in RUNS_24)
 
 
 @pytest.fixture(scope="module")
 def flops_24(tmp_path_factory):
-    """Per-device counts of each of COMBOS_24 (and REMAT_24), reduced,
-    under dp_tp on a
-    (2, 4) ('data', 'model') mesh, keyed "arch/kind": the reference's
+    """Per-device counts of each of RUNS_24, reduced, on ('data',
+    'model') meshes of 8 ranks, keyed as `_key_24`: the reference's
     loop-aware count of its compiled SPMD module at 8 fake devices (Auto
-    axes), and the port's on rank 0 of a fake group, in two processes at
-    once."""
+    axes), and the port's on rank 0 of a fake group (one group, each
+    mesh laid over it), in two processes at once."""
     d = tmp_path_factory.mktemp("dp_tp_24")
     jax_code = f"""
         import dataclasses, json
@@ -165,15 +190,15 @@ def flops_24(tmp_path_factory):
         from repro.core import hlo_analysis as ha
         from repro.launch.dryrun import lower_combo
         from repro.launch.mesh import _make_mesh
-        mesh = _make_mesh((2, 4), ("data", "model"))
         out = {{}}
-        for arch, kind, remat in {RUNS_24!r}:
+        for (arch, kind, remat, plan, mesh), key in zip({RUNS_24!r},
+                                                        {KEYS!r}):
+            mesh = _make_mesh(mesh, ("data", "model"))
             shape = InputShape(kind, {SHAPE_24[1]}, {SHAPE_24[0]}, kind)
             cfg = dataclasses.replace(reduced(get_config(arch)),
                                       remat=remat)
-            lowered, _ = lower_combo(cfg, shape, mesh, "dp_tp")
-            out[arch + "/" + kind + "+remat" * remat] = ha.analyze_compiled(
-                lowered, lowered.compile())
+            lowered, _ = lower_combo(cfg, shape, mesh, plan)
+            out[key] = ha.analyze_compiled(lowered, lowered.compile())
         open({str(d / 'jax.json')!r}, "w").write(json.dumps(out))
         print("PASS")
     """
@@ -182,15 +207,16 @@ def flops_24(tmp_path_factory):
         from repro_torch.configs.base import InputShape, get_config, reduced
         from repro_torch.launch.dryrun import lower_combo
         from repro_torch.launch.mesh import make_fake_mesh
-        mesh = make_fake_mesh((2, 4), ("data", "model"), "cpu")
         out = {{}}
-        for arch, kind, remat in {RUNS_24!r}:
+        for (arch, kind, remat, plan, mesh), key in zip({RUNS_24!r},
+                                                        {KEYS!r}):
+            mesh = make_fake_mesh(mesh, ("data", "model"), "cpu")
             shape = InputShape(kind, {SHAPE_24[1]}, {SHAPE_24[0]}, kind)
             cfg = dataclasses.replace(reduced(get_config(arch)),
                                       remat=remat)
-            an, _, _ = lower_combo(cfg, shape, mesh, "dp_tp", device="cpu",
+            an, _, _ = lower_combo(cfg, shape, mesh, plan, device="cpu",
                                    sites=True)
-            res = out[arch + "/" + kind + "+remat" * remat] = an.result()
+            res = out[key] = an.result()
             res["top"] = an.top_ops(10, "flops")
         open({str(d / 'port.json')!r}, "w").write(json.dumps(out))
         print("PASS")
@@ -250,7 +276,9 @@ def _check_memory_24(flops_24, key, bound):
 def test_dp_tp_memory_per_device_within_reference(flops_24, arch, kind):
     """Temporaries and HBM needed a device at most 1.10x the reference's
     ``memory_analysis`` (reduced rwkv6's train step took 1.16x / 1.12x
-    while its replicated cm_r ran whole on every rank)."""
+    while its replicated cm_r ran whole on every rank; zamba2's prefill
+    1.33x / 1.28x while Mamba2's float32 silu copies and its gathered
+    input projection were live at once)."""
     _check_memory_24(flops_24, f"{arch}/{kind}", 1.10)
 
 
@@ -264,6 +292,28 @@ def test_dp_tp_remat_memory_per_device_within_reference(flops_24, arch,
     took the (B, S, d_ff) gradient whole in float32 (1.22x; the 16 x 16
     dry run of the full config: 7.5 GB more a rank)."""
     _check_memory_24(flops_24, f"{arch}/{kind}+remat", 1.15)
+
+
+@pytest.mark.parametrize("key", PLAN_KEYS_24)
+def test_plan_flops_per_device_match_reference(flops_24, key):
+    """Where the tensor ranks do not divide the query heads, attention
+    splits the heads over the longest leading run of tensor axes that
+    divides them and the batch over the rest (it replicated the heads, and
+    the training step's backward raised on the column-split projections:
+    yi-9b's prefill counted 1.74x); where they do not divide the experts,
+    each rank runs its block of the dispatch buffer: its share of the
+    capacity over the batch axes and, over the tensor axes, every
+    expert's own columns of the F dim (every rank ran the whole layer:
+    6.25x qwen3-moe's step under dp, 7.02x its prefill under tp)."""
+    _check_flops_24(flops_24, key)
+
+
+@pytest.mark.parametrize("key", PLAN_KEYS_24)
+def test_plan_memory_per_device_within_reference(flops_24, key):
+    """Temporaries and HBM needed a device at most 1.10x the reference's
+    (replicated heads and experts held 2.10x zamba2's and 2.07x
+    qwen3-moe's prefill temporaries under tp)."""
+    _check_memory_24(flops_24, key, 1.10)
 
 
 def test_recompute_runs_in_the_forward_plan_on_another_thread():
