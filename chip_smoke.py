@@ -2647,71 +2647,19 @@ def moe_main_phase(card, arch, kernel_rows=()):
     fast = Engine(cfg, params, dataclasses.replace(ecfg, step_timing=False))
     # two profiled steps: post-processing the profile of qwen3-moe's
     # ~5,300 device ops a step is most of this phase's time
-    with _moe_spans():
-        where_time_goes(card, fast, [p[:64] for p in prompts[:8]], news[:8],
-                        warm=2, window=MOE_PROFILE_STEPS,
-                        label=f"{arch} decode")
+    where_time_goes(card, fast, [p[:64] for p in prompts[:8]], news[:8],
+                    warm=2, window=MOE_PROFILE_STEPS, label=f"{arch} decode")
     del fast, params
     _release_card()
 
 
-def _ranged(name, fn):
-    """fn run inside the profiler range `name`."""
-    from torch.profiler import record_function
-
-    def run(*a, **k):
-        with record_function(name):
-            return fn(*a, **k)
-    return run
-
-
-class _moe_spans:
-    """While active, ``moe_apply`` and its expert products run inside
-    profiler ranges "moe/apply" and "moe/experts", which where_time_goes
-    reads back (kernel time launched inside each range)."""
-
-    def __enter__(self):
-        from repro_torch.models import moe as M
-        self.saved = M.moe_apply, M._experts
-        M.moe_apply = _ranged("moe/apply", M.moe_apply)
-        M._experts = _ranged("moe/experts", M._experts)
-
-    def __exit__(self, *exc):
-        from repro_torch.models import moe as M
-        M.moe_apply, M._experts = self.saved
-
-
-class _train_spans(_moe_spans):
-    """_moe_spans, and while active ``load_balance_loss`` runs in the range
-    "moe/balance" and the model's checkpoint runs its function in
-    "remat/forward" on the first call and in "remat/recompute" when the
-    backward pass recomputes it (STEP_PARTS reads them back)."""
-
-    def __enter__(self):
-        from torch.profiler import record_function
-        from repro_torch.models import moe as M
-        from repro_torch.models import transformer as T
-        super().__enter__()
-        self.saved_train = M.load_balance_loss, T.checkpoint
-        real = T.checkpoint
-        M.load_balance_loss = _ranged("moe/balance", M.load_balance_loss)
-
-        def checkpoint(fn, *args, **kw):
-            calls = []
-
-            def run(*a, **k):
-                calls.append(1)
-                name = "remat/recompute" if len(calls) > 1 else "remat/forward"
-                with record_function(name):
-                    return fn(*a, **k)
-            return real(run, *args, **kw)
-        T.checkpoint = checkpoint
-
-    def __exit__(self, *exc):
-        from repro_torch.models import moe as M
-        from repro_torch.models import transformer as T
-        M.load_balance_loss, T.checkpoint = self.saved_train
-        super().__exit__(*exc)
+def _is_span(key) -> bool:
+    """Whether a profile row is one of the port's own ranges (engine/,
+    serve/, moe/, remat/, train/: ``repro_torch.spans.PREFIXES``), which
+    the profiler mirrors onto the device timeline as annotations, and not
+    a kernel."""
+    from repro_torch.spans import PREFIXES
+    return key.startswith(PREFIXES)
 
 
 STEP_PARTS = ("MoE experts forward", "MoE routing+dispatch+combine forward",
@@ -2725,14 +2673,20 @@ _EVAL = "autograd::engine::evaluate_function: "
 
 def _step_parts(events, self_time):
     """A training step's time by part, from the profiler's host op tree
-    under _train_spans and the range "train/optimizer": `self_time(e)` of
+    and the program's ranges (``repro_torch.spans``): `self_time(e)` of
     every host op (the device time of the kernels it launched itself) goes
-    to the optimizer, to a recomputation (inside "remat/recompute"), to
-    the backward pass (under an autograd node: an MoE part when the node's
-    forward op, matched by thread and sequence number, ran inside
-    "moe/apply" in the forward pass) or to the forward pass; an MoE op is
-    an expert product inside "moe/experts", else routing, dispatch and
-    combine (the load-balancing loss's routing included)."""
+    to the optimizer (inside "train/optimizer"), to a recomputation
+    (inside "remat/recompute"), to the backward pass (under an autograd
+    node: an MoE part when the node's forward op, matched by thread and
+    sequence number, ran inside "moe/apply" in the forward pass) or to the
+    forward pass (inside "train/grads", outside any autograd node); an op
+    in none of these is left out. An MoE op is an expert product inside
+    "moe/experts", else routing, dispatch and combine (inside "moe/apply"
+    or "moe/balance": the load-balancing loss's routing included).
+    Returns (parts by STEP_PARTS, remat): remat holds the forward pass's
+    time inside "remat/forward" (the first pass of every checkpointed
+    function) as "first pass" and the recomputation's as "recompute",
+    which a checkpoint repeats, so the two should read alike."""
     host = [e for e in events
             if not str(getattr(e, "device_type", "")).endswith("CUDA")]
 
@@ -2753,10 +2707,11 @@ def _step_parts(events, self_time):
             continue
         names = {a.name for a in chain(e)}
         kind = moe_kind(names)
-        if kind and "remat/recompute" not in names and not any(
+        if kind and "train/grads" in names and not any(
                 n.startswith(_EVAL) for n in names):
             fwd[(e.thread, e.sequence_nr)] = kind
     parts = dict.fromkeys(STEP_PARTS, 0.0)
+    remat = {"first pass": 0.0, "recompute": 0.0}
     for e in host:
         t = self_time(e)
         if not t:
@@ -2764,19 +2719,23 @@ def _step_parts(events, self_time):
         up = chain(e)
         names = {a.name for a in up}
         kind = moe_kind(names)
+        node = next((a for a in up if a.name.startswith(_EVAL)), None)
         if "train/optimizer" in names:
             part = "optimizer"
         elif "remat/recompute" in names:
             part = f"MoE {kind} recompute" if kind else "other recompute"
+            remat["recompute"] += t
+        elif node is not None:
+            kind = fwd.get((node.fwd_thread, node.sequence_nr))
+            part = f"MoE {kind} backward" if kind else "other backward"
+        elif "train/grads" in names:
+            part = f"MoE {kind} forward" if kind else "other forward"
+            if "remat/forward" in names:
+                remat["first pass"] += t
         else:
-            node = next((a for a in up if a.name.startswith(_EVAL)), None)
-            if node is not None:
-                kind = fwd.get((node.fwd_thread, node.sequence_nr))
-                part = f"MoE {kind} backward" if kind else "other backward"
-            else:
-                part = f"MoE {kind} forward" if kind else "other forward"
+            continue
         parts[part] += t
-    return parts
+    return parts, remat
 
 
 # ------------------------------------------ phase 3d: flash attention (B6)
@@ -3145,11 +3104,8 @@ def train_main_phase(card, row, arch="yi-9b", layers=TRAIN_LAYERS, batch=2,
           f"{losses}; B6 launches {launches} = {per_step} x {len(batches)} "
           f"steps | {card}")
     if profile:
-        # the same step with its optimizer in a profiler range
-        ranged = dataclasses.replace(
-            opt, update=_ranged("train/optimizer", opt.update))
-        train_profile(card, trainer.make_train_step(cfg, ranged), state,
-                      batches[-1], label=tag, parts=bool(cfg.num_experts))
+        train_profile(card, step, state, batches[-1], label=tag,
+                      parts=bool(cfg.num_experts))
     del state
     _release_card()
     return float(np.median(times)) * 1e3
@@ -3162,15 +3118,12 @@ TRAIN_KINDS = ("B6 flash_attention forward", "B9 quantize_rows (int8)",
 def train_profile(card, step, state, batch, label="train", parts=False):
     """Device kernel time by kind over one more training step, from
     torch.profiler; busy share = kernel time / the step's wall time. With
-    `parts` (a step whose optimizer runs in "train/optimizer") the step
-    runs under _train_spans and its device time is also split by
-    STEP_PARTS."""
-    import contextlib
-
+    `parts` its device time is also split by STEP_PARTS, from the
+    program's own ranges."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with (_train_spans() if parts else contextlib.nullcontext()), profile(
+    with profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, metrics = step(state, batch)
@@ -3183,15 +3136,14 @@ def train_profile(card, step, state, batch, label="train", parts=False):
                 or getattr(e, "self_cuda_time_total", 0) or 0)
     kern = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and device_us(e) > 0
-            and not e.key.startswith(("moe/", "remat/", "train/"))]
+            and device_us(e) > 0 and not _is_span(e.key)]
     busy_ms = sum(device_us(e) for e in kern) / 1e3
     if busy_ms == 0:
         print(f"{label} profile: no device time recorded — not measured | "
               f"{card}")
         return
     if parts:
-        split = _step_parts(prof.events(), lambda e: sum(
+        split, remat = _step_parts(prof.events(), lambda e: sum(
             k.duration for k in e.kernels) / 1e3)
         total = sum(split.values())
         print(f"{label} profile: device time by part of the step (host op "
@@ -3199,6 +3151,9 @@ def train_profile(card, step, state, batch, label="train", parts=False):
               f"attributed): " + "; ".join(
                   f"{k} {v:.2f} ms ({v / busy_ms:.1%})"
                   for k, v in split.items()) + f" | {card}")
+        print(f"{label} profile: checkpointed functions, first pass "
+              f"{remat['first pass']:.2f} ms, recomputation "
+              f"{remat['recompute']:.2f} ms | {card}")
     by_kind = dict.fromkeys(TRAIN_KINDS, 0.0)
     for e in kern:
         name = e.key.lower()
@@ -3596,16 +3551,15 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=4,
     eng.drain()
 
     device_us = _device_us
-    # device-side events, less the engine's own record_function spans
-    # ("engine/decode", ...), which the profiler mirrors onto the device
-    # timeline as annotations
+    # device-side events, less the program's own ranges ("engine/decode",
+    # "moe/apply", ...: `_is_span`), which the profiler mirrors onto the
+    # device timeline as annotations
     # (aggregated once: the profiler's post-processing of a window is
     # most of this function's time)
     averages = prof.key_averages()
     kern = [e for e in averages
             if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and device_us(e) > 0
-            and not e.key.startswith(("engine/", "moe/"))]
+            and device_us(e) > 0 and not _is_span(e.key)]
     busy_ms = sum(device_us(e) for e in kern) / 1e3
     if busy_ms == 0:
         print(f"profile: no device time recorded — not measured | {card}")
@@ -3632,7 +3586,7 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=4,
     # runtime calls, profiler overhead included)
     host = [e for e in averages
             if not str(getattr(e, "device_type", "")).endswith("CUDA")
-            and not e.key.startswith(("engine/", "moe/"))]
+            and not _is_span(e.key)]
     host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
     print("profile: top host self time: " + "; ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
@@ -3641,8 +3595,8 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=4,
 
 
 def _print_moe_split(averages, busy_ms, wall_ms, window):
-    """With _moe_spans active: the device time of the kernels launched
-    inside the host ranges "moe/apply" and "moe/experts" (the profiler's
+    """The device time of the kernels launched inside the program's host
+    ranges "moe/apply" and "moe/experts" (the profiler's
     total device time of a range's ops), as shares of the busy time."""
     spans = {}
     for e in averages:

@@ -41,6 +41,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.spans import span
+
 PLANS = ("dp", "tp", "dp_tp", "dp_tp_zero1", "dp_tp_seq", "dp_tp_sp",
          "dp_tp_sp_zero1")
 
@@ -315,12 +317,21 @@ def checkpoint(fn, *args):
     card the autograd engine runs the backward pass, and with it the
     recomputation, on a thread of its own, which the plan's context
     variable does not reach (the recomputed attention then took every
-    head and row, and its shapes differed from the saved ones)."""
+    head and row, and its shapes differed from the saved ones). While a
+    profiler records, fn's first call runs in the range "remat/forward"
+    and the backward pass's recomputation in "remat/recompute"
+    (``repro_torch.spans``)."""
     from torch.utils.checkpoint import checkpoint as ckpt
+    calls = [0]
+
+    def labelled(*a):
+        calls[0] += 1
+        with span("remat/recompute" if calls[0] > 1 else "remat/forward"):
+            return fn(*a)
     plan = current_plan()
     if plan is None:
-        return ckpt(fn, *args, use_reentrant=False)
-    return ckpt(fn, *args, use_reentrant=False, context_fn=lambda: (
+        return ckpt(labelled, *args, use_reentrant=False)
+    return ckpt(labelled, *args, use_reentrant=False, context_fn=lambda: (
         contextlib.nullcontext(), plan_context(plan)))
 
 

@@ -25,6 +25,10 @@ backward sums the same way (`_ToSlots`). The expert products are plain
 ``torch.bmm``: the reference computes them with XLA einsums outside any
 Pallas kernel.
 
+The layer, its expert products and the load-balancing loss run inside
+the profiler ranges "moe/apply", "moe/experts" and "moe/balance" while a
+profiler records (``repro_torch.spans``).
+
 Under a sharding plan (``core.parallelism``) the layer takes DTensors.
 `moe_apply_ep` is the reference's expert-parallel path: each rank routes
 its data shard's tokens to its own slice of the experts at the per-shard
@@ -44,6 +48,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import parallelism as par
+from repro_torch.spans import spanned
 
 
 def _route(params, xt, cfg):
@@ -84,6 +89,7 @@ def _slots(flat_e, E, C):
     return torch.where(keep, flat_e, 0), torch.where(keep, pos, C), keep
 
 
+@spanned("moe/experts")
 def _experts(params, buf):
     """Every expert's SwiGLU over its slots: buf (E, C, D) -> (E, C, D)."""
     g = torch.bmm(buf, params["w_gate"])
@@ -188,6 +194,7 @@ def _moe(params, x, cfg):
                              C).reshape(B, S, D)
 
 
+@spanned("moe/apply")
 def moe_apply(params, x, cfg):
     """x (B, S, D) -> (B, S, D). params: {"router" (D, E) f32, "w_gate",
     "w_in" (E, D, F), "w_out" (E, F, D)}. Under a plan every rank routes
@@ -297,6 +304,7 @@ def _rank_over(mesh, axes) -> int:
     return r
 
 
+@spanned("moe/balance")
 def load_balance_loss(params, x, cfg):
     """Auxiliary load-balancing loss (Shazeer-style): E · Σ_e f_e · p_e,
     with f_e the share of top-k assignments routed to expert e and p_e its
@@ -354,6 +362,7 @@ class _SumOverGroups(torch.autograd.Function):
         return (grad,) + (None,) * len(ctx.needs_input_grad[1:])
 
 
+@spanned("moe/apply")
 def moe_apply_ep(params, x, cfg, plan):
     """Expert-parallel MoE (survey §5.2): the experts are split over the
     plan's tensor axes (E / ep per rank) and x (B, S, D) is split over its

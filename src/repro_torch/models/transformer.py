@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import parallelism as par
@@ -428,9 +427,8 @@ def loss_fn(cfg: ModelConfig, params, batch):
             else params["lm_head"]["w"])                          # (D, V)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, Sq, chunk):
-        total = total + checkpoint(_ce_chunk, hidden[:, c0:c0 + chunk],
-                                   labels[:, c0:c0 + chunk], head,
-                                   use_reentrant=False)
+        total = total + par.checkpoint(_ce_chunk, hidden[:, c0:c0 + chunk],
+                                       labels[:, c0:c0 + chunk], head)
     return total / (B * Sq) + 0.01 * aux
 
 

@@ -48,7 +48,10 @@ Prefix caching (``EngineConfig.prefix_caching``, on by default) aliases a
 new request's longest cached block-aligned prompt prefix read-only into its
 table, and prefills only the uncached tail. Telemetry
 (``EngineConfig.telemetry``, on by default) traces every request's
-lifecycle and keeps every counter in one registry (``serving.telemetry``).
+lifecycle and keeps every counter in one registry (``serving.telemetry``);
+its spans split each step into schedule, device calls and emit, as
+profiler ranges while a profiler records and as host-time counters
+otherwise (``Engine.stats``).
 
 Quantized KV (``EngineConfig.kv_quant``): every paged pool is int8 with one
 f32 scale per stored vector; the writes quantize and the hand-written
@@ -206,6 +209,11 @@ def _step_fns(cfg, e: EngineConfig, plan=None):
             copy_block_fn, reset_slot_fn, verify_fn)
 
 
+# the spans of every engine step (``Engine.step``), counted from the start
+STEP_SPANS = ("engine/step", "engine/schedule", "engine/prefill",
+              "engine/decode", "engine/emit")
+
+
 def _set(vec, i, value):
     """Out-of-place ``vec[i] = value``: the old vector may still be
     referenced by recorded (step vector, index) token refs."""
@@ -305,10 +313,34 @@ class Engine:
             "pool_free_blocks", "allocatable blocks (incl. cached-free)")
         self._h_queue_wait = reg.histogram(
             "engine_request_queue_wait_seconds", "arrive -> admit wait")
+        self._h_prefill_wait = reg.histogram(
+            "engine_request_prefill_wait_seconds",
+            "admit -> first token issued")
         self._h_ttft = reg.histogram(
-            "engine_request_ttft_seconds", "arrive -> first token")
+            "engine_request_ttft_seconds",
+            "arrive -> first token issued (host enqueue; the client "
+            "receives it later)")
         self._h_e2e = reg.histogram(
             "engine_request_e2e_seconds", "arrive -> finish")
+        # the two waits again, without those that end while a profiler
+        # records (a traced step's host work runs slower), as the spans'
+        # host counters are kept: (seconds, count) each
+        self._untraced_waits = {
+            "queue": (reg.counter(
+                "engine_untraced_queue_wait_seconds_total",
+                "arrive -> admit waits that ended with no profiler "
+                "recording"),
+                reg.counter("engine_untraced_admissions_total",
+                            "admissions with no profiler recording")),
+            "prefill": (reg.counter(
+                "engine_untraced_prefill_wait_seconds_total",
+                "admit -> first token issued waits that ended with no "
+                "profiler recording"),
+                reg.counter("engine_untraced_first_tokens_total",
+                            "first tokens issued with no profiler "
+                            "recording"))}
+        for name in STEP_SPANS:
+            self.telemetry.span_counters(name)
 
         self.pool_state = T.init_paged_state(cfg, e.num_blocks, e.block_size,
                                              max_slots=e.max_slots,
@@ -427,17 +459,33 @@ class Engine:
 
     @property
     def stats(self) -> dict:
-        """Snapshot of the registry-backed engine counters (read-only view;
-        the full metric set lives in ``self.telemetry.registry``)."""
-        return {"decode_steps": self._m_decode_steps.value,
-                "prefill_chunks": self._m_prefill_chunks.value,
-                "emitted": self._m_emitted.value,
-                "occupancy_sum": self._m_occupancy.value,
-                "prefix_hit_tokens": self._m_prefix_hits.value,
-                "cow_copies": self._m_cow.value,
-                "preemptions": self._m_preempts.value,
-                "resumes": self._m_resumes.value,
-                "block_appends": self._m_appends.value}
+        """Snapshot of the registry-backed engine counters (read-only view,
+        a new flat dict of numbers on every call; the full metric set lives
+        in ``self.telemetry.registry``). Besides the counters: for every
+        engine span, ``span_calls.<name>`` and ``span_host_s.<name>`` (its
+        calls and host seconds with no profiler recording); the queue wait
+        (arrive -> admit) as ``queue_wait_s`` over ``admitted`` requests,
+        and the prefill wait (admit -> first token issued) as
+        ``prefill_wait_s`` over ``first_tokens``, each of the waits that
+        ended with no profiler recording (the histograms hold them all).
+        The difference of two snapshots gives a window's means."""
+        out = {"decode_steps": self._m_decode_steps.value,
+               "prefill_chunks": self._m_prefill_chunks.value,
+               "emitted": self._m_emitted.value,
+               "occupancy_sum": self._m_occupancy.value,
+               "prefix_hit_tokens": self._m_prefix_hits.value,
+               "cow_copies": self._m_cow.value,
+               "preemptions": self._m_preempts.value,
+               "resumes": self._m_resumes.value,
+               "block_appends": self._m_appends.value}
+        for name, (calls, host_s) in self.telemetry.span_totals().items():
+            out[f"span_calls.{name}"] = calls
+            out[f"span_host_s.{name}"] = host_s
+        (qs, qn), (ps, pn) = (self._untraced_waits["queue"],
+                              self._untraced_waits["prefill"])
+        out.update(queue_wait_s=qs.value, admitted=qn.value,
+                   prefill_wait_s=ps.value, first_tokens=pn.value)
+        return out
 
     def bucket_dispatches(self) -> dict:
         """Serving-time prefill dispatch counts per declared (chunk_len,
@@ -499,10 +547,11 @@ class Engine:
         return rid
 
     def _device_call(self, span: str, fn, *args):
-        """Dispatch one step function under a labeled profiler span. In the
-        timing path (`step_timing`) only, synchronize so the measured
-        interval is device completion rather than the enqueue, and add it
-        to the current step's device time."""
+        """Dispatch one step function inside its telemetry span (a profiler
+        range while one records, else the span's host-time counters: the
+        issue time of the call). In the timing path (`step_timing`) only,
+        synchronize so the measured interval is device completion rather
+        than the enqueue, and add it to the current step's device time."""
         tel = self.telemetry
         if not tel.enabled:
             return fn(*args)
@@ -522,7 +571,16 @@ class Engine:
         (policy-gated) admit + prefill -> per-sequence block growth (with
         victim preemption on append failure) -> batched decode. Returns the
         rids that emitted a token this step (token values are materialized
-        lazily — read them via `drain()` / `output()`)."""
+        lazily — read them via `drain()` / `output()`).
+
+        Telemetry spans the step ("engine/step") and its parts: the host
+        work before each device call ("engine/schedule"), the calls
+        ("engine/prefill", "engine/decode", "engine/verify"), and the
+        bookkeeping of what each call produced ("engine/emit")."""
+        with self.telemetry.span("engine/step"):
+            return self._step()
+
+    def _step(self) -> list:
         e = self.ecfg
         tel = self.telemetry
         emitted = []
@@ -533,120 +591,137 @@ class Engine:
         sync_memo = {}                  # one host transfer per step vector
 
         pol = self._policy
-        if pol is not None and pol.cfg.priority_preemption:
-            self._priority_preempt()
-        allow_prefill = True
-        if pol is not None:
-            head_wait = None
-            if self.scheduler.waiting:
-                head = self.scheduler.waiting[0]
-                if head.arrive_t is not None:
-                    head_wait = pol.clock() - head.arrive_t
-            decoding = sum(1 for r in self.scheduler.running.values()
-                           if r.state == DECODING)
-            allow_prefill = pol.allow_prefill(
-                head_wait_s=head_wait, decoding=decoding,
-                pool_util=self.block_pool.utilization)
-            if not allow_prefill:
-                self._m_prefill_deferrals.inc()
+        with tel.span("engine/schedule"):
+            if pol is not None and pol.cfg.priority_preemption:
+                self._priority_preempt()
+            allow_prefill = True
+            if pol is not None:
+                head_wait = None
+                if self.scheduler.waiting:
+                    head = self.scheduler.waiting[0]
+                    if head.arrive_t is not None:
+                        head_wait = pol.clock() - head.arrive_t
+                decoding = sum(1 for r in self.scheduler.running.values()
+                               if r.state == DECODING)
+                allow_prefill = pol.allow_prefill(
+                    head_wait_s=head_wait, decoding=decoding,
+                    pool_util=self.block_pool.utilization)
+                if not allow_prefill:
+                    self._m_prefill_deferrals.inc()
 
-        for req in (self.scheduler.admit() if allow_prefill else []):
-            row = self.block_pool.table(req.rid)
-            padded = np.zeros((e.max_blocks_per_seq,), np.int32)
-            padded[:len(row)] = row
-            self.tables[req.slot] = self._to_device(padded)
-            if self._has_recurrent:
-                # the slot's recurrent slab rows still hold the previous
-                # occupant's final state — zero them for the newcomer
-                self.pool_state = self._device_call(
-                    "engine/reset_slot", self._reset_slot,
-                    self.pool_state, req.slot)
-            self._m_prefix_hits.inc(req.prefilled)
-            resumed = req.preempts > 0
-            if tel.enabled:
-                t_admit = tel.record(req.rid, "resume" if resumed else "admit",
-                                     slot=req.slot)
-                if not resumed:
-                    t_arrive = tel.tracer.first(req.rid, "arrive")
-                    if t_arrive is not None:
-                        self._h_queue_wait.observe(t_admit - t_arrive)
-                if req.prefilled:
-                    tel.record(req.rid, "prefix_hit", tokens=req.prefilled,
-                               blocks=req.shared_blocks
-                               + (1 if req.cow_src is not None else 0))
-            if resumed:
-                self._m_resumes.inc()
-            if req.snapshot is not None and self._snapshot_resume:
-                # pure-recurrent resume: copy the checkpointed slab rows
-                # back into the (freshly zeroed) slot and skip the re-scan —
-                # prefill only covers the tokens past the snapshot
-                self.pool_state = {
-                    f"l{i}": p.resume_restore(
-                        self.pool_state[f"l{i}"], req.slot, req.snapshot[i])
-                    for i, p in enumerate(self.providers)}
-                req.prefilled = req.snapshot_len
-            req.snapshot = None
-            req.snapshot_len = 0
-            self.seq_lens = _set(self.seq_lens, req.slot, req.prefilled)
-            if req.cow_src is not None:
-                # whole prefill cached: copy the last matched block into the
-                # private block at its table position, then re-prefill only
-                # the final token there (yields the first-token logits)
-                dst = row[req.prefill_len // e.block_size - 1]
-                self.pool_state = self._device_call(
-                    "engine/copy_block", self._copy_block,
-                    self.pool_state, int(req.cow_src), int(dst))
-                self._m_cow.inc()
-
-        for batch in (self.scheduler.next_prefills() if allow_prefill
-                      else []):
-            # one segment-masked device call per batch: segment j carries
-            # request j's chunk, padded to the (C, G) bucket; missing
-            # segments get valid=0 and the out-of-range slot sentinel
-            C, G = batch.chunk_len, batch.num_segments
-            tokens = np.zeros((G, C), np.int32)
-            starts = np.zeros((G,), np.int32)
-            valids = np.zeros((G,), np.int32)
-            slots = np.full((G,), e.max_slots, np.int32)
-            for j, (req, start, valid) in enumerate(batch.segments):
-                tokens[j, :valid] = req.prefill_src[start:start + valid]
-                starts[j], valids[j], slots[j] = start, valid, req.slot
-            greedy, logits, self.pool_state = self._device_call(
-                "engine/prefill", self._prefill,
-                self.params, self.pool_state, self._to_device(tokens),
-                self.tables, self._to_device(starts), self._to_device(valids),
-                self._to_device(slots))
-            self._m_bucket[(C, G)].inc()
-            for j, (req, start, valid) in enumerate(batch.segments):
-                req.prefilled += valid
-                self.scheduler.register_prefilled(req)
+            for req in (self.scheduler.admit() if allow_prefill else []):
+                row = self.block_pool.table(req.rid)
+                padded = np.zeros((e.max_blocks_per_seq,), np.int32)
+                padded[:len(row)] = row
+                self.tables[req.slot] = self._to_device(padded)
+                if self._has_recurrent:
+                    # the slot's recurrent slab rows still hold the previous
+                    # occupant's final state — zero them for the newcomer
+                    self.pool_state = self._device_call(
+                        "engine/reset_slot", self._reset_slot,
+                        self.pool_state, req.slot)
+                self._m_prefix_hits.inc(req.prefilled)
+                resumed = req.preempts > 0
+                if tel.enabled:
+                    t_admit = tel.record(
+                        req.rid, "resume" if resumed else "admit",
+                        slot=req.slot)
+                    if not resumed:
+                        t_arrive = tel.tracer.first(req.rid, "arrive")
+                        if t_arrive is not None:
+                            self._observe_wait("queue", self._h_queue_wait,
+                                               t_admit - t_arrive)
+                    if req.prefilled:
+                        tel.record(req.rid, "prefix_hit", tokens=req.prefilled,
+                                   blocks=req.shared_blocks
+                                   + (1 if req.cow_src is not None else 0))
+                if resumed:
+                    self._m_resumes.inc()
+                if req.snapshot is not None and self._snapshot_resume:
+                    # pure-recurrent resume: copy the checkpointed slab
+                    # rows back into the (freshly zeroed) slot and skip the
+                    # re-scan — prefill only covers the tokens past the
+                    # snapshot
+                    self.pool_state = {
+                        f"l{i}": p.resume_restore(
+                            self.pool_state[f"l{i}"], req.slot,
+                            req.snapshot[i])
+                        for i, p in enumerate(self.providers)}
+                    req.prefilled = req.snapshot_len
+                req.snapshot = None
+                req.snapshot_len = 0
                 self.seq_lens = _set(self.seq_lens, req.slot, req.prefilled)
-                self._m_prefill_chunks.inc()
-                n_prefills += 1
-                tel.record(req.rid, "prefill_chunk", start=start, tokens=valid)
-                if req.prefilled == req.prefill_len:
-                    # prefill complete: segment j's logits yield the next
-                    # token (the request's FIRST, unless this is a resumed
-                    # re-prefill continuing an interrupted generation)
-                    self._record_token(req, greedy, j, logits, sync_memo)
-                    emitted.append(req.rid)
-                    if tel.enabled:
-                        if req.got_first:
-                            tel.record(req.rid, "decode_token")
-                        else:
-                            t_first = tel.record(req.rid, "first_token")
-                            t_arrive = tel.tracer.first(req.rid, "arrive")
-                            if t_arrive is not None:
-                                self._h_ttft.observe(t_first - t_arrive)
-                    req.got_first = True
-                    req.state = DECODING
-                    self.active = _set(self.active, req.slot, True)
-                    if req.done:
-                        self._finish(req)
+                if req.cow_src is not None:
+                    # whole prefill cached: copy the last matched block into
+                    # the private block at its table position, then
+                    # re-prefill only the final token there (yields the
+                    # first-token logits)
+                    dst = row[req.prefill_len // e.block_size - 1]
+                    self.pool_state = self._device_call(
+                        "engine/copy_block", self._copy_block,
+                        self.pool_state, int(req.cow_src), int(dst))
+                    self._m_cow.inc()
+            batches = (self.scheduler.next_prefills() if allow_prefill
+                       else [])
 
-        if pol is not None:
-            self._grow_decode()
-        batch = self.scheduler.decode_batch()
+        for batch in batches:
+            with tel.span("engine/schedule"):
+                # one segment-masked device call per batch: segment j carries
+                # request j's chunk, padded to the (C, G) bucket; missing
+                # segments get valid=0 and the out-of-range slot sentinel
+                C, G = batch.chunk_len, batch.num_segments
+                tokens = np.zeros((G, C), np.int32)
+                starts = np.zeros((G,), np.int32)
+                valids = np.zeros((G,), np.int32)
+                slots = np.full((G,), e.max_slots, np.int32)
+                for j, (req, start, valid) in enumerate(batch.segments):
+                    tokens[j, :valid] = req.prefill_src[start:start + valid]
+                    starts[j], valids[j], slots[j] = start, valid, req.slot
+                args = (self.params, self.pool_state, self._to_device(tokens),
+                        self.tables, self._to_device(starts),
+                        self._to_device(valids), self._to_device(slots))
+            greedy, logits, self.pool_state = self._device_call(
+                "engine/prefill", self._prefill, *args)
+            with tel.span("engine/emit"):
+                self._m_bucket[(C, G)].inc()
+                for j, (req, start, valid) in enumerate(batch.segments):
+                    req.prefilled += valid
+                    self.scheduler.register_prefilled(req)
+                    self.seq_lens = _set(self.seq_lens, req.slot,
+                                         req.prefilled)
+                    self._m_prefill_chunks.inc()
+                    n_prefills += 1
+                    tel.record(req.rid, "prefill_chunk", start=start,
+                               tokens=valid)
+                    if req.prefilled == req.prefill_len:
+                        # prefill complete: segment j's logits yield the next
+                        # token (the request's FIRST, unless this is a resumed
+                        # re-prefill continuing an interrupted generation)
+                        self._record_token(req, greedy, j, logits, sync_memo)
+                        emitted.append(req.rid)
+                        if tel.enabled:
+                            if req.got_first:
+                                tel.record(req.rid, "decode_token")
+                            else:
+                                t_first = tel.record(req.rid, "first_token")
+                                t_arrive = tel.tracer.first(req.rid, "arrive")
+                                if t_arrive is not None:
+                                    self._h_ttft.observe(t_first - t_arrive)
+                                t_admit = tel.tracer.first(req.rid, "admit")
+                                if t_admit is not None:
+                                    self._observe_wait(
+                                        "prefill", self._h_prefill_wait,
+                                        t_first - t_admit)
+                        req.got_first = True
+                        req.state = DECODING
+                        self.active = _set(self.active, req.slot, True)
+                        if req.done:
+                            self._finish(req)
+
+        with tel.span("engine/schedule"):
+            if pol is not None:
+                self._grow_decode()
+            batch = self.scheduler.decode_batch()
         if batch and self._verify is not None:
             emitted.extend(self._spec_decode(batch, sync_memo))
         elif batch:
@@ -654,30 +729,43 @@ class Engine:
                 "engine/decode", self._decode,
                 self.params, self.pool_state, self.next_tok, self.tables,
                 self.seq_lens, self.active)
-            self.next_tok = greedy
-            self._m_decode_steps.inc()
-            self._m_occupancy.inc(len(batch) / e.max_slots)
-            for req in batch:
-                self._record_token(req, greedy, req.slot, logits, sync_memo)
-                emitted.append(req.rid)
-                tel.record(req.rid, "decode_token")
-                if req.done:
-                    self._finish(req)
+            with tel.span("engine/emit"):
+                self.next_tok = greedy
+                self._m_decode_steps.inc()
+                self._m_occupancy.inc(len(batch) / e.max_slots)
+                for req in batch:
+                    self._record_token(req, greedy, req.slot, logits,
+                                       sync_memo)
+                    emitted.append(req.rid)
+                    tel.record(req.rid, "decode_token")
+                    if req.done:
+                        self._finish(req)
 
-        self._m_emitted.inc(len(emitted))
-        if tel.enabled:
-            self._g_waiting.set(len(self.scheduler.waiting))
-            self._g_running.set(len(self.scheduler.running))
-            self._g_free_blocks.set(self.block_pool.num_free)
-            if tel.step_timing:
-                total = tel.clock() - t_step
-                tel.record_step(
-                    host_s=total - self._step_device_s,
-                    device_s=self._step_device_s, prefills=n_prefills,
-                    decode_batch=len(batch), emitted=len(emitted))
-        if pol is not None:
-            pol.note_step(tel.clock() - t_wall)
+        with tel.span("engine/emit"):
+            self._m_emitted.inc(len(emitted))
+            if tel.enabled:
+                self._g_waiting.set(len(self.scheduler.waiting))
+                self._g_running.set(len(self.scheduler.running))
+                self._g_free_blocks.set(self.block_pool.num_free)
+                if tel.step_timing:
+                    total = tel.clock() - t_step
+                    tel.record_step(
+                        host_s=total - self._step_device_s,
+                        device_s=self._step_device_s, prefills=n_prefills,
+                        decode_batch=len(batch), emitted=len(emitted))
+            if pol is not None:
+                pol.note_step(tel.clock() - t_wall)
         return emitted
+
+    def _observe_wait(self, kind: str, hist, seconds: float) -> None:
+        """Observe a request's `kind` wait ("queue" or "prefill") in its
+        histogram, and, unless a profiler records, in the wait's untraced
+        counters (``Engine.stats``)."""
+        hist.observe(seconds)
+        if not TM.recording():
+            total, count = self._untraced_waits[kind]
+            total.inc(seconds)
+            count.inc()
 
     def drain(self, max_steps: int = 100_000) -> dict:
         """Run steps until every queued request finished; returns
@@ -836,59 +924,65 @@ class Engine:
         tel = self.telemetry
         k = e.spec.k
         emitted = []
-        tokens = np.zeros((e.max_slots, k), np.int32)
-        qlims = np.zeros((e.max_slots,), np.int32)
-        plans = []
-        for req in batch:
-            # drafting needs the concrete stream: materialize any lazy
-            # step-vector refs (at most this step's prefill-completion token)
-            if any(isinstance(t, tuple) for t in req.out_tokens):
-                req.out_tokens = [int(t) for t in
-                                  self._materialize(req, sync_memo)]
-            q = (1 if req.temperature > 0.0
-                 else min(k, req.max_new - len(req.out_tokens)))
-            ctx = np.concatenate([req.prompt,
-                                  np.asarray(req.out_tokens, np.int32)])
-            tokens[req.slot, 0] = ctx[-1]
-            if q > 1:
-                tokens[req.slot, 1:] = self.drafter.propose(
-                    req.rid, ctx, k - 1)
-            qlims[req.slot] = q
-            plans.append((req, q))
+        with tel.span("engine/schedule"):
+            tokens = np.zeros((e.max_slots, k), np.int32)
+            qlims = np.zeros((e.max_slots,), np.int32)
+            plans = []
+            for req in batch:
+                # drafting needs the concrete stream: materialize any lazy
+                # step-vector refs (at most this step's prefill-completion
+                # token)
+                if any(isinstance(t, tuple) for t in req.out_tokens):
+                    req.out_tokens = [int(t) for t in
+                                      self._materialize(req, sync_memo)]
+                q = (1 if req.temperature > 0.0
+                     else min(k, req.max_new - len(req.out_tokens)))
+                ctx = np.concatenate([req.prompt,
+                                      np.asarray(req.out_tokens, np.int32)])
+                tokens[req.slot, 0] = ctx[-1]
+                if q > 1:
+                    tokens[req.slot, 1:] = self.drafter.propose(
+                        req.rid, ctx, k - 1)
+                qlims[req.slot] = q
+                plans.append((req, q))
+            tokens, qlims = self._to_device(tokens), self._to_device(qlims)
         greedy, accepts, logits, self.seq_lens, self.pool_state = \
             self._device_call(
                 "engine/verify", self._verify,
-                self.params, self.pool_state, self._to_device(tokens),
-                self.tables, self.seq_lens, self.active,
-                self._to_device(qlims))
-        g_host = greedy.cpu().numpy()
-        a_host = accepts.cpu().numpy()
-        self._m_step_syncs.inc()
-        self._m_decode_steps.inc()
-        self._m_verify_steps.inc()
-        self._m_occupancy.inc(len(batch) / e.max_slots)
-        for req, q in plans:
-            a = int(a_host[req.slot])
-            toks = [int(t) for t in g_host[req.slot, :a]]
-            if req.temperature > 0.0:
-                toks = [int(SERVE.sample(logits[req.slot, 0], req.generator,
-                                         req.temperature))]
-            if req.stop_token is not None and req.stop_token in toks:
-                # truncate at the stop token; the device advanced past it
-                # but the slot is freed below, so the overrun is unreachable
-                toks = toks[:toks.index(req.stop_token) + 1]
-            req.out_tokens.extend(toks)
-            emitted.append(req.rid)
-            drafted, accepted = max(q - 1, 0), max(a - 1, 0)
-            self._m_draft.inc(drafted)
-            self._m_accepted.inc(accepted)
-            if drafted:
-                self._h_accept.observe(accepted / drafted)
-            tel.record(req.rid, "verify", drafted=drafted, accepted=accepted)
-            tel.record(req.rid, "decode_token", tokens=len(toks))
-            self._m_emitted.inc(len(toks) - 1)    # step() adds 1 per rid
-            if req.done:
-                self._finish(req)
+                self.params, self.pool_state, tokens, self.tables,
+                self.seq_lens, self.active, qlims)
+        with tel.span("engine/emit"):
+            g_host = greedy.cpu().numpy()
+            a_host = accepts.cpu().numpy()
+            self._m_step_syncs.inc()
+            self._m_decode_steps.inc()
+            self._m_verify_steps.inc()
+            self._m_occupancy.inc(len(batch) / e.max_slots)
+            for req, q in plans:
+                a = int(a_host[req.slot])
+                toks = [int(t) for t in g_host[req.slot, :a]]
+                if req.temperature > 0.0:
+                    toks = [int(SERVE.sample(logits[req.slot, 0],
+                                             req.generator,
+                                             req.temperature))]
+                if req.stop_token is not None and req.stop_token in toks:
+                    # truncate at the stop token; the device advanced past
+                    # it but the slot is freed below, so the overrun is
+                    # unreachable
+                    toks = toks[:toks.index(req.stop_token) + 1]
+                req.out_tokens.extend(toks)
+                emitted.append(req.rid)
+                drafted, accepted = max(q - 1, 0), max(a - 1, 0)
+                self._m_draft.inc(drafted)
+                self._m_accepted.inc(accepted)
+                if drafted:
+                    self._h_accept.observe(accepted / drafted)
+                tel.record(req.rid, "verify", drafted=drafted,
+                           accepted=accepted)
+                tel.record(req.rid, "decode_token", tokens=len(toks))
+                self._m_emitted.inc(len(toks) - 1)    # step() adds 1 per rid
+                if req.done:
+                    self._finish(req)
         return emitted
 
     def _spec_horizon(self, req: Request) -> int:

@@ -23,10 +23,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import parallelism as par
 from repro_torch.models import transformer as T
+from repro_torch.spans import span
 
 
 def make_serve_step(cfg, plan=None):
@@ -120,7 +120,7 @@ def generate(cfg, params, prompt_tokens, max_new, *, generator=None,
                         else "loop")
     # labeled spans so device traces separate the prefill and decode phases
     # (the engine labels its phases the same way — serving.telemetry)
-    with record_function("serve/prefill"):
+    with span("serve/prefill"):
         if prefill_mode == "batched":
             logits, cache = T.prefill_step(cfg, params, cache,
                                            {"tokens": tokens})
@@ -129,7 +129,7 @@ def generate(cfg, params, prompt_tokens, max_new, *, generator=None,
                 logits, cache = T.decode_step(cfg, params, cache,
                                               {"token": tokens[:, i]}, i)
     out = []
-    with record_function("serve/decode"):
+    with span("serve/decode"):
         for j in range(max_new):
             tok = sample(logits, generator, temperature)
             out.append(tok)

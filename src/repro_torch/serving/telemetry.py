@@ -4,7 +4,9 @@ recompile tracking for the continuous-batching engine.
 Ported from ``repro.serving.telemetry`` without JAX: ``abstract_signature``
 flattens dicts, lists and tuples of tensors itself, and ``span`` opens a
 ``torch.profiler.record_function`` range where the reference opened a
-``jax.profiler.TraceAnnotation``. PyTorch compiles nothing per shape, so
+``jax.profiler.TraceAnnotation``, but only while a profiler records
+(``repro_torch.spans``); with no profiler it counts the span's calls and
+host seconds instead. PyTorch compiles nothing per shape, so
 ``RecompileTracker`` counts the distinct argument signatures each step
 function was called with (the set a CUDA-graph capture per bucket would
 have to cover).
@@ -27,7 +29,9 @@ Three pieces, composable but independently usable:
     ``first_token``/``decode_token``/``evict``/``defrag``/``finish``) with
     monotonic ``time.perf_counter`` timestamps, so TTFT, queue wait, and
     per-phase latency are *derived* (``derive_timeline``) rather than
-    guessed.
+    guessed. ``first_token`` and ``decode_token`` are issue stamps: the
+    host's time when it queued the step that computes the token, before
+    the device has run it; a client receives the value later.
   * ``RecompileTracker`` — wraps the engine's step functions and counts unique
     (function, arg shapes/dtypes) signatures: the number of distinct step
     variants a serving run dispatched (``unique`` per function, ``total``
@@ -37,6 +41,11 @@ Three pieces, composable but independently usable:
 (``EngineConfig.telemetry``): when disabled every record call is a cheap
 early return, no events are stored, and engine outputs are unchanged —
 telemetry never touches device code, only host bookkeeping around it.
+Its ``span`` labels the engine's layer boundaries: a profiler range while
+a profiler records, else two counters a span name
+(``engine_span_<name>_calls_total`` and
+``engine_span_<name>_host_seconds_total``), which therefore hold the
+untraced steps alone (``span_totals``).
 
 Metric naming scheme (the reference's engine README, Telemetry section):
 ``<subsystem>_<quantity>_<unit>`` with ``_total`` for counters and
@@ -52,6 +61,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.spans import _NULL_SPAN, recording, span  # noqa: F401
 
 # Canonical request-lifecycle event names, in lifecycle order. ``evict`` and
 # ``defrag`` are pool-wide events recorded with ``rid=None``. ``preempt`` /
@@ -457,15 +468,21 @@ class RecompileTracker:
 
 
 # ----------------------------------------------------------------- bundle
-class _NullSpan:
+class _TimedSpan:
+    """Adds one call and the host seconds from enter to exit to a span's
+    two counters."""
+    __slots__ = ("calls", "seconds", "t0")
+
+    def __init__(self, calls: Counter, seconds: Counter):
+        self.calls, self.seconds = calls, seconds
+
     def __enter__(self):
-        return None
+        self.t0 = time.perf_counter()
 
     def __exit__(self, *a):
+        self.seconds.inc(time.perf_counter() - self.t0)
+        self.calls.inc()
         return False
-
-
-_NULL_SPAN = _NullSpan()
 
 
 class Telemetry:
@@ -494,6 +511,7 @@ class Telemetry:
         self._h_dev = self.registry.histogram(
             "engine_step_device_seconds",
             "per-step blocked device time (step_timing runs only)")
+        self._spans: dict = {}          # span name -> (calls, seconds)
 
     # -- recording (no-ops when disabled) --------------------------------
     def record(self, rid, event: str, **data) -> Optional[float]:
@@ -502,11 +520,38 @@ class Telemetry:
         return self.tracer.record(rid, event, **data)
 
     def span(self, name: str):
-        """`torch.profiler.record_function` range so profiler traces are
-        labeled per phase; a no-op context manager when disabled."""
+        """While a profiler records, the `torch.profiler.record_function`
+        range `name`, so traces are labeled per phase; otherwise a context
+        that adds one call and its host seconds to the span's counters. A
+        no-op context manager when disabled."""
         if not self.enabled:
             return _NULL_SPAN
-        return torch.profiler.record_function(name)
+        if recording():
+            return span(name)
+        return _TimedSpan(*self.span_counters(name))
+
+    def span_counters(self, name: str) -> tuple:
+        """(calls, host seconds) counters of span `name`, registered as
+        ``engine_span_<name>_calls_total`` and
+        ``engine_span_<name>_host_seconds_total`` ("/" in the name as
+        "_")."""
+        counters = self._spans.get(name)
+        if counters is None:
+            slug = name.replace("/", "_")
+            counters = self._spans[name] = (
+                self.registry.counter(
+                    f"engine_span_{slug}_calls_total",
+                    f"{name} spans closed with no profiler recording"),
+                self.registry.counter(
+                    f"engine_span_{slug}_host_seconds_total",
+                    f"host seconds inside {name} spans with no profiler "
+                    f"recording"))
+        return counters
+
+    def span_totals(self) -> dict:
+        """{span name: (calls, host seconds)} of every span counted."""
+        return {name: (c.value, s.value)
+                for name, (c, s) in self._spans.items()}
 
     def record_step(self, *, host_s: float, device_s: float, **data) -> None:
         if not self.step_timing:

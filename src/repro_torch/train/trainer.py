@@ -17,6 +17,10 @@ one of the survey's ring/tree/butterfly/Rabenseifner schedules
 (``core.collectives``) — with optional gradient compression and error
 feedback (``core.compression``): the survey's distributed-SGD pipeline made
 concrete (§5.1, §2.5, §6.3).
+
+While a profiler records, both steps run the gradient computation in the
+range "train/grads" and the optimizer in "train/optimizer"
+(``repro_torch.spans``).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.core import collectives as coll
 from repro_torch.core import parallelism as par
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.models import transformer as T
+from repro_torch.spans import span, spanned
 from repro_torch.tree import leaves_with_path, tree_from_leaves, tree_map
 
 
@@ -96,6 +101,7 @@ def _device(params):
     return leaves_with_path(params)[0][1].device
 
 
+@spanned("train/grads")
 def _grads_of(cfg, params, batch):
     """(loss, gradient tree) of ``loss_fn`` by autograd. A leaf the loss
     does not reach gets zeros, as ``jax.value_and_grad`` gives it: the
@@ -147,7 +153,8 @@ def make_train_step(cfg, optimizer, plan=None, *, accum_steps: int = 1):
                     tree_map(lambda a, g: a.add_(g.float()), grads, g_i)
                 loss = loss / accum_steps
                 grads = tree_map(lambda g: g / accum_steps, grads)
-            params, opt = optimizer.update(grads, state["opt"], params)
+            with span("train/optimizer"):
+                params, opt = optimizer.update(grads, state["opt"], params)
         return {"params": params, "opt": opt}, {"loss": loss}
 
     return train_step
@@ -203,7 +210,8 @@ def make_paper_train_step(cfg, optimizer, group=None, *, algorithm="ring",
         grads = tree_map(lambda g: coll.allreduce_mean(g, group, algorithm),
                          grads)
         loss = coll.allreduce_mean(loss, group, "psum")
-        params, opt = optimizer.update(grads, state["opt"], params)
+        with span("train/optimizer"):
+            params, opt = optimizer.update(grads, state["opt"], params)
         return {"params": params, "opt": opt}, {"loss": loss}, residual
 
     return step
