@@ -986,7 +986,6 @@ MIXED_NEWS = (4, 6, 3, 8, 5, 7, 2, 6, 5)
 
 def parity_phase(card):
     import torch
-    from repro_torch import kernels
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -1006,23 +1005,26 @@ def parity_phase(card):
         eng = Engine(cfg, p, EngineConfig(block_size=4, num_blocks=64,
                                           max_blocks_per_seq=8, max_slots=4,
                                           prefill_chunk=8), device=dev)
-        kernels.reset_launch_counts()
-        rids = []
-        for pr, mn in zip(prompts, MIXED_NEWS):
-            rids.append(eng.add_request(pr, mn))
-            eng.step()                              # staggered arrivals
-        eng.defragment()                            # mid-flight compaction
-        eng.drain()
-        # the same prompt twice: the second is fully cached, so the engine
-        # copies its last block (copy-on-write) and re-runs one token
-        rids += [eng.add_request(replay, 5)]
-        eng.drain()
-        rids += [eng.add_request(replay, 5)]
-        got = eng.drain()
+
+        def run(eng=eng):
+            rids = []
+            for pr, mn in zip(prompts, MIXED_NEWS):
+                rids.append(eng.add_request(pr, mn))
+                eng.step()                          # staggered arrivals
+            eng.defragment()                        # mid-flight compaction
+            eng.drain()
+            # the same prompt twice: the second is fully cached, so the
+            # engine copies its last block (copy-on-write) and re-runs one
+            # token
+            rids += [eng.add_request(replay, 5)]
+            eng.drain()
+            rids += [eng.add_request(replay, 5)]
+            got = eng.drain()
+            return [got[r].tolist() for r in rids]
+        outs[dev], n = _counted(eng, run)
         check(eng.stats["cow_copies"] == 1,
               f"{dev}: cow_copies {eng.stats['cow_copies']} != 1")
-        outs[dev] = [got[r].tolist() for r in rids]
-        launches = kernels.launch_counts["paged_attention"]
+        launches = n["paged_attention"]
         check(launches == (eng.stats["decode_steps"] * cfg.num_layers
                            if dev == "cuda" else 0),
               f"{dev}: paged_attention launches {launches}")
@@ -1050,7 +1052,6 @@ def ring_spec_parity_phase(card):
     SpecConfig(k=4) == without; each kernel ran once per layer of its kind
     per decode or verify step."""
     import torch
-    from repro_torch import kernels
     from repro_torch.configs.base import ModelConfig, get_config, reduced
     from repro_torch.models import state_providers as SP
     from repro_torch.models import transformer as T
@@ -1082,9 +1083,8 @@ def ring_spec_parity_phase(card):
         for dev, spec in (("cpu", None), ("cuda", None), ("cuda", 4)):
             eng = Engine(cfg, _tree_to(params, dev), EngineConfig(
                 **ek, spec=SpecConfig(k=spec) if spec else None), device=dev)
-            kernels.reset_launch_counts()
-            outs[dev, spec] = _serve(eng, prompts, news)
-            n = kernels.launch_counts
+            outs[dev, spec], n = _counted(
+                eng, lambda eng=eng: _serve(eng, prompts, news))
             steps = eng.stats["decode_steps"] if dev == "cuda" else 0
             want = ({"paged_attention": n_full * steps,
                      "paged_ring": n_ring * steps}
@@ -1093,8 +1093,7 @@ def ring_spec_parity_phase(card):
                      "paged_ring_verify": n_ring * steps})
             got = {k: n[k] for k in want}
             check(got == want and sum(n.values()) == sum(want.values()),
-                  f"{cfg.name} {dev} spec={spec}: launches {dict(n)} != "
-                  f"{want}")
+                  f"{cfg.name} {dev} spec={spec}: launches {n} != {want}")
         check(outs["cuda", None] == outs["cpu", None],
               f"{cfg.name}: cuda tokens {outs['cuda', None]} != cpu tokens "
               f"{outs['cpu', None]}")
@@ -1104,6 +1103,32 @@ def ring_spec_parity_phase(card):
         print(f"parity {cfg.name}: {len(lens)} staggered requests, cuda "
               f"tokens == cpu tokens, cuda spec k=4 tokens == cuda plain "
               f"(tf32 off) | {card}")
+
+
+def _counted(eng, run):
+    """`run()` from zeroed launch counts; returns its result and the kernel
+    launches it made, by ``kernels.launch_counts`` key. The wrappers count
+    what they issue. An engine that replays its captured decode graph
+    issues the decode's paged kernels through none of them: its run is
+    traced (kernels only, which keeps the trace cheap) and the paged
+    decode kernels that the trace names are added
+    (``kernels.trace_decode_launches``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    if getattr(eng, "_decode_graph", None) is None:
+        out = run()
+        return out, dict(kernels.launch_counts)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    n = dict(kernels.launch_counts)
+    for k, m in kernels.trace_decode_launches(
+            e.name for e in prof.events()
+            if str(e.device_type).endswith("CUDA")).items():
+        n[k] += m
+    return out, n
 
 
 def _launch_want(**counts):
@@ -1121,7 +1146,6 @@ def int8_parity_phase(card):
     request force-preempted once after its second token (budgets of at
     least 4 tokens): cuda == cpu == the cuda run without preemption."""
     import torch
-    from repro_torch import kernels
     from repro_torch.configs.base import ModelConfig, get_config, reduced
     from repro_torch.models import state_providers as SP
     from repro_torch.models import transformer as T
@@ -1163,17 +1187,17 @@ def int8_parity_phase(card):
             eng = Engine(cfg, _tree_to(params, dev), EngineConfig(
                 **ek, kv_quant=kvq,
                 spec=SpecConfig(k=spec) if spec else None), device=dev)
-            kernels.reset_launch_counts()
-            outs[dev, spec] = _serve(eng, prompts, news)
+            outs[dev, spec], n = _counted(
+                eng, lambda eng=eng: _serve(eng, prompts, news))
             steps = eng.stats["decode_steps"] if dev == "cuda" else 0
             want = (_launch_want(paged_attention_int8=n_full * steps,
                                  paged_ring_int8=n_ring * steps)
                     if spec is None else
                     _launch_want(paged_verify_int8=n_full * steps,
                                  paged_ring_verify_int8=n_ring * steps))
-            check(kernels.launch_counts == want,
-                  f"int8 {cfg.name} {dev} spec={spec}: launches "
-                  f"{kernels.launch_counts} != {want}")
+            check(n == want,
+                  f"int8 {cfg.name} {dev} spec={spec}: launches {n} != "
+                  f"{want}")
         for spec in (None, 4):
             check(outs["cuda", spec] == outs["cpu", spec],
                   f"int8 {cfg.name} spec={spec}: cuda tokens "
@@ -1225,7 +1249,6 @@ def main_path_phase(card, kernel_row):
     what the int8 and oversubscription runs reuse: (params, engine config,
     prompts, news, tokens per request)."""
     import torch
-    from repro_torch import kernels
     from repro_torch.configs.base import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -1261,13 +1284,16 @@ def main_path_phase(card, kernel_row):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+
+    def run():
+        outs = eng.drain()
+        torch.cuda.synchronize()
+        return outs, time.perf_counter()
     t0 = time.perf_counter()
     rids = [eng.add_request(p, m) for p, m in zip(prompts, news)]
-    outs = eng.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts["paged_attention"]
+    (outs, t1), n = _counted(eng, run)
+    wall = t1 - t0           # the trace's post-processing left out
+    launches = n["paged_attention"]
 
     check(all(r in outs and len(outs[r]) == m for r, m in zip(rids, news)),
           "not every request finished with its max_new tokens")
@@ -1291,7 +1317,8 @@ def main_path_phase(card, kernel_row):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"main: {len(rids)} requests, {generated} tokens in {wall:.3f} s "
           f"wall = {generated / wall:.2f} tok/s; decode steps {steps}, prefill "
-          f"chunks {eng.stats['prefill_chunks']}; depth not cut | {card}")
+          f"chunks {eng.stats['prefill_chunks']}; depth not cut; kernels "
+          f"traced | {card}")
     print(f"main: TTFT p50 {np.percentile(ttft, 50) * 1e3:.2f} ms p99 "
           f"{np.percentile(ttft, 99) * 1e3:.2f} ms; TPOT p50 "
           f"{np.percentile(tpot, 50) * 1e3:.2f} ms p99 "
@@ -1301,8 +1328,8 @@ def main_path_phase(card, kernel_row):
           f"device {np.median(dev) * 1e3:.2f} ms (median of {len(host)}); "
           f"peak memory {peak:.2f} GiB; B1 launches {launches} = {steps} x "
           f"{cfg.num_layers} | {card}")
-    check(sum(kernels.launch_counts.values()) == launches,
-          f"yi-9b launched other kernels: {kernels.launch_counts}")
+    check(sum(n.values()) == launches,
+          f"yi-9b launched other kernels: {n}")
     kernel_row["launches"] = launches
 
     # the same requests with the host running ahead of the card (no
@@ -1334,9 +1361,8 @@ def _timed_run(card, eng, label, waves, hook=None):
     and device medians, peak resident sequences, preemptions, resumes,
     block appends, the pools' bytes and peak device memory. `waves`: lists
     of (prompt, max_new, priority); `hook(eng)`, if given, runs after every
-    step (a forced preemption)."""
+    step (a forced preemption). The run's launches are `_counted`'s."""
     import torch
-    from repro_torch import kernels
     bad = []
 
     def watch(fn, logits_at):
@@ -1351,25 +1377,28 @@ def _timed_run(card, eng, label, waves, hook=None):
         eng._verify = watch(eng._verify, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    resident = 0
     rids, news = [], []
-    t0 = time.perf_counter()
-    for i, wave in enumerate(waves):
-        if i:
+
+    def run():
+        resident = 0
+        for i, wave in enumerate(waves):
+            if i:
+                eng.step()
+                resident = max(resident, len(eng.scheduler.running))
+            for p, m, pr in wave:
+                rids.append(eng.add_request(p, m, priority=pr))
+                news.append(m)
+        while eng.scheduler.has_work:
             eng.step()
             resident = max(resident, len(eng.scheduler.running))
-        for p, m, pr in wave:
-            rids.append(eng.add_request(p, m, priority=pr))
-            news.append(m)
-    while eng.scheduler.has_work:
-        eng.step()
-        resident = max(resident, len(eng.scheduler.running))
-        if hook is not None:
-            hook(eng)
-    got = eng.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+            if hook is not None:
+                hook(eng)
+        got = eng.drain()
+        torch.cuda.synchronize()
+        return got, resident, time.perf_counter()
+    t0 = time.perf_counter()
+    (got, resident, t1), launches = _counted(eng, run)
+    wall = t1 - t0           # the trace's post-processing left out
     vocab = eng.cfg.vocab_size
     check(all(r in got and len(got[r]) == m for r, m in zip(rids, news)),
           f"{label}: not every request finished with its max_new tokens")
@@ -1391,7 +1420,8 @@ def _timed_run(card, eng, label, waves, hook=None):
                    for layer in eng.pool_state.values()
                    for a in layer.values()) / 2**20
     print(f"{label}: {len(rids)} requests, {generated} tokens in {wall:.3f} s "
-          f"= {generated / wall:.2f} tok/s (each device call synchronized); "
+          f"= {generated / wall:.2f} tok/s (each device call synchronized"
+          f"{', kernels traced' if eng._decode_graph is not None else ''}); "
           f"decode steps {st['decode_steps']}, prefill chunks "
           f"{st['prefill_chunks']}; peak resident sequences {resident}; "
           f"preemptions {st['preemptions']}, resumes {st['resumes']}, block "
@@ -1405,7 +1435,7 @@ def _timed_run(card, eng, label, waves, hook=None):
           f"{eng.ecfg.num_blocks} blocks = {pool_mib:.2f} MiB; peak memory "
           f"{peak:.2f} GiB | {card}")
     return {"outs": [got[r].tolist() for r in rids],
-            "launches": dict(kernels.launch_counts),
+            "launches": launches,
             "steps": st["decode_steps"], "resident": resident,
             "preemptions": st["preemptions"], "resumes": st["resumes"],
             "tok_s": generated / wall, "step_ms": np.median(dev) * 1e3,
@@ -1547,7 +1577,6 @@ def gemma3_main_phase(card, rows):
     of 1500 and 2000 tokens, which wrap the 1040-slot ring during prefill
     and decode past the wrap."""
     import torch
-    from repro_torch import kernels
     from repro_torch.configs.base import get_config
     from repro_torch.models import state_providers as SP
     from repro_torch.models import transformer as T
@@ -1596,13 +1625,15 @@ def gemma3_main_phase(card, rows):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
+
+        def run(eng=eng):
+            got = eng.drain()
+            torch.cuda.synchronize()
+            return got, time.perf_counter()
         t0 = time.perf_counter()
         rids = [eng.add_request(p, m) for p, m in zip(prompts, news)]
-        got = eng.drain()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n = dict(kernels.launch_counts)
+        (got, t1), n = _counted(eng, run)
+        wall = t1 - t0       # the trace's post-processing left out
         check(all(r in got and len(got[r]) == m for r, m in zip(rids, news)),
               f"gemma3 {label}: not every request finished with its max_new "
               f"tokens")
@@ -1934,17 +1965,21 @@ def serve_parity_phase(card):
             eng = Engine(cfg, dp[dev], EngineConfig(
                 **ek, spec=SpecConfig(k=4) if mode == "spec" else None,
                 oversub=slo_off if mode == "preempt" else None), device=dev)
-            kernels.reset_launch_counts()
             rids = [eng.add_request(p, m) for p, m in zip(prompts, news)]
             pending = set(rids) if mode == "preempt" else set()
-            while eng.scheduler.has_work:
-                eng.step()
-                for r in sorted(pending):
-                    req = eng.requests[r]
-                    if req.state == "decoding" and len(req.out_tokens) >= 2:
-                        check(eng.preempt_request(r), f"preempt {r} refused")
-                        pending.discard(r)
-            got = eng.drain()
+
+            def run(eng=eng, pending=pending):
+                while eng.scheduler.has_work:
+                    eng.step()
+                    for r in sorted(pending):
+                        req = eng.requests[r]
+                        if (req.state == "decoding"
+                                and len(req.out_tokens) >= 2):
+                            check(eng.preempt_request(r),
+                                  f"preempt {r} refused")
+                            pending.discard(r)
+                return eng.drain()
+            got, n = _counted(eng, run)
             outs[dev, mode] = [got[r].tolist() for r in rids]
             check(eng.block_pool.num_free == ek["num_blocks"],
                   f"{arch} {dev} {mode}: blocks leaked")
@@ -1959,9 +1994,8 @@ def serve_parity_phase(card):
             steps = eng.stats["decode_steps"] if dev == "cuda" else 0
             key = "paged_verify" if mode == "spec" else "paged_attention"
             want = _launch_want(**{key: n_attn * steps})
-            check(kernels.launch_counts == want,
-                  f"{arch} {dev} {mode}: launches {kernels.launch_counts} "
-                  f"!= {want}")
+            check(n == want,
+                  f"{arch} {dev} {mode}: launches {n} != {want}")
         ref = [serve.generate(cfg, params, p[None], m)[0].tolist()
                for p, m in zip(prompts, news)]
         check(all(outs[k] == ref for k in outs),
@@ -2430,20 +2464,18 @@ def _engine_parity(cfg, dp, modes, ek, prompts, news):
     on cuda from the same weights (`dp`: {device: params}), staggered:
     tokens equal, each paged kernel once per layer a step on cuda and none
     on cpu, no block leaked."""
-    from repro_torch import kernels
     from repro_torch.serving.engine import Engine, EngineConfig
     for label, kw in modes:
         outs = {}
         for dev in ("cpu", "cuda"):
             eng = Engine(cfg, dp[dev], EngineConfig(**ek, **kw), device=dev)
-            kernels.reset_launch_counts()
-            outs[dev] = _serve(eng, prompts, news)
+            outs[dev], n = _counted(
+                eng, lambda eng=eng: _serve(eng, prompts, news))
             want = (_paged_want(cfg, eng.stats["decode_steps"],
                                 spec="spec" in kw, int8="kv_quant" in kw)
                     if dev == "cuda" else _launch_want())
-            check(kernels.launch_counts == want,
-                  f"{cfg.name} {label} {dev}: launches "
-                  f"{kernels.launch_counts} != {want}")
+            check(n == want,
+                  f"{cfg.name} {label} {dev}: launches {n} != {want}")
             check(eng.block_pool.num_free == ek["num_blocks"],
                   f"{cfg.name} {label} {dev}: blocks leaked")
             del eng
@@ -3597,7 +3629,9 @@ def where_time_goes(card, eng, prompts, news, warm=3, window=4,
 def _print_moe_split(averages, busy_ms, wall_ms, window):
     """The device time of the kernels launched inside the program's host
     ranges "moe/apply" and "moe/experts" (the profiler's
-    total device time of a range's ops), as shares of the busy time."""
+    total device time of a range's ops), as shares of the busy time. A
+    replayed decode graph runs no Python and so opens no such range: with
+    one, the split covers the eager calls (prefill, verify) alone."""
     spans = {}
     for e in averages:
         if (e.key in ("moe/apply", "moe/experts") and not

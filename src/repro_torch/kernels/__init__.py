@@ -3,8 +3,13 @@
 ``launch_counts`` holds one plain integer per kernel wrapper; a wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``reset_launch_counts`` zeroes
-them). Each paged-attention mode counts its int8-pool launches under its
-own ``_int8`` key; ``flash_attention`` counts the training attention's
+them). A launch that a CUDA graph records (the serving engine's decode
+capture) counts once, where the capture issues it; the graph's replays
+run no wrapper and count nothing here: the engine counts the replays
+(``decode_graph_replays``), and ``trace_decode_launches`` counts the
+paged kernels they launched from a device trace's kernel names. Each
+paged-attention mode counts its int8-pool launches under its own
+``_int8`` key; ``flash_attention`` counts the training attention's
 forward kernel; ``quantize_stochastic`` (B9) and ``quantize_nearest`` (B8)
 count the block quantizers; ``matmul`` counts the blocked GEMM (B7).
 """
@@ -42,3 +47,31 @@ def launch_line(counts=None) -> str:
     return "kernels: " + " ".join(
         f"{b}={sum(counts[n] for n in names)}"
         for b, names in KERNEL_COUNTS.items())
+
+
+# the paged kernels of a decode step as a device trace names them (their
+# merges aside): the bf16 query's tensor-core kernel, the f32 query's
+# whole-context and ring kernels; where a template takes RING it is the
+# last argument, and int8 pools are `signed char`
+_DECODE_KERNELS = ("paged_decode_tc<", "paged_decode_split_kernel<",
+                   "paged_multi_split_kernel<")
+
+
+def trace_decode_launches(names) -> dict:
+    """The paged decode launches among a device trace's kernel `names`
+    (one name a launch), by ``launch_counts`` key: how a replayed CUDA
+    graph's launches, which no wrapper counts, are counted. A verify step
+    launches the same kernels, so the trace must hold no verify step."""
+    out = {}
+    for name in names:
+        # "void (anonymous namespace)::paged_decode_tc<128, ...>(...)"
+        at = max(name.find(k) + len(k) if k in name else -1
+                 for k in _DECODE_KERNELS)
+        if at < 0:
+            continue
+        args = name[at:name.index(">", at)].split(", ")
+        key = "paged_ring" if args[-1] == "true" else "paged_attention"
+        if "signed char" in args:
+            key += "_int8"
+        out[key] = out.get(key, 0) + 1
+    return out

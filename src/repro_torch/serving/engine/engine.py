@@ -20,7 +20,9 @@ functions over the paged KV pools:
   * ``decode_fn`` — one token for EVERY decoding slot at once
     (``transformer.paged_decode_step``, whose attention is a hand-written
     paged-attention kernel on CUDA: full or ring mode); requests join and
-    leave the batch between steps, the shapes stay fixed at max_slots.
+    leave the batch between steps, the shapes stay fixed at max_slots. On
+    a card, with no sharding plan and no speculation, it is captured once
+    at construction as a CUDA graph and replayed (``decode_graph``).
   * ``verify_fn`` — with ``EngineConfig.spec``, replaces the decode step:
     k tokens per slot (the pending token plus k-1 drafts) through the
     multi-query verify kernels, greedy acceptance on the device
@@ -92,6 +94,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import serve as SERVE
 from repro_torch.serving import telemetry as TM
 from repro_torch.serving.engine import spec as SPEC
+from repro_torch.serving.engine.decode_graph import DecodeGraph
 from repro_torch.serving.engine.oversub import OversubConfig, SLOPolicy
 from repro_torch.serving.engine.paged_cache import BlockPool
 from repro_torch.serving.engine.spec import SpecConfig
@@ -296,6 +299,12 @@ class Engine:
         self._m_prefill_deferrals = reg.counter(
             "engine_prefill_deferrals_total",
             "steps that skipped prefill under SLO/pool pressure")
+        self._m_decode_replays = reg.counter(
+            "engine_decode_graph_replays_total",
+            "decode calls replayed from the captured CUDA graph")
+        self._m_decode_captures = reg.counter(
+            "engine_decode_graph_captures_total",
+            "captures of the decode step as a CUDA graph")
         self._m_verify_steps = reg.counter(
             "engine_verify_steps_total", "speculative verify steps dispatched")
         self._m_draft = reg.counter(
@@ -406,8 +415,9 @@ class Engine:
         self._next_rid = 0
         self.requests: dict = {}        # rid -> Request (all ever submitted)
 
-        (self._decode, self._prefill, self._copy_block, self._reset_slot,
+        (self._decode_fn, self._prefill, self._copy_block, self._reset_slot,
          self._verify) = _step_fns(cfg, e, plan)
+        self._decode = self._decode_call
         if self.telemetry.enabled:
             wrap = self.telemetry.recompiles.wrap
             self._decode = wrap("decode", self._decode)
@@ -419,6 +429,7 @@ class Engine:
         self._step_device_s = 0.0
         self._warmup_prefill()
         self._warmup_verify()
+        self._decode_graph = self._capture_decode()
 
     def _to_device(self, a: np.ndarray):
         # non-blocking: CUDA stages a pageable source before returning, so
@@ -457,6 +468,33 @@ class Engine:
             self.tables, z, torch.zeros((e.max_slots,), dtype=torch.bool,
                                         device=self.device), z)
 
+    def _capture_decode(self) -> Optional[DecodeGraph]:
+        """The decode step as a replayed CUDA graph where it can be one: on
+        a card, with no sharding plan and no speculation (whose verify
+        replaces the decode); None elsewhere, where the decode runs op by
+        op. A step that cannot be captured raises here."""
+        if (self.device.type != "cuda" or self.plan is not None
+                or self.ecfg.spec is not None):
+            return None
+        graph = DecodeGraph(
+            self._decode_fn,
+            (self.next_tok, self.tables, self.seq_lens, self.active),
+            captures=self._m_decode_captures)
+        graph.capture(self.params, self.pool_state)
+        return graph
+
+    def _decode_call(self, params, pool, tokens, tables, seq_lens, active):
+        """The decode step: a replay of the captured graph
+        (``decode_graph_replays`` in ``stats``), or, without one, the
+        step's own ops."""
+        if self._decode_graph is None:
+            return self._decode_fn(params, pool, tokens, tables, seq_lens,
+                                   active)
+        out = self._decode_graph(params, pool, tokens, tables, seq_lens,
+                                 active)
+        self._m_decode_replays.inc()
+        return out
+
     @property
     def stats(self) -> dict:
         """Snapshot of the registry-backed engine counters (read-only view,
@@ -477,7 +515,9 @@ class Engine:
                "cow_copies": self._m_cow.value,
                "preemptions": self._m_preempts.value,
                "resumes": self._m_resumes.value,
-               "block_appends": self._m_appends.value}
+               "block_appends": self._m_appends.value,
+               "decode_graph_replays": self._m_decode_replays.value,
+               "decode_graph_captures": self._m_decode_captures.value}
         for name, (calls, host_s) in self.telemetry.span_totals().items():
             out[f"span_calls.{name}"] = calls
             out[f"span_host_s.{name}"] = host_s
